@@ -23,7 +23,8 @@
 //      >= n_valid in the last tile get -1e30. The normalised, gated output is
 //      written as merged heads (B, n_pad, heads*64). In bf16 the scores and
 //      the output accumulator stay in registers (flash_mma_kernel); the
-//      float32 version stages them in shared memory (flash_fma_kernel).
+//      float32 version stages them in shared memory (flash_fma_kernel). Both
+//      kernels live in tiles.cuh, shared with attention.cu.
 //   4. The output projection GEMM with the residual add in its epilogue.
 // The TPU kernel keeps every intermediate in VMEM. Here xn, q, k, v, the
 // gates and the merged heads round-trip through device memory between
@@ -75,260 +76,18 @@ template <typename T> struct QkvEpi {
     }
 };
 
-constexpr size_t flash_fma_smem_bytes() {
-    // Q, K, V, P operand tiles; S and O fp32 tiles; running max and sum.
-    return 4 * TILE * F_LD * sizeof(float) + 2 * TILE * ACC_LD * sizeof(float) +
-           2 * TILE * sizeof(float);
-}
-
-// blockIdx.x = (batch * heads + head) * q_tiles + q_tile.
-__global__ void __launch_bounds__(THREADS)
-flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ gates,
-                 float* __restrict__ merged, int n_pad, int heads, int n_valid, float scale) {
-    constexpr int LD = F_LD;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* Qs = reinterpret_cast<float*>(smem_raw);
-    float* Ks = Qs + TILE * LD;
-    float* Vs = Ks + TILE * LD;
-    float* Ps = Vs + TILE * LD;
-    float* Ss = Ps + TILE * LD;
-    float* Os = Ss + TILE * ACC_LD;
-    float* m_s = Os + TILE * ACC_LD;
-    float* l_s = m_s + TILE;
-
-    const int q_tiles = n_pad / TILE;
-    const int qt = blockIdx.x % q_tiles;
-    const int bh = blockIdx.x / q_tiles;  // batch * heads + head
-    const int head = bh % heads, b = bh / heads;
-    const size_t base = (size_t)bh * n_pad * 64;
-
-    load_tile(Qs, q + base + (size_t)qt * TILE * 64, 64, TILE);
-    for (int i = threadIdx.x; i < TILE * ACC_LD; i += THREADS) Os[i] = 0.f;
-    if (threadIdx.x < TILE) {
-        m_s[threadIdx.x] = -INFINITY;
-        l_s[threadIdx.x] = 0.f;
+// The attention launch's Out policy: the gated result as merged heads
+// (B, n_pad, heads*64).
+template <typename T> struct MergedGatedOut {
+    const float* gates;
+    T* merged;
+    int n_pad, heads;
+    __device__ T* row(int bh, int n) const {
+        const int b = bh / heads, head = bh % heads;
+        return merged + ((size_t)b * n_pad + n) * heads * 64 + head * 64;
     }
-
-    // Softmax work split: 4 threads per query row, columns sub, sub+4, ...
-    const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
-    const int key_tiles = (n_valid + TILE - 1) / TILE;
-    for (int kt = 0; kt < key_tiles; ++kt) {
-        __syncthreads();
-        load_tile(Ks, k + base + (size_t)kt * TILE * 64, 64, TILE);
-        load_tile(Vs, v + base + (size_t)kt * TILE * 64, 64, TILE);
-        __syncthreads();
-        {
-            FmaAcc s;
-            s.zero();
-            s.mma<true>(Qs, Ks);
-            s.store(Ss);
-        }
-        __syncthreads();
-
-        const float m_old = m_s[r];
-        float sv[16];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int c = sub + 4 * i;
-            float val = Ss[r * ACC_LD + c] * scale;
-            if (kt * TILE + c >= n_valid) val = -1e30f;
-            sv[i] = val;
-            mx = fmaxf(mx, val);
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_old, mx);
-        const float alpha = expf(m_old - m_new);
-        float lsum = 0.f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int c = sub + 4 * i;
-            const float p = expf(sv[i] - m_new);
-            lsum += p;
-            Ps[r * LD + c] = p;
-            Os[r * ACC_LD + c] *= alpha;
-        }
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-        if (sub == 0) {
-            m_s[r] = m_new;
-            l_s[r] = l_s[r] * alpha + lsum;
-        }
-        __syncthreads();
-        {
-            FmaAcc o;
-            o.load(Os);
-            o.mma<false>(Ps, Vs);
-            o.store(Os);
-        }
-    }
-    __syncthreads();
-
-    const int hd = heads * 64;
-    for (int idx = threadIdx.x; idx < TILE * 64; idx += THREADS) {
-        const int rr = idx / 64, j = idx % 64;
-        const int n = qt * TILE + rr;
-        const float g = gates[(size_t)bh * n_pad + n];
-        merged[((size_t)b * n_pad + n) * hd + head * 64 + j] = Os[rr * ACC_LD + j] / l_s[rr] * g;
-    }
-}
-
-// bf16 attention with scores and output in registers (FlashAttention-2
-// style). A block of 4 warps takes 64 queries of one (batch, head); warp w
-// owns query rows 16w .. 16w+15. Per 64-key tile: S = Q·Kᵀ by mma.sync
-// (K rows read untransposed by ldmatrix are Kᵀ's column fragments), an online
-// softmax on the accumulators (a row lives in the 4 lanes sharing lane/4),
-// P = exp(S - m) rounded to bf16 straight into A fragments, O += P·V (V read
-// with ldmatrix.trans). K and V tiles are double-buffered with cp.async.
-constexpr int FA_WARPS = 4;
-constexpr int FA_LD = TILE + 8;  // bf16 elements; 144-byte rows, ldmatrix conflict-free
-
-constexpr size_t flash_mma_smem_bytes() { return 5 * TILE * FA_LD * sizeof(bf16); }
-
-__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src) {
-    for (int ch = threadIdx.x; ch < TILE * TILE / 8; ch += FA_WARPS * 32) {
-        const int r = ch / (TILE / 8), c = (ch % (TILE / 8)) * 8;
-        cp_async16(dst + r * FA_LD + c, src + (size_t)r * 64 + c);
-    }
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const unsigned*>(&h);
-}
-
-__global__ void __launch_bounds__(FA_WARPS * 32)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ gates,
-                 bf16* __restrict__ merged, int n_pad, int heads, int n_valid, float scale) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Ks = Qs + TILE * FA_LD;      // two stages
-    bf16* Vs = Ks + 2 * TILE * FA_LD;  // two stages
-
-    const int q_tiles = n_pad / TILE;
-    const int qt = blockIdx.x % q_tiles;
-    const int bh = blockIdx.x / q_tiles;
-    const int head = bh % heads, b = bh / heads;
-    const size_t base = (size_t)bh * n_pad * 64;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int key_tiles = (n_valid + TILE - 1) / TILE;
-
-    fa_load_tile(Qs, q + base + (size_t)qt * TILE * 64);
-    fa_load_tile(Ks, k + base);
-    fa_load_tile(Vs, v + base);
-    cp_async_commit();
-
-    unsigned qa[4][4];  // Q fragments, 4 chunks of 16 dims
-    float o[8][4];      // O: 8 tiles of 8 dims; [0..1] row lane/4, [2..3] row +8
-    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-    for (int kt = 0; kt < key_tiles; ++kt) {
-        const int st = kt & 1;
-        if (kt + 1 < key_tiles) {
-            fa_load_tile(Ks + (st ^ 1) * TILE * FA_LD, k + base + (size_t)(kt + 1) * TILE * 64);
-            fa_load_tile(Vs + (st ^ 1) * TILE * FA_LD, v + base + (size_t)(kt + 1) * TILE * 64);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (kt == 0) {
-#pragma unroll
-            for (int kc = 0; kc < 4; ++kc)
-                ldmatrix_x4(qa[kc], Qs + (warp * 16 + lane % 16) * FA_LD + kc * 16 + (lane / 16) * 8);
-        }
-        const bf16* Kt = Ks + st * TILE * FA_LD;
-        const bf16* Vt = Vs + st * TILE * FA_LD;
-
-        float s[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                unsigned t[4];
-                ldmatrix_x4(t, Kt + (jj * 16 + lane % 8 + (lane / 16) * 8) * FA_LD + kc * 16 +
-                                   ((lane / 8) % 2) * 8);
-                const unsigned b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
-                mma_16816(s[2 * jj], qa[kc], b0);
-                mma_16816(s[2 * jj + 1], qa[kc], b1);
-            }
-
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int key = kt * TILE + 8 * j + (lane % 4) * 2 + (e & 1);
-                s[j][e] = key < n_valid ? s[j][e] * scale : -1e30f;
-                mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-            }
-        float alpha[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-            const float m_new = fmaxf(m_run[h], mx[h]);
-            alpha[h] = expf(m_run[h] - m_new);
-            m_run[h] = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[j][e] = expf(s[j][e] - m_run[e / 2]);
-                lsum[e / 2] += s[j][e];
-                o[j][e] *= alpha[e / 2];
-            }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
-            lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
-            l_run[h] = l_run[h] * alpha[h] + lsum[h];
-        }
-
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc) {
-            const unsigned pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                                    pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                                    pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                                    pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                unsigned t[4];
-                ldmatrix_x4_trans(t, Vt + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * FA_LD +
-                                         jj * 16 + (lane / 16) * 8);
-                const unsigned b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
-                mma_16816(o[2 * jj], pa, b0);
-                mma_16816(o[2 * jj + 1], pa, b1);
-            }
-        }
-        __syncthreads();
-    }
-
-    const int hd = heads * 64;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int n = qt * TILE + warp * 16 + lane / 4 + 8 * h;
-        const float f = gates[(size_t)bh * n_pad + n] / l_run[h];
-        bf16* dst = merged + ((size_t)b * n_pad + n) * hd + head * 64 + (lane % 4) * 2;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-                __floats2bfloat162_rn(o[j][2 * h] * f, o[j][2 * h + 1] * f);
-    }
-}
+    __device__ float gain(int bh, int n) const { return gates[(size_t)bh * n_pad + n]; }
+};
 
 template <typename T>
 int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gate_b,
@@ -346,16 +105,16 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
 
     const dim3 grid(batch * heads * (n_pad / TILE));
     const float scale = 0.125f;  // 64^-0.5
+    const MergedGatedOut<T> attn_out{gates, merged, n_pad, heads};
     if constexpr (sizeof(T) == 2)
-        err = launch_block(flash_mma_kernel, grid, FA_WARPS * 32, flash_mma_smem_bytes(), stream,
-                           static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), static_cast<const float*>(gates), merged,
-                           n_pad, heads, n_valid, scale);
+        err = launch_block(flash_mma_kernel<64, MergedGatedOut<T>>, grid, FA_WARPS * 32,
+                           flash_mma_smem_bytes<64>(), stream, static_cast<const T*>(q),
+                           static_cast<const T*>(k), static_cast<const T*>(v), attn_out, n_pad,
+                           n_valid, scale);
     else
-        err = launch(flash_fma_kernel, grid, flash_fma_smem_bytes(), stream,
-                     static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<const float*>(gates), merged, n_pad,
-                     heads, n_valid, scale);
+        err = launch(flash_fma_kernel<1, MergedGatedOut<T>>, grid, flash_fma_smem_bytes<1>(),
+                     stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), attn_out, n_pad, n_valid, scale);
     if (err != cudaSuccess) return err;
 
     const ResidualEpi<T> out_epi{x, nullptr, out, d_model};

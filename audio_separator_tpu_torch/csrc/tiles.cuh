@@ -14,10 +14,15 @@
 //                      block-level 64x64x64 FMA product on it, used by the
 //                      float32 attention kernel;
 //   * ldmatrix / mma_16816 — the bf16 tensor-core building blocks of the bf16
-//                      GEMM and the bf16 attention kernel.
+//                      GEMM and the bf16 attention kernel;
+//   * flash_fma_kernel / flash_mma_kernel — softmax(q·kᵀ·scale, masked)·v over
+//                      (batch·head, rows, 64 or 128) operands with an online
+//                      softmax over 64-key tiles, float32 (FMA) and bf16
+//                      (tensor cores); where the result goes, and what it is
+//                      multiplied by on the way, is the caller's Out policy.
 //
-// The launch entry points (attention_block.cu, ff_block.cu) expose a plain C
-// interface so the library builds without PyTorch's headers and loads with
+// The launch entry points (attention_block.cu, ff_block.cu, attention.cu)
+// expose a plain C interface so the library builds without PyTorch's headers and loads with
 // ctypes; they return cudaGetLastError() after each launch.
 #pragma once
 
@@ -132,14 +137,18 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restri
 // ---------------------------------------------------------------------------
 // 64x64 tiles for the float32 attention kernel.
 
-// dst[r][c] = src[r * ld + c] for a 64x64 tile; columns >= valid_cols read 0.
-__device__ void load_tile(float* dst, const float* src, int ld, int valid_cols) {
+// dst[r][c] = src[r * ld + c] for a 64x64 tile; columns >= valid_cols and
+// rows >= valid_rows read 0 (and are never dereferenced).
+__device__ void load_tile(float* dst, const float* src, int ld, int valid_cols,
+                          int valid_rows = TILE) {
     const bool vec = (ld % 4 == 0) && (reinterpret_cast<uintptr_t>(src) % 16 == 0);
     for (int g = threadIdx.x; g < TILE * TILE / 4; g += THREADS) {
         const int r = g / (TILE / 4), c = (g % (TILE / 4)) * 4;
         const float* p = src + (size_t)r * ld + c;
         float v[4];
-        if (vec && c + 4 <= valid_cols) {
+        if (r >= valid_rows) {
+            v[0] = v[1] = v[2] = v[3] = 0.f;
+        } else if (vec && c + 4 <= valid_cols) {
             load4(p, v);
         } else {
 #pragma unroll
@@ -488,6 +497,311 @@ gemm_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int b_co
         const int r = idx / (W_BN / 8), c0 = (idx % (W_BN / 8)) * 8;
         const int count = min(8, bs.valid - c0);
         if (row0 + r < M && count > 0) epi(Cs + r * W_C_LD, c0, count, row0 + r, col0 + c0);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Flash-style attention: o = softmax(q·kᵀ·scale, key columns >= n_valid
+// masked to -1e30)·v for each (batch, head). q, k, v are (batch·heads, n_rows,
+// DH) contiguous, DH = 64 or 128. One block takes 64 queries of one (batch,
+// head) and walks 64-key tiles with an online softmax, so no (n, n) score
+// matrix is stored. Key tiles wholly past n_valid are skipped; rows past
+// n_rows (the ragged last tile) are read as zeros and never written.
+//
+// The Out policy says where a query row's result goes and what multiplies it:
+//     T* row(int bh, int n)        first element of the DH outputs of query n
+//     float gain(int bh, int n)    factor applied with the 1/l normalisation
+
+// Queries' results (batch·heads, n_rows, dh) head-major, as the inputs are.
+template <typename T> struct HeadMajorOut {
+    T* o;
+    int n_rows, dh;
+    __device__ T* row(int bh, int n) const { return o + ((size_t)bh * n_rows + n) * dh; }
+    __device__ float gain(int, int) const { return 1.f; }
+};
+
+template <int HALVES> constexpr size_t flash_fma_smem_bytes() {
+    // Q, K, V operand tiles per 64-wide half, P; the S tile and one O tile per
+    // half in fp32; running max and sum.
+    return (3 * HALVES + 1) * TILE * F_LD * sizeof(float) +
+           (1 + HALVES) * TILE * ACC_LD * sizeof(float) + 2 * TILE * sizeof(float);
+}
+
+// float32. blockIdx.x = (batch * heads + head) * q_tiles + q_tile. The head
+// dimension is HALVES 64-wide halves: S sums the halves' products, O keeps one
+// accumulator tile per half.
+template <int HALVES, class Out>
+__global__ void __launch_bounds__(THREADS)
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, Out out, int n_rows, int n_valid, float scale) {
+    constexpr int LD = F_LD, DH = TILE * HALVES;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    float* Qs = reinterpret_cast<float*>(smem_raw);
+    float* Ks = Qs + HALVES * TILE * LD;
+    float* Vs = Ks + HALVES * TILE * LD;
+    float* Ps = Vs + HALVES * TILE * LD;
+    float* Ss = Ps + TILE * LD;
+    float* Os = Ss + TILE * ACC_LD;
+    float* m_s = Os + HALVES * TILE * ACC_LD;
+    float* l_s = m_s + TILE;
+
+    const int q_tiles = (n_rows + TILE - 1) / TILE;
+    const int qt = blockIdx.x % q_tiles;
+    const int bh = blockIdx.x / q_tiles;  // batch * heads + head
+    const size_t base = (size_t)bh * n_rows * DH;
+
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+        load_tile(Qs + h * TILE * LD, q + base + (size_t)qt * TILE * DH + h * TILE, DH, TILE,
+                  n_rows - qt * TILE);
+    for (int i = threadIdx.x; i < HALVES * TILE * ACC_LD; i += THREADS) Os[i] = 0.f;
+    if (threadIdx.x < TILE) {
+        m_s[threadIdx.x] = -INFINITY;
+        l_s[threadIdx.x] = 0.f;
+    }
+
+    // Softmax work split: 4 threads per query row, columns sub, sub+4, ...
+    const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
+    const int key_tiles = (n_valid + TILE - 1) / TILE;
+    for (int kt = 0; kt < key_tiles; ++kt) {
+        __syncthreads();
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+            const size_t off = base + (size_t)kt * TILE * DH + h * TILE;
+            load_tile(Ks + h * TILE * LD, k + off, DH, TILE, n_rows - kt * TILE);
+            load_tile(Vs + h * TILE * LD, v + off, DH, TILE, n_rows - kt * TILE);
+        }
+        __syncthreads();
+        {
+            FmaAcc s;
+            s.zero();
+#pragma unroll
+            for (int h = 0; h < HALVES; ++h) s.mma<true>(Qs + h * TILE * LD, Ks + h * TILE * LD);
+            s.store(Ss);
+        }
+        __syncthreads();
+
+        const float m_old = m_s[r];
+        float sv[16];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int c = sub + 4 * i;
+            float val = Ss[r * ACC_LD + c] * scale;
+            if (kt * TILE + c >= n_valid) val = -1e30f;
+            sv[i] = val;
+            mx = fmaxf(mx, val);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_old, mx);
+        const float alpha = expf(m_old - m_new);
+        float lsum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int c = sub + 4 * i;
+            const float p = expf(sv[i] - m_new);
+            lsum += p;
+            Ps[r * LD + c] = p;
+#pragma unroll
+            for (int h = 0; h < HALVES; ++h) Os[h * TILE * ACC_LD + r * ACC_LD + c] *= alpha;
+        }
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+        if (sub == 0) {
+            m_s[r] = m_new;
+            l_s[r] = l_s[r] * alpha + lsum;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+            FmaAcc o;
+            o.load(Os + h * TILE * ACC_LD);
+            o.mma<false>(Ps, Vs + h * TILE * LD);
+            o.store(Os + h * TILE * ACC_LD);
+        }
+    }
+    __syncthreads();
+
+    for (int idx = threadIdx.x; idx < TILE * DH; idx += THREADS) {
+        const int rr = idx / DH, j = idx % DH;
+        const int n = qt * TILE + rr;
+        if (n < n_rows)
+            out.row(bh, n)[j] =
+                Os[(j / TILE) * TILE * ACC_LD + rr * ACC_LD + j % TILE] / l_s[rr] * out.gain(bh, n);
+    }
+}
+
+// bf16 attention with scores and output in registers (FlashAttention-2
+// style). A block of 4 warps takes 64 queries of one (batch, head); warp w
+// owns query rows 16w .. 16w+15. Per 64-key tile: S = Q·Kᵀ by mma.sync
+// (K rows read untransposed by ldmatrix are Kᵀ's column fragments), an online
+// softmax on the accumulators (a row lives in the 4 lanes sharing lane/4),
+// P = exp(S - m) rounded to bf16 straight into A fragments, O += P·V (V read
+// with ldmatrix.trans). K and V tiles are double-buffered with cp.async.
+constexpr int FA_WARPS = 4;
+
+// Shared-memory rows are DH + FA_PAD bf16 elements: 16-byte aligned rows
+// whose ldmatrix reads are conflict-free (144 and 272 bytes).
+constexpr int FA_PAD = 8;
+
+template <int DH> constexpr size_t flash_mma_smem_bytes() {
+    return 5 * TILE * (DH + FA_PAD) * sizeof(bf16);
+}
+
+// 64 rows of DH from src (row stride DH); rows >= valid_rows become zeros.
+template <int DH>
+__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src, int valid_rows) {
+    constexpr int CH = DH / 8, LD = DH + FA_PAD;
+    for (int ch = threadIdx.x; ch < TILE * CH; ch += FA_WARPS * 32) {
+        const int r = ch / CH, c = (ch % CH) * 8;
+        bf16* d = dst + r * LD + c;
+        if (r < valid_rows)
+            cp_async16(d, src + (size_t)r * DH + c);
+        else
+            *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <int DH, class Out>
+__global__ void __launch_bounds__(FA_WARPS * 32)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, Out out, int n_rows, int n_valid, float scale) {
+    constexpr int LD = DH + FA_PAD;
+    constexpr int KC = DH / 16;  // 16-deep chunks of the head dimension
+    constexpr int OT = DH / 8;   // 8-wide output tiles
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* Ks = Qs + TILE * LD;      // two stages
+    bf16* Vs = Ks + 2 * TILE * LD;  // two stages
+
+    const int q_tiles = (n_rows + TILE - 1) / TILE;
+    const int qt = blockIdx.x % q_tiles;
+    const int bh = blockIdx.x / q_tiles;
+    const size_t base = (size_t)bh * n_rows * DH;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int key_tiles = (n_valid + TILE - 1) / TILE;
+
+    fa_load_tile<DH>(Qs, q + base + (size_t)qt * TILE * DH, n_rows - qt * TILE);
+    fa_load_tile<DH>(Ks, k + base, n_rows);
+    fa_load_tile<DH>(Vs, v + base, n_rows);
+    cp_async_commit();
+
+    unsigned qa[KC][4];  // Q fragments, KC chunks of 16 dims
+    float o[OT][4];      // O: OT tiles of 8 dims; [0..1] row lane/4, [2..3] row +8
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+    for (int kt = 0; kt < key_tiles; ++kt) {
+        const int st = kt & 1;
+        if (kt + 1 < key_tiles) {
+            const size_t off = base + (size_t)(kt + 1) * TILE * DH;
+            fa_load_tile<DH>(Ks + (st ^ 1) * TILE * LD, k + off, n_rows - (kt + 1) * TILE);
+            fa_load_tile<DH>(Vs + (st ^ 1) * TILE * LD, v + off, n_rows - (kt + 1) * TILE);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (kt == 0) {
+#pragma unroll
+            for (int kc = 0; kc < KC; ++kc)
+                ldmatrix_x4(qa[kc], Qs + (warp * 16 + lane % 16) * LD + kc * 16 + (lane / 16) * 8);
+        }
+        const bf16* Kt = Ks + st * TILE * LD;
+        const bf16* Vt = Vs + st * TILE * LD;
+
+        float s[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+                unsigned t[4];
+                ldmatrix_x4(t, Kt + (jj * 16 + lane % 8 + (lane / 16) * 8) * LD + kc * 16 +
+                                   ((lane / 8) % 2) * 8);
+                const unsigned b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
+                mma_16816(s[2 * jj], qa[kc], b0);
+                mma_16816(s[2 * jj + 1], qa[kc], b1);
+            }
+
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = kt * TILE + 8 * j + (lane % 4) * 2 + (e & 1);
+                s[j][e] = key < n_valid ? s[j][e] * scale : -1e30f;
+                mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+            }
+        float alpha[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            const float m_new = fmaxf(m_run[h], mx[h]);
+            alpha[h] = expf(m_run[h] - m_new);
+            m_run[h] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = expf(s[j][e] - m_run[e / 2]);
+                lsum[e / 2] += s[j][e];
+            }
+#pragma unroll
+        for (int j = 0; j < OT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e / 2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+            lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+            l_run[h] = l_run[h] * alpha[h] + lsum[h];
+        }
+
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {  // 16-key chunks of the tile
+            const unsigned pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                                    pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                                    pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                                    pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+            for (int jj = 0; jj < OT / 2; ++jj) {
+                unsigned t[4];
+                ldmatrix_x4_trans(t, Vt + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                                         jj * 16 + (lane / 16) * 8);
+                const unsigned b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
+                mma_16816(o[2 * jj], pa, b0);
+                mma_16816(o[2 * jj + 1], pa, b1);
+            }
+        }
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int n = qt * TILE + warp * 16 + lane / 4 + 8 * h;
+        if (n >= n_rows) continue;
+        const float f = out.gain(bh, n) / l_run[h];
+        bf16* dst = out.row(bh, n) + (lane % 4) * 2;
+#pragma unroll
+        for (int j = 0; j < OT; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(o[j][2 * h] * f, o[j][2 * h + 1] * f);
     }
 }
 

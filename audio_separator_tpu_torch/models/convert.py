@@ -1,5 +1,6 @@
 """Checkpoint conversion: upstream torch state dicts → the parameter tree of
-``models/roformer.Roformer``, and that tree → the module.
+``models/roformer.Roformer``, and that tree → the module; the JAX package's
+HTDemucs tree → ``models/htdemucs.HTDemucs``.
 
 The tree is the JAX package's parameter pytree (numpy leaves: per-depth
 transformer layers stacked along a leading axis, ``nn.Linear`` weights as
@@ -198,4 +199,15 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
                 raise ValueError(f"{key}: tree shape {tuple(value.shape)} != "
                                  f"module shape {tuple(target.shape)}")
             target.copy_(torch.from_numpy(np.ascontiguousarray(value, np.float32)))
+    return module
+
+
+def load_jax_htdemucs_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX package's HTDemucs parameter tree (nested dicts of numpy
+    arrays keyed by the upstream state-dict path split on ``.``) into an
+    ``HTDemucs`` module. Strict: every key of the tree is consumed and every
+    parameter of the module is set."""
+    state = {key: torch.from_numpy(np.ascontiguousarray(value, np.float32))
+             for key, value in flatten_tree(tree).items()}
+    module.load_state_dict(state, strict=True)
     return module

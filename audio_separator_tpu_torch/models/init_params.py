@@ -1,6 +1,8 @@
-"""Seeded random parameter trees for RoFormer configs, in the layout of
-``models/convert.convert_roformer`` — for smoke runs and benchmarks where no
-trained checkpoint is on disk. Load one with ``convert.load_jax_params``."""
+"""Seeded random parameter trees — for smoke runs and benchmarks where no
+trained checkpoint is on disk. RoFormer trees are in the layout of
+``models/convert.convert_roformer`` (load one with ``convert.load_jax_params``);
+HTDemucs trees are in the upstream state-dict layout split on ``.`` (load one
+with ``convert.load_jax_htdemucs_params``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from typing import Any, Dict
 
 import numpy as np
 
+from .diffq_restore import demucs_param_manifest
+from .htdemucs import HTDemucsConfig
 from .roformer import RoformerConfig, band_layout
 
 
@@ -106,3 +110,49 @@ def flagship_config() -> RoformerConfig:
         stft_n_fft=2048, stft_hop_length=441, stft_win_length=2048,
         mask_estimator_depth=2,
     )
+
+
+def htdemucs_full_config(sources=("drums", "bass", "other", "vocals")) -> HTDemucsConfig:
+    """The published ``htdemucs`` (signature 955717e8) constructor arguments."""
+    return HTDemucsConfig(
+        sources=tuple(sources), channels=48, growth=2, nfft=4096, depth=4, kernel_size=8,
+        stride=4, dconv_depth=2, dconv_comp=8, t_layers=5, t_heads=8, t_hidden_scale=4.0,
+        bottom_channels=512, segment=7.8, use_train_segment=True)
+
+
+def htdemucs_kwargs(cfg: HTDemucsConfig) -> Dict[str, Any]:
+    """A config as the constructor arguments a checkpoint package records."""
+    return {**cfg.__dict__, "sources": list(cfg.sources)}
+
+
+def init_htdemucs_params(cfg: HTDemucsConfig, seed: int = 0,
+                         layer_scale: float = 0.5) -> Dict[str, Any]:
+    """A tree with every key and shape of the upstream state dict. Weights are
+    drawn from N(0, 1/fan_in) (so activations keep their scale through the
+    depth), norm gains are one, biases small, and the LayerScale gains
+    ``layer_scale`` rather than the 1e-4 of a fresh model, so that the DConv
+    branches and the transformer contribute to the output."""
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, Any] = {}
+    for key, shape in demucs_param_manifest("HTDemucs", htdemucs_kwargs(cfg)):
+        parts = key.split(".")
+        leaf = parts[-1]
+        if leaf == "scale":
+            value = np.full(shape, layer_scale, np.float32)
+        elif leaf in ("bias", "in_proj_bias"):
+            value = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        elif len(shape) == 1:  # norm gains
+            value = np.ones(shape, np.float32)
+        elif parts[0] == "freq_emb":
+            value = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+        else:
+            # Conv (out, in, *k), ConvTranspose (in, out, *k) and Linear
+            # (out, in): the fan-in is everything but the output channels.
+            out_axis = 1 if parts[-2] == "conv_tr" else 0
+            fan_in = int(np.prod(shape)) // shape[out_axis]
+            value = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree

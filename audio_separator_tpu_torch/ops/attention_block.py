@@ -1,5 +1,6 @@
 """The RoFormer layer's two fused blocks: CUDA kernels for Hopper, their
-plain PyTorch versions, launch counters and the kernel loader.
+plain PyTorch versions and wrappers (the kernel loader and the launch
+counters are ``ops/_build.py``'s).
 
 ``fused_attention_block`` replaces the Pallas TPU kernel
 ``audio_separator_tpu/ops/attention_block.py::fused_attention_block``
@@ -40,135 +41,17 @@ that and the absence of TMA/``wgmma`` are what hold the kernels back today.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-# ---------------------------------------------------------------------------
-# Launch counters: each wrapper adds one where it launches its kernel chain.
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind,
+                     load, reset_launch_counts, stream)
 
-LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-# ---------------------------------------------------------------------------
-# Kernel loader: nvcc → plain-C shared library → ctypes, built at first use.
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-KERNEL_SOURCES = {"attention_block": "attention_block.cu",
-                  "ff_block": "ff_block.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "attention_block": ("asep_attention_block",
-                        [_I] + [_P] * 15 + [_I] * 5 + [_P]),
-    "ff_block": ("asep_ff_block", [_I] + [_P] * 9 + [_I] * 3 + [_P]),
-}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
-
-
-def find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
-        "kernels are compiled from audio_separator_tpu_torch/csrc at first "
-        "use and need the CUDA toolkit")
-
-
-def _sources_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in sorted(os.listdir(CSRC_DIR)):
-        if fn.endswith((".cu", ".cuh")):
-            h.update(fn.encode())
-            with open(os.path.join(CSRC_DIR, fn), "rb") as f:
-                h.update(f.read())
-    return h.hexdigest()[:16]
-
-
-def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"{name}-{_sources_digest()}.so")
-
-
-def build_kernels() -> Dict[str, str]:
-    """Compile every kernel library not built yet for these sources, one nvcc
-    per source, all started together. Returns ``{name: ptxas report}``.
-
-    Outputs are keyed on a hash of the sources and flags and written under a
-    temporary name, then renamed, so concurrent processes never see a partial
-    library."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    pending = {}
-    for name, src in KERNEL_SOURCES.items():
-        lib = library_path(name)
-        if not os.path.exists(lib):
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC_DIR, src)]
-            pending[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib)
-    failures = []
-    for name, (proc, tmp, lib) in pending.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}:\n{report}")
-            continue
-        with open(f"{tmp}.log", "w") as f:
-            f.write(report)
-        os.replace(f"{tmp}.log", f"{lib}.log")
-        os.replace(tmp, lib)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    reports = {}
-    for name in KERNEL_SOURCES:
-        log = f"{library_path(name)}.log"
-        reports[name] = open(log).read() if os.path.exists(log) else ""
-    return reports
-
-
-def _load(name: str) -> ctypes.CDLL:
-    with _lib_lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build_kernels()
-            lib = ctypes.CDLL(library_path(name))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            lib.asep_error_string.argtypes = [ctypes.c_int]
-            lib.asep_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-    return lib
-
-
-def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            f"{what}: CUDA error {rc} ({lib.asep_error_string(rc).decode()})")
-
+__all__ = ["LAUNCHES", "reset_launch_counts", "fused_attention_block",
+           "fused_attention_block_ref", "fused_ff_block", "fused_ff_block_ref",
+           "check_kernel_dims", "rotate_half"]
 
 # ---------------------------------------------------------------------------
 # Argument checks (shared by both devices) and kernel-only limits.
@@ -178,7 +61,7 @@ def _check_tensors(x: torch.Tensor, n_valid: Optional[int],
                    **expected: Tuple[torch.Tensor, tuple]) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, d), got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x dtype {x.dtype} not supported (float32, bfloat16)")
     n_pad = x.shape[1]
     if n_pad % 64:
@@ -197,13 +80,6 @@ def _check_tensors(x: torch.Tensor, n_valid: Optional[int],
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_cuda_layout(*tensors: torch.Tensor) -> None:
-    """The operands the kernels read and write in 16-byte vectors."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError("kernel operands must be 16-byte aligned")
-
-
 def check_kernel_dims(d_model: int, heads: Optional[int] = None,
                       dim_head: Optional[int] = None,
                       hidden: Optional[int] = None) -> None:
@@ -217,12 +93,6 @@ def check_kernel_dims(d_model: int, heads: Optional[int] = None,
         raise ValueError(f"kernel needs an even heads count <= 64, got {heads}")
     if hidden is not None and hidden % 64:
         raise ValueError(f"kernel needs hidden % 64 == 0, got {hidden}")
-
-
-def _device_kind(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device} (cpu or cuda)")
-    return x.device.type
 
 
 # ---------------------------------------------------------------------------
@@ -283,10 +153,6 @@ def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2) -> torch.Tensor:
 # Wrappers.
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
                           gate_w: torch.Tensor, gate_b: torch.Tensor,
                           wo: torch.Tensor, attn_norm: torch.Tensor,
@@ -304,11 +170,11 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
         expected["cos"] = (rope[0], (n_pad, dh))
         expected["sin"] = (rope[1], (n_pad, dh))
     _check_tensors(x, n_valid, **expected)
-    if _device_kind(x) == "cpu":
+    if device_kind(x) == "cpu":
         return fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo,
                                          attn_norm, rope, heads, n_valid)
     check_kernel_dims(d, heads, dh)
-    lib = _load("attention_block")
+    lib = load("attention_block")
     qkv_shape = (b, heads, n_pad, dh)
     q, k, v = (torch.empty(qkv_shape, dtype=x.dtype, device=x.device)
                for _ in range(3))
@@ -316,19 +182,19 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
     merged = torch.empty((b, n_pad, heads * dh), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
     cos, sin = rope if rope is not None else (None, None)
-    _check_cuda_layout(x, wqkv, wo, xn, q, k, v, merged, out,
+    check_cuda_layout(x, wqkv, wo, xn, q, k, v, merged, out,
                        *(rope if rope is not None else ()))
     with torch.cuda.device(x.device):
         rc = lib.asep_attention_block(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
+            DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
             gate_w.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
             attn_norm.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None, xn.data_ptr(),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(),
             merged.data_ptr(), out.data_ptr(),
-            b, n_pad, d, heads, n_valid, _stream(x))
-    _check_rc(lib, rc, "fused_attention_block")
+            b, n_pad, d, heads, n_valid, stream(x))
+    check_rc(lib, rc, "fused_attention_block")
     LAUNCHES["fused_attention_block"] += 1
     return out
 
@@ -341,19 +207,19 @@ def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
     hidden = w1.shape[-1] if w1.dim() == 2 else 0
     _check_tensors(x, None, ff_norm=(ff_norm, (d,)), w1=(w1, (d, hidden)),
                    b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
-    if _device_kind(x) == "cpu":
+    if device_kind(x) == "cpu":
         return fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2)
     check_kernel_dims(d, hidden=hidden)
-    lib = _load("ff_block")
+    lib = load("ff_block")
     b, n_pad, _ = x.shape
     h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
-    _check_cuda_layout(x, w1, w2, xn, h, out)
+    check_cuda_layout(x, w1, w2, xn, h, out)
     with torch.cuda.device(x.device):
         rc = lib.asep_ff_block(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), ff_norm.data_ptr(),
+            DTYPE_CODES[x.dtype], x.data_ptr(), ff_norm.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
-            h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, _stream(x))
-    _check_rc(lib, rc, "fused_ff_block")
+            h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, stream(x))
+    check_rc(lib, rc, "fused_ff_block")
     LAUNCHES["fused_ff_block"] += 1
     return out

@@ -1,11 +1,15 @@
 """Windowed overlap-add demixing on one device.
 
-Port of the single-device, shared-window path of
+Port of the single-device path of
 ``audio_separator_tpu/ops/demix.overlap_add_demix``: the mix is uploaded once,
 each window batch is gathered on the device, run through the model, weighted
-by the window and accumulated together with the window sum, and the result is
-divided and fetched once. The window count is padded only to a multiple of
-``batch_size`` (padding rows carry zero weight).
+by its window and accumulated, and the result is normalised and fetched once.
+The window is either one ``(chunk,)`` vector shared by every position (the
+window sum is then accumulated on the device) or ``(N, chunk)`` per-position
+rows; an explicit ``divider`` replaces the accumulated window sum, and
+``post_device_fn`` runs on the normalised device tensor before the fetch. The
+window count is padded only to a multiple of ``batch_size`` (padding rows
+carry zero weight).
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ def overlap_add_demix(
     num_stems: int,
     batch_size: int = 1,
     positions: Optional[np.ndarray] = None,
+    divider: Optional[np.ndarray] = None,
     fetch_stems: Optional[tuple] = None,
+    post_device_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     device="cuda",
 ) -> np.ndarray:
     """Demix ``mix (C, T)`` → ``(num_stems, C, T)`` (or ``len(fetch_stems)``
@@ -43,7 +49,12 @@ def overlap_add_demix(
 
     ``model_fn`` maps ``(B, C, chunk)`` float32 on ``device`` to
     ``(B, num_stems, C, chunk)``. ``window`` is the ``(chunk,)`` weight shared
-    by every position; ``positions`` overrides the clamped default grid."""
+    by every position, or ``(N, chunk)`` rows, one per position; ``positions``
+    overrides the clamped default grid. ``divider (T_buf,)`` overrides the
+    accumulated window sum as the normaliser (shorter dividers are extended
+    with ones). ``post_device_fn`` maps the normalised ``(S, C, T_buf)`` device
+    tensor (after ``fetch_stems``) to what is fetched, and owns its shape;
+    without it the result is cropped to ``T``."""
     c, total = mix.shape
     if positions is None:
         positions = window_positions(total, chunk, step)
@@ -51,27 +62,47 @@ def overlap_add_demix(
     n = len(positions)
     n_pad = -(-n // batch_size) * batch_size
     t_buf = max(total, int(positions.max()) + chunk)
+    window = np.asarray(window, np.float32)
+    shared_window = window.ndim == 1
+    if not shared_window and window.shape != (n, chunk):
+        raise ValueError(f"window rows {window.shape} != (positions, chunk) {(n, chunk)}")
 
     mix_dev = torch.zeros((c, t_buf), dtype=torch.float32, device=device)
     mix_dev[:, :total] = torch.as_tensor(np.ascontiguousarray(mix, np.float32)).to(device)
     pos_dev = torch.zeros(n_pad, dtype=torch.int64, device=device)
     pos_dev[:n] = torch.as_tensor(positions).to(device)
-    row_scale = torch.zeros(n_pad, dtype=torch.float32, device=device)
-    row_scale[:n] = 1.0
-    win_dev = torch.as_tensor(np.asarray(window, np.float32)).to(device)
+    if shared_window:
+        row_scale = torch.zeros(n_pad, dtype=torch.float32, device=device)
+        row_scale[:n] = 1.0
+        win_dev = torch.as_tensor(window).to(device)
+    else:
+        win_dev = torch.zeros((n_pad, chunk), dtype=torch.float32, device=device)
+        win_dev[:n] = torch.as_tensor(window).to(device)
     offsets = torch.arange(chunk, device=device)
 
     acc = torch.zeros((num_stems, c, t_buf), dtype=torch.float32, device=device)
-    wsum = torch.zeros(t_buf, dtype=torch.float32, device=device)
+    wsum = (torch.zeros(t_buf, dtype=torch.float32, device=device)
+            if divider is None else None)
     for i in range(0, n_pad, batch_size):
         idx = (pos_dev[i : i + batch_size, None] + offsets).reshape(-1)  # (B*chunk,)
         chunks = mix_dev[:, idx].reshape(c, batch_size, chunk).transpose(0, 1)
         out = model_fn(chunks.contiguous())  # (B, S, C, chunk)
-        win_b = win_dev * row_scale[i : i + batch_size, None]  # (B, chunk)
+        if shared_window:
+            win_b = win_dev * row_scale[i : i + batch_size, None]  # (B, chunk)
+        else:
+            win_b = win_dev[i : i + batch_size]
         out = out.float() * win_b[:, None, None, :]
         acc.index_add_(2, idx, out.permute(1, 2, 0, 3).reshape(num_stems, c, -1))
-        wsum.index_add_(0, idx, win_b.reshape(-1))
-    acc = acc / wsum.clamp_min(1e-10)
+        if wsum is not None:
+            wsum.index_add_(0, idx, win_b.reshape(-1))
+    if divider is None:
+        acc = acc / wsum.clamp_min(1e-10)
+    else:
+        div = np.ones(t_buf, np.float32)
+        div[: min(len(divider), t_buf)] = np.asarray(divider, np.float32)[:t_buf]
+        acc = acc / torch.as_tensor(np.maximum(div, 1e-10)).to(device)
     if fetch_stems is not None:
         acc = acc[list(fetch_stems)]
+    if post_device_fn is not None:
+        return post_device_fn(acc).cpu().numpy()
     return acc[..., :total].cpu().numpy()

@@ -132,6 +132,17 @@ class ModelRegistry:
 
     # ---------------------------------------------------------------- lookup
 
+    def _local_demucs_package(self, fname: str) -> bool:
+        """A Demucs package ``<signature>-<checksum>.th`` is resolved inside
+        ``model_file_dir`` by its signature alone (the bag's YAML names only
+        signatures), so a local package of that signature stands in for the
+        listed file and nothing is fetched."""
+        if not fname.endswith(".th"):
+            return False
+        sig = fname.split("-", 1)[0]
+        return any(fn.endswith(".th") and (fn.split("-", 1)[0] == sig or fn[:-3] == sig)
+                   for fn in os.listdir(self.model_file_dir))
+
     def download_model_files(self, model_filename: str):
         """Resolve + download all files for a model.
 
@@ -152,6 +163,8 @@ class ModelRegistry:
                 for file_to_download in model_info["download_files"]:
                     if file_to_download.startswith("http"):
                         fname = file_to_download.rsplit("/", 1)[-1]
+                        if self._local_demucs_package(fname):
+                            continue
                         self.download_file_if_not_exists(
                             file_to_download, os.path.join(self.model_file_dir, fname))
                         continue

@@ -3,9 +3,9 @@
 Port of ``audio_separator_tpu/separator/separator.py``: the constructor,
 device setup, ``load_model`` (registry lookup, model data resolution,
 architecture instantiation), ``separate`` and ``_separate_file``. The
-MDXC/RoFormer family is ported; the other families, ensembles, chunked
-processing, ``warmup`` and ``separate_batch`` are later slices (ROADMAP,
-Queue A).
+MDXC/RoFormer family and Demucs v4 (HTDemucs bags) are ported; the other
+families, Demucs v3, ensembles, chunked processing, ``warmup`` and
+``separate_batch`` are later slices (ROADMAP, Queue A).
 
 Computation runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, ``device=None`` raises.
@@ -24,27 +24,11 @@ import torch
 from .. import __version__
 from ..io import audio as audio_io
 from .registry import ModelRegistry
+from ..io.yaml_config import read_yaml_config
 
 DEFAULT_MODEL = "model_bs_roformer_ep_317_sdr_12.9755.ckpt"
 
 _AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".opus", ".m4a", ".aiff", ".ac3")
-
-
-def read_yaml_config(path: str) -> dict:
-    """Parse a model's YAML config. Without PyYAML installed, only JSON-flow
-    YAML (a JSON document, which is valid YAML) can be read."""
-    with open(path, encoding="utf-8") as f:
-        text = f.read()
-    try:
-        import yaml
-    except ImportError:
-        try:
-            return json.loads(text)
-        except json.JSONDecodeError as exc:
-            raise RuntimeError(
-                f"{path}: PyYAML is not installed, and the file is not "
-                f"JSON-flow YAML ({exc})") from exc
-    return yaml.load(text, Loader=yaml.FullLoader)
 
 
 class Separator:
@@ -65,6 +49,7 @@ class Separator:
         sample_rate=44100,
         use_soundfile=False,
         use_autocast=False,
+        demucs_params=None,
         mdxc_params=None,
         info_only=False,
         device=None,
@@ -108,6 +93,9 @@ class Separator:
         self.use_autocast = use_autocast
 
         self.arch_specific_params = {
+            "Demucs": demucs_params if demucs_params is not None else {
+                "segment_size": "Default", "shifts": 2, "overlap": 0.25,
+                "segments_enabled": True},
             "MDXC": mdxc_params if mdxc_params is not None else {
                 "segment_size": 256, "override_model_segment_size": False,
                 "batch_size": 4, "overlap": 8, "pitch_shift": 0},
@@ -180,11 +168,14 @@ class Separator:
             yaml_config_filename = model_path
         model_data = self._resolve_model_data(model_path, yaml_config_filename)
 
-        if model_type != "MDXC":
+        if model_type not in self.arch_specific_params:
             raise NotImplementedError(
                 f"model type {model_type} is not ported to PyTorch yet "
-                f"(ROADMAP, Queue A); this slice runs MDXC/RoFormer models")
-        from ..architectures.mdxc import MDXCSeparator
+                f"(ROADMAP, Queue A); MDXC/RoFormer and Demucs v4 models are")
+        if model_type == "Demucs":
+            from ..architectures.demucs import DemucsSeparator as separator_class
+        else:
+            from ..architectures.mdxc import MDXCSeparator as separator_class
 
         common_params = {
             "logger": self.logger,
@@ -204,8 +195,9 @@ class Separator:
             "use_autocast": self.use_autocast,
             "device": self.device,
         }
-        self.model_instance = MDXCSeparator(
-            common_config=common_params, arch_config=self.arch_specific_params["MDXC"])
+        self.model_instance = separator_class(
+            common_config=common_params,
+            arch_config=self.arch_specific_params[model_type])
         self.logger.info(f"Load model duration: {time.perf_counter() - start:.2f}s")
 
     # --------------------------------------------------------------- separate

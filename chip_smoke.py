@@ -9,18 +9,28 @@ result lines are printed):
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build every kernel from ``audio_separator_tpu_torch/csrc`` with nvcc for
    sm_90a and print ptxas's register / shared-memory / spill report;
-3. each kernel against its plain PyTorch version at the flagship shapes
-   (BS-RoFormer: d 512, 8 heads x 64, FF 2048; time axis 4·62 sequences of
-   801 -> 832 tokens, frequency axis 4·801 sequences of 62 -> 64 tokens), in
-   float32 and bf16, with CUDA-event times for both, the bound, and the
-   torch.profiler split of one call over its launches;
+3. each kernel against its plain PyTorch version at the shapes its main path
+   gives it, in float32 and bf16, with CUDA-event times for both, the bound,
+   and the torch.profiler split of one call over its launches:
+   the two fused RoFormer blocks at the flagship BS-RoFormer shapes (d 512,
+   8 heads x 64, FF 2048; time axis 4·62 sequences of 801 -> 832 tokens,
+   frequency axis 4·801 sequences of 62 -> 64 tokens), and the whole-sequence
+   attention at the full-width HTDemucs shapes ((4, 8, 1344, 64) on the time
+   branch, (4, 8, 2688, 64) on the frequency branch) and one ragged small
+   shape, with ``scaled_dot_product_attention`` timed beside it as a
+   yardstick that the port never calls;
 4. the flagship Roformer (seeded random weights) on one 8 s window with the
    kernels, against the same module on the CPU (plain versions), float32:
-   SDR floor 40 dB, and 24 launches of each kernel;
-5. the main path: a full-width synthetic checkpoint in the upstream key
-   layout, ``Separator(use_autocast=True).load_model()`` then ``.separate()``
-   of a seeded stereo WAV; two finite stems of the input's length, and the
-   launch counts of that run;
+   SDR floor 40 dB, and 24 launches of each kernel; the full-width HTDemucs
+   (seeded random weights) on one batch of 4 segments the same way: SDR floor
+   40 dB per source and 6 launches of the attention kernel;
+5. the main paths, each with the launch counts set to 0 just before and read
+   just after: a full-width synthetic BS-RoFormer checkpoint in the upstream
+   key layout, ``Separator(use_autocast=True).load_model()`` then
+   ``.separate()`` of a seeded stereo WAV (two finite stems of the input's
+   length); a full-width synthetic HTDemucs package and its YAML bag,
+   ``Separator().load_model("htdemucs.yaml")`` with the default Demucs
+   parameters then ``.separate()`` of the same WAV (four finite stems);
 6. one JSON line describing each kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +127,12 @@ def attention_cost(b, n_pad, n_valid, d, h, dh, elt):
 def ff_cost(b, n_pad, n_valid, d, hidden, elt):
     rows = b * n_valid
     return 4 * rows * d * hidden, elt * (2 * b * n_pad * d + 2 * d * hidden + hidden + 2 * d)
+
+
+def whole_attention_cost(b, h, n, d, elt):
+    """(FLOP, bytes) of softmax(q·kᵀ·scale)·v: the two products; q, k, v read
+    and the result written once."""
+    return 4 * b * h * n * n * d, elt * 4 * b * h * n * d
 
 
 def bound(cost, dtype_name):
@@ -221,6 +237,68 @@ def phase_kernels(ab, seed):
     return records
 
 
+def phase_attention_kernel(att, seed):
+    """Phase 3, the whole-sequence attention: kernel against its plain
+    version, and one library call beside them for the time alone."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    # (shape, dtype, timed): the HTDemucs time and frequency branch at full
+    # width, then a ragged last tile with a head dimension the wrapper pads.
+    cases = [((4, 8, 1344, 64), torch.float32, True), ((4, 8, 2688, 64), torch.float32, True),
+             ((4, 8, 1344, 64), torch.bfloat16, True), ((4, 8, 2688, 64), torch.bfloat16, True),
+             ((2, 4, 173, 8), torch.float32, False)]
+    records = []
+    for shape, dtype, timed in cases:
+        dname = str(dtype).split(".")[-1]
+        b, h, n, d = shape
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = ((torch.randn(*shape, generator=g, device=dev) * 0.7).to(dtype)
+                   for _ in range(3))
+        scale = d ** -0.5
+        before = att.LAUNCHES["fused_attention"]
+        got = att.dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+        if att.LAUNCHES["fused_attention"] != before + 1:
+            raise AssertionError("dot_product_attention did not launch the kernel")
+        want = att.attention_ref(q, k, v, scale)
+        err = compare(got, want, dname)
+        del got, want
+        torch.cuda.empty_cache()
+        rec = dict(name="fused_attention", dtype=dname, axis="time" if n == 1344 else "freq",
+                   shape=list(shape), n_valid=n, **err)
+        tol = TOLERANCE[dname]
+        msg = (f"[kernels] fused_attention {dname} q=k=v{shape}: "
+               f"max_abs_err={err['max_abs_err']:.3e} "
+               f"(rel {err['max_abs_err'] / err['scale']:.3e}, tol {tol['max']:.3e}) "
+               f"mean_abs_err={err['mean_abs_err']:.3e} "
+               f"(rel {err['mean_abs_err'] / err['scale']:.3e}, tol {tol['mean']:.3e})")
+        if timed:
+            cost = whole_attention_cost(b, h, n, d, torch.finfo(dtype).bits // 8)
+            bound_ms, bound_by = bound(cost, dname)
+            ms = cuda_time_ms(lambda: att.dot_product_attention(q, k, v), iters=10)
+            plain_ms = cuda_time_ms(lambda: att.attention_ref(q, k, v, scale), iters=3)
+            torch.cuda.empty_cache()  # the plain version's (B, H, N, N) scores
+            # Yardstick only: the port never calls it.
+            library_ms = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=10)
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, flop=cost[0], bytes=cost[1],
+                       split=device_split(lambda: att.dot_product_attention(q, k, v)))
+            msg += (f" kernel {ms:.3f} ms ({cost[0] / ms / 1e9:.1f} TFLOP/s), plain "
+                    f"{plain_ms:.3f} ms, library yardstick (scaled_dot_product_attention) "
+                    f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        log(msg)
+        records.append(rec)
+        if not err["ok"]:
+            raise AssertionError(f"fused_attention {dname} {shape}: kernel disagrees with "
+                                 f"its plain version: {err}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_model(ab, seed):
     """Phase 4: flagship forward with kernels vs the CPU plain path."""
     import numpy as np
@@ -261,9 +339,109 @@ def phase_model(ab, seed):
         raise AssertionError("model output is not finite")
     if sdr < SDR_FLOOR_DB:
         raise AssertionError(f"model SDR {sdr:.2f} dB below {SDR_FLOOR_DB}")
-    if any(v != expected for v in launches.values()):
+    if any(launches[name] != expected for name in ("fused_attention_block", "fused_ff_block")):
         raise AssertionError(f"launch counts {launches}, expected {expected} each")
     return {"sdr_db": sdr, "launches": launches}
+
+
+HTDEMUCS_LAUNCHES_PER_FORWARD = 6  # self-attention layers 0, 2, 4 on both branches
+
+
+def phase_htdemucs_model(att, seed):
+    """Phase 4, HTDemucs: the full-width forward with the attention kernel
+    against the same module on the CPU (plain version), float32."""
+    import numpy as np
+    import torch
+
+    from audio_separator_tpu_torch.models.convert import load_jax_htdemucs_params
+    from audio_separator_tpu_torch.models.htdemucs import HTDemucs
+    from audio_separator_tpu_torch.models.init_params import (htdemucs_full_config,
+                                                              init_htdemucs_params)
+
+    cfg = htdemucs_full_config()
+    tree = init_htdemucs_params(cfg, seed=seed)
+    rng = np.random.default_rng(seed)
+    t = np.arange(cfg.training_length) / cfg.samplerate
+    tones = np.stack([np.sin(2 * np.pi * f * t) for f in (110, 220, 330, 440, 550, 660, 770, 880)])
+    audio = torch.from_numpy((0.2 * tones.reshape(4, 2, -1)
+                              + 0.05 * rng.standard_normal((4, 2, cfg.training_length))
+                              ).astype(np.float32))
+
+    gpu = load_jax_htdemucs_params(HTDemucs(cfg), tree).cuda().eval()
+    att.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_gpu = gpu(audio.cuda())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = att.LAUNCHES["fused_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = audio.cuda()
+    forward_ms = cuda_time_ms(lambda: gpu(x), iters=3)
+    out_gpu = out_gpu.cpu()
+    del gpu, x
+    torch.cuda.empty_cache()
+
+    cpu = load_jax_htdemucs_params(HTDemucs(cfg), tree).eval()
+    t0 = time.perf_counter()
+    out_cpu = cpu(audio)
+    cpu_s = time.perf_counter() - t0
+    sdrs = [sdr_db(out_cpu[:, i], out_gpu[:, i]) for i in range(len(cfg.sources))]
+    log(f"[model] full-width HTDemucs fp32 (TF32 off), {tuple(audio.shape)} -> "
+        f"{tuple(out_gpu.shape)}: SDR vs CPU plain path per source "
+        f"{[round(v, 2) for v in sdrs]} dB (floor {SDR_FLOOR_DB}); fused_attention launches "
+        f"{launches} (expected {HTDEMUCS_LAUNCHES_PER_FORWARD}); card first call "
+        f"{first_s:.3f} s, warm forward {forward_ms:.1f} ms, peak device memory "
+        f"{peak_gb:.2f} GiB; CPU {cpu_s:.1f} s; output peak {float(out_cpu.abs().max()):.3f}")
+    if tuple(out_gpu.shape) != (4, len(cfg.sources), 2, cfg.training_length):
+        raise AssertionError(f"HTDemucs output shape {tuple(out_gpu.shape)}")
+    if not bool(torch.isfinite(out_gpu).all()):
+        raise AssertionError("HTDemucs output is not finite")
+    if min(sdrs) < SDR_FLOOR_DB:
+        raise AssertionError(f"HTDemucs SDR {sdrs} dB below {SDR_FLOOR_DB}")
+    if launches != HTDEMUCS_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"{launches} fused_attention launches in one forward, "
+                             f"expected {HTDEMUCS_LAUNCHES_PER_FORWARD}")
+    return {"sdr_db": sdrs, "launches": launches, "forward_ms": forward_ms}
+
+
+def write_synthetic_demucs_bag(model_dir: str, seed: int) -> None:
+    """A full-width HTDemucs package ``<signature>-<sha256 prefix>.th`` (seeded
+    weights, the loader's stub class as ``klass``, as a genuine package
+    pickles ``demucs.htdemucs.HTDemucs``), the JSON-flow ``htdemucs.yaml`` bag
+    that names its signature, and an empty remote listing so the registry
+    resolves everything locally."""
+    import hashlib
+
+    import torch
+
+    from audio_separator_tpu_torch.models import demucs_load
+    from audio_separator_tpu_torch.models.convert import flatten_tree
+    from audio_separator_tpu_torch.models.init_params import (htdemucs_full_config,
+                                                              htdemucs_kwargs,
+                                                              init_htdemucs_params)
+
+    cfg = htdemucs_full_config()
+    state = {k: torch.from_numpy(v)
+             for k, v in flatten_tree(init_htdemucs_params(cfg, seed=seed)).items()}
+    signature = "955717e8"  # the published htdemucs
+    tmp = os.path.join(model_dir, f"{signature}.tmp")
+    added = demucs_load._ensure_stub_modules()
+    try:
+        torch.save({"klass": sys.modules["demucs.htdemucs"].HTDemucs, "args": (),
+                    "kwargs": htdemucs_kwargs(cfg), "state": state}, tmp)
+    finally:
+        for name in added:
+            sys.modules.pop(name, None)
+    sha = hashlib.sha256()
+    with open(tmp, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            sha.update(block)
+    os.replace(tmp, os.path.join(model_dir, f"{signature}-{sha.hexdigest()[:8]}.th"))
+    with open(os.path.join(model_dir, "htdemucs.yaml"), "w") as f:
+        json.dump({"models": [signature]}, f)  # JSON-flow YAML
+    with open(os.path.join(model_dir, "download_checks.json"), "w") as f:
+        f.write("{}")
 
 
 def _oracle_class():
@@ -313,7 +491,7 @@ def write_synthetic_model(model_dir: str, seed: int) -> None:
         f.write("{}")
 
 
-def profile_separate(sep, wav) -> None:
+def profile_separate(sep, wav, tag="separator") -> None:
     """One more warm ``separate`` under torch.profiler: the card's busy time
     (every kernel and copy on the device) against the host wall time of the
     same call, and the device time by kernel name. The profiler's own cost
@@ -329,18 +507,105 @@ def profile_separate(sep, wav) -> None:
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in device) / 1e3
-    log(f"[separator] profiled warm call: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms wall "
+    log(f"[{tag}] profiled warm call: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms wall "
         f"(idle share {1 - busy / (wall * 1e3):.3f})")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:12]:
-        name = e.key.split("(")[0].replace("void ", "")[:80]
-        log(f"[separator]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {name}")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:16]:
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+            f"{name.replace('void ', '')[:80]}")
 
 
-def phase_separator(ab, seed, seconds, device_label):
-    """Phase 5: the main path through the user entry point."""
+def write_seeded_wav(path: str, seed: int, seconds: float, sr: int = 44100):
     import numpy as np
 
     from audio_separator_tpu_torch.io import audio as audio_io
+
+    n = int(seconds * sr)
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    mix = (0.25 * np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 277 * t)])
+           + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
+    audio_io.save_audio(path, mix, sr)
+    return mix
+
+
+def check_stems(out_dir, files, count, mix, sr):
+    import numpy as np
+
+    from audio_separator_tpu_torch.io import audio as audio_io
+
+    if len(files) != count or len(set(files)) != count:
+        raise AssertionError(f"expected {count} stems, got {files}")
+    for name in files:
+        pcm, file_sr = audio_io.load_audio(os.path.join(out_dir, name))
+        if pcm.shape != mix.shape or file_sr != sr:
+            raise AssertionError(f"{name}: shape {pcm.shape} at {file_sr} Hz, "
+                                 f"expected {mix.shape} at {sr}")
+        if not np.isfinite(pcm).all() or not np.abs(pcm).max() > 1e-3:
+            raise AssertionError(f"{name}: stem is not finite or is silent")
+
+
+def phase_demucs_separator(att, seed, seconds, device_label):
+    """Phase 5, Demucs: ``htdemucs.yaml`` through the user entry point with
+    the default Demucs parameters."""
+    import math
+
+    from audio_separator_tpu_torch.models.init_params import htdemucs_full_config
+    from audio_separator_tpu_torch.separator import Separator
+
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        out_dir = os.path.join(tmp, "out")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        write_synthetic_demucs_bag(model_dir, seed)
+        write_s = time.perf_counter() - t0
+        sr = 44100
+        wav = os.path.join(tmp, "mix.wav")
+        mix = write_seeded_wav(wav, seed, seconds, sr)
+
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        sep = Separator(model_file_dir=model_dir, output_dir=out_dir, log_level=logging.WARNING)
+        params = sep.arch_specific_params["Demucs"]
+        sep.load_model("htdemucs.yaml")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files = sep.separate(wav)
+        wall = time.perf_counter() - t0
+        launches = dict(att.LAUNCHES)
+        check_stems(out_dir, files, 4, mix, sr)
+
+        # 6 launches a forward; one forward per batch of windows; the windows
+        # of every shift (each sees the track plus half a second) share the
+        # batches; one model in the bag.
+        cfg = htdemucs_full_config()
+        batch = sep.model_instance.batch_size
+        stride = int((1 - params["overlap"]) * cfg.training_length)
+        windows = math.ceil((mix.shape[-1] + sr // 2) / stride)
+        expected = HTDEMUCS_LAUNCHES_PER_FORWARD * math.ceil(params["shifts"] * windows / batch)
+
+        t0 = time.perf_counter()
+        sep.separate(wav)
+        wall2 = time.perf_counter() - t0
+        profile_separate(sep, wav, tag="demucs")
+        log(f"[demucs] {device_label}: {seconds:.0f} s stereo WAV, full-width HTDemucs "
+            f"(float32, TF32 off), params {params}, batch {batch}, stems {sorted(files)}: "
+            f"first separate {wall:.3f} s ({seconds / wall:.2f}x realtime), second "
+            f"{wall2:.3f} s ({seconds / wall2:.2f}x realtime); package write {write_s:.1f} s, "
+            f"load_model {load_s:.1f} s; launches {launches} (expected fused_attention "
+            f"{expected} = {HTDEMUCS_LAUNCHES_PER_FORWARD} x 1 model x "
+            f"ceil({params['shifts']} shifts x {windows} windows / {batch}))")
+        if launches["fused_attention"] != expected:
+            raise AssertionError(f"fused_attention launched {launches['fused_attention']} "
+                                 f"times, expected {expected}")
+        return {"launches": launches, "wall_s": wall, "wall2_s": wall2}
+
+
+def phase_separator(ab, seed, seconds, device_label):
+    """Phase 5, RoFormer: the default model through the user entry point."""
     from audio_separator_tpu_torch.separator import Separator
 
     work = os.path.join(REPO, "build")
@@ -354,13 +619,8 @@ def phase_separator(ab, seed, seconds, device_label):
         write_s = time.perf_counter() - t0
 
         sr = 44100
-        n = int(seconds * sr)
-        rng = np.random.default_rng(seed)
-        t = np.arange(n) / sr
-        mix = (0.25 * np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 277 * t)])
-               + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
         wav = os.path.join(tmp, "mix.wav")
-        audio_io.save_audio(wav, mix, sr)
+        mix = write_seeded_wav(wav, seed, seconds, sr)
 
         ab.reset_launch_counts()
         t0 = time.perf_counter()
@@ -373,15 +633,7 @@ def phase_separator(ab, seed, seconds, device_label):
         wall = time.perf_counter() - t0
         launches = dict(ab.LAUNCHES)
 
-        if len(files) != 2:
-            raise AssertionError(f"expected two stems, got {files}")
-        for name in files:
-            pcm, file_sr = audio_io.load_audio(os.path.join(out_dir, name))
-            if pcm.shape != mix.shape or file_sr != sr:
-                raise AssertionError(f"{name}: shape {pcm.shape} at {file_sr} Hz, "
-                                     f"expected {mix.shape} at {sr}")
-            if not np.isfinite(pcm).all() or not np.abs(pcm).max() > 0:
-                raise AssertionError(f"{name}: stem is not finite or is silent")
+        check_stems(out_dir, files, 2, mix, sr)
         t0 = time.perf_counter()
         sep.separate(wav)
         wall2 = time.perf_counter() - t0
@@ -391,7 +643,7 @@ def phase_separator(ab, seed, seconds, device_label):
             f"({seconds / wall:.2f}x realtime), second {wall2:.3f} s "
             f"({seconds / wall2:.2f}x realtime); checkpoint write {write_s:.1f} s, "
             f"load_model {load_s:.1f} s; launches {launches}")
-        if any(v == 0 for v in launches.values()):
+        if any(launches[name] == 0 for name in ("fused_attention_block", "fused_ff_block")):
             raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
         # The Separator's default compute type is float32 (use_autocast=False).
@@ -422,6 +674,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops import attention as att
     from audio_separator_tpu_torch.ops import attention_block as ab
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -437,43 +691,54 @@ def main(argv=None) -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = ab.build_kernels()
-    log(f"[build] nvcc {' '.join(ab.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s")
+    reports = _build.build_kernels()
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
-        log(f"[build] {ab.library_path(name)} from "
-            f"{os.path.relpath(os.path.join(ab.CSRC_DIR, ab.KERNEL_SOURCES[name]), REPO)}")
+        log(f"[build] {_build.library_path(name)} from "
+            f"{os.path.relpath(os.path.join(_build.CSRC_DIR, _build.KERNEL_SOURCES[name]), REPO)}")
         for line in report.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
                 log(f"[ptxas] {name}: {line.strip()}")
 
-    records = phase_kernels(ab, args.seed)
+    records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
     model = phase_model(ab, args.seed)
+    htdemucs = phase_htdemucs_model(att, args.seed)
     sep = phase_separator(ab, args.seed, args.seconds, f"{kind} ({smi})")
+    demucs = phase_demucs_separator(att, args.seed, args.seconds, f"{kind} ({smi})")
 
+    # name -> (source, TPU kernel, its main path's run, that path's dtype,
+    #          launches per forward of its model)
     sources = {"fused_attention_block": ("audio_separator_tpu_torch/csrc/attention_block.cu",
-                                         "audio_separator_tpu/ops/attention_block.py:35"),
+                                         "audio_separator_tpu/ops/attention_block.py:35",
+                                         sep, "bfloat16", model["launches"]),
                "fused_ff_block": ("audio_separator_tpu_torch/csrc/ff_block.cu",
-                                  "audio_separator_tpu/ops/attention_block.py:119")}
+                                  "audio_separator_tpu/ops/attention_block.py:119",
+                                  sep, "bfloat16", model["launches"]),
+               "fused_attention": ("audio_separator_tpu_torch/csrc/attention.cu",
+                                   "audio_separator_tpu/ops/attention.py:39",
+                                   demucs, "float32", {"fused_attention": htdemucs["launches"]})}
     kernels = []
-    for name, (source, replaces) in sources.items():
-        # Headline numbers: the main path's dtype (bf16), per launch, averaged
-        # over the time- and frequency-axis shapes (one forward launches each
+    for name, (source, replaces, path_run, path_dtype, per_forward) in sources.items():
+        # Headline numbers: the main path's dtype, per launch, averaged over
+        # the time- and frequency-axis shapes (one forward launches each
         # kernel equally often on both).
-        main = [r for r in records if r["name"] == name and r["dtype"] == "bfloat16"]
+        main = [r for r in records
+                if r["name"] == name and r["dtype"] == path_dtype and "ms" in r]
+        library = [r["library_ms"] for r in main if r.get("library_ms") is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sep["launches"][name],
+            "launches": path_run["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in main),
             "ms": sum(r["ms"] for r in main) / len(main),
             "plain_ms": sum(r["plain_ms"] for r in main) / len(main),
             "bound_ms": sum(r["bound_ms"] for r in main) / len(main),
             "bound_by": main[0]["bound_by"],
-            "library_ms": None,
-            "cases": [{k: r[k] for k in ("dtype", "axis", "shape", "n_valid", "ms", "plain_ms",
-                                          "bound_ms", "bound_by", "max_abs_err",
-                                          "mean_abs_err", "scale", "split")}
+            "library_ms": sum(library) / len(library) if library else None,
+            "cases": [{k: r.get(k) for k in ("dtype", "axis", "shape", "n_valid", "ms",
+                                              "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                              "max_abs_err", "mean_abs_err", "scale", "split")}
                       for r in records if r["name"] == name],
-            "model_launches_per_forward": model["launches"][name],
+            "model_launches_per_forward": per_forward[name],
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -18,6 +18,7 @@ from audio_separator_tpu.ops.attention_block import (
 )
 from audio_separator_tpu.ops.attention_block import fused_ff_block as jax_fused_ff_block
 from audio_separator_tpu_torch.models.roformer import _rope_tables
+from audio_separator_tpu_torch.ops import _build
 from audio_separator_tpu_torch.ops import attention_block as ab
 
 # (n, b, rope, group, gran, d, heads, dim_head): the four cases of
@@ -210,13 +211,16 @@ def test_kernel_dims_outside_the_tiling_raise(dims):
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     """Without the CUDA toolkit the loader raises a clear error (no silent
     fallback); the build targets sm_90a and is keyed on the sources."""
-    monkeypatch.setattr(ab.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    if ab.os.path.exists("/usr/local/cuda/bin/nvcc"):
+    if _build.os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has the CUDA toolkit")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        ab.find_nvcc()
-    assert "arch=compute_90a,code=sm_90a" in ab.NVCC_FLAGS
-    path = ab.library_path("ff_block")
-    assert path.startswith(ab.BUILD_DIR) and path.endswith(".so")
-    assert path == ab.library_path("ff_block")
+        _build.find_nvcc()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    path = _build.library_path("ff_block")
+    assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
+    assert path == _build.library_path("ff_block")
+    # One loader and one table of launch counts for every kernel.
+    assert set(_build.KERNEL_SOURCES) == {"attention_block", "ff_block", "attention"}
+    assert ab.LAUNCHES is _build.LAUNCHES

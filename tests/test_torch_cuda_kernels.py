@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
-card. Each test decides inside its fixture whether a card is present and
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+models that run them against the CPU, on a CUDA card. Each test decides inside its fixture whether a card is present and
 skips without one. Run on the card with
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from audio_separator_tpu_torch.models.roformer import _rope_tables
+from audio_separator_tpu_torch.ops import attention as att
 from audio_separator_tpu_torch.ops import attention_block as ab
 
 pytestmark = pytest.mark.gpu
@@ -87,6 +88,49 @@ def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad):
     _close(got, ab.fused_ff_block_ref(x, **w), dtype)
 
 
+# HTDemucs at full width (time and frequency branch), a ragged small shape
+# with a padded head dimension, D = 48 (HTDemucs without bottom_channels),
+# a 128-wide head, a single short tile.
+WHOLE_SEQ_SHAPES = [(4, 8, 1344, 64), (4, 8, 2688, 64), (2, 4, 173, 8), (2, 8, 336, 48),
+                    (1, 2, 200, 128), (3, 2, 5, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WHOLE_SEQ_SHAPES)
+@pytest.mark.parametrize("scale", [None, 0.3])
+def test_whole_sequence_attention_kernel_matches_plain(cuda, dtype, shape, scale):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = ((torch.randn(*shape, generator=g, device=cuda) * 0.7).to(dtype)
+               for _ in range(3))
+    before = att.LAUNCHES["fused_attention"]
+    got = att.dot_product_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES["fused_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = att.attention_ref(q, k, v, scale if scale is not None else shape[-1] ** -0.5)
+    _close(got, want, dtype)
+
+
+def test_whole_sequence_attention_takes_strided_heads(cuda):
+    """The model hands over (B, N, H, D) projections viewed as (B, H, N, D)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(2, 100, 4, 64, generator=g, device=cuda).transpose(1, 2)
+               for _ in range(3))
+    got = att.dot_product_attention(q, k, v)
+    _close(got, att.attention_ref(q, k, v, 0.125), torch.float32)
+
+
+def test_whole_sequence_attention_rejects_what_the_kernel_cannot_take(cuda):
+    q = torch.zeros(1, 2, 32, 64, device=cuda)
+    with pytest.raises(ValueError, match="one shape"):
+        att.dot_product_attention(q, q[:, :, :16], q[:, :, :16])
+    wide = torch.zeros(1, 2, 32, 136, device=cuda)
+    with pytest.raises(ValueError, match="head dimension"):
+        att.dot_product_attention(wide, wide, wide)
+    with pytest.raises(TypeError):
+        att.dot_product_attention(q.half(), q.half(), q.half())
+
+
 def test_cuda_wrappers_reject_shapes_outside_the_tiling(cuda):
     x = torch.zeros(2, 64, 64, device=cuda)
     with pytest.raises(ValueError, match="dim_head"):
@@ -114,7 +158,8 @@ def test_model_forward_on_card_matches_cpu(cuda):
     want = load_jax_params(Roformer(cfg), tree)(audio)
     ab.reset_launch_counts()
     got = load_jax_params(Roformer(cfg), tree).to(cuda)(audio.to(cuda)).cpu()
-    assert ab.LAUNCHES == {"fused_attention_block": 2, "fused_ff_block": 2}
+    assert ab.LAUNCHES == {"fused_attention_block": 2, "fused_ff_block": 2,
+                           "fused_attention": 0}
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
 
@@ -133,3 +178,43 @@ def test_istft_on_card_matches_cpu(cuda):
     got = istft(spec.to(cuda), 2048, 441, win).cpu()
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 100.0
+
+
+def test_htdemucs_istft_on_card_matches_cpu(cuda):
+    """The HTDemucs inverse pads one zero frequency row and two frames each
+    side before the iSTFT; its DC row keeps an imaginary part that cuFFT's
+    real inverse does not ignore for every plan, so the port's istft drops
+    it. Full width: 4 sources x 2 channels, 2048 bins x 336 frames, n_fft 4096."""
+    from audio_separator_tpu_torch.models.htdemucs import _model_ispec
+    from audio_separator_tpu_torch.models.init_params import htdemucs_full_config
+
+    cfg = htdemucs_full_config()
+    g = torch.Generator().manual_seed(7)
+    z = torch.complex(torch.randn(1, 4, 2, 2048, 336, generator=g),
+                      torch.randn(1, 4, 2, 2048, 336, generator=g))
+    want = _model_ispec(z, cfg.training_length, cfg)
+    got = _model_ispec(z.to(cuda), cfg.training_length, cfg).cpu()
+    assert got.shape == want.shape == (1, 4, 2, cfg.training_length)
+    sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
+    assert sdr >= 100.0
+
+
+def test_htdemucs_forward_on_card_matches_cpu(cuda):
+    """A narrow HTDemucs (head dimension 8, padded to the kernel's 64) through
+    the attention kernel against the same module on the CPU."""
+    from audio_separator_tpu_torch.models.convert import load_jax_htdemucs_params
+    from audio_separator_tpu_torch.models.htdemucs import HTDemucs, HTDemucsConfig
+    from audio_separator_tpu_torch.models.init_params import init_htdemucs_params
+
+    cfg = HTDemucsConfig(sources=("drums", "bass", "other", "vocals"), channels=8, nfft=1024,
+                         depth=3, t_layers=3, t_heads=4, segment=0.5)
+    tree = init_htdemucs_params(cfg, seed=3)
+    audio = torch.from_numpy(
+        (np.random.default_rng(4).standard_normal((2, 2, cfg.training_length)) * 0.2
+         ).astype(np.float32))
+    want = load_jax_htdemucs_params(HTDemucs(cfg), tree).eval()(audio)
+    att.reset_launch_counts()
+    got = load_jax_htdemucs_params(HTDemucs(cfg), tree).to(cuda).eval()(audio.to(cuda)).cpu()
+    assert att.LAUNCHES["fused_attention"] == 4  # layers 0 and 2, both branches
+    sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
+    assert sdr >= 40.0
