@@ -14,16 +14,26 @@
 //
 // Design: the TPU kernel holds a whole (n_pad, n_pad) float32 score tile on
 // chip; 2688² floats do not fit 227 KB of shared memory, so this is the tiled
-// kernel of tiles.cuh: one block per (batch·head, 64-query tile) walks 64-key
-// tiles with an online softmax, and no score matrix is ever stored. Scores
+// kernel of tiles.cuh (run_flash): one block per (batch·head, query tile) walks
+// key tiles with an online softmax, and no score matrix is ever stored. Scores
 // and the softmax are float32; the weights are rounded to v's type before the
 // PV product, which accumulates in float32 (the TPU kernel's rounding points,
 // except that the online softmax normalises after the PV product, so in bf16
 // the weights are rounded unnormalised). The ragged last tile is masked in
 // the kernel: rows past N read as zeros, key columns past N get -1e30, and no
-// padded copy of q, k or v is made. float32 runs FMA tiles (TF32 is not
-// float32); bf16 runs mma.sync on the tensor cores with scores and output in
-// registers. The head dimension is 64 or 128; the caller zero-pads any other.
+// padded copy of q, k or v is made.
+//   * bf16 (flash_wgmma_kernel): 64 queries a consumer warpgroup, three of
+//     them a block at D 64 and two at D 128 (one, and two blocks an SM, for
+//     sequences of at most 64 rows), and a producer; both products on
+//     wgmma, K and V tiles of 128 keys by TMA through a three-dimensional
+//     tensor map (so rows past N are zeros, not the next head's rows); scores,
+//     weights, output, running maximum and sum in registers; the softmax of a
+//     tile runs while the tensor cores work on the previous tile's P·V.
+//   * float32 (flash_fma_kernel): register-blocked FMA (TF32 is not float32)
+//     with the output, the running maximum and the running sum in registers;
+//     only the weights pass through shared memory; K and V have one buffer
+//     each, filled by cp.async while the other product runs.
+// The head dimension is 64 or 128; the caller zero-pads any other.
 #include "tiles.cuh"
 
 namespace asep {
@@ -31,21 +41,7 @@ namespace asep {
 template <typename T>
 cudaError_t run_attention(const T* q, const T* k, const T* v, T* o, int bh, int n, int dh,
                           float scale, cudaStream_t stream) {
-    const dim3 grid(bh * ((n + TILE - 1) / TILE));
-    const HeadMajorOut<T> out{o, n, dh};
-    if constexpr (sizeof(T) == 2) {
-        if (dh == 64)
-            return launch_block(flash_mma_kernel<64, HeadMajorOut<T>>, grid, FA_WARPS * 32,
-                                flash_mma_smem_bytes<64>(), stream, q, k, v, out, n, n, scale);
-        return launch_block(flash_mma_kernel<128, HeadMajorOut<T>>, grid, FA_WARPS * 32,
-                            flash_mma_smem_bytes<128>(), stream, q, k, v, out, n, n, scale);
-    } else {
-        if (dh == 64)
-            return launch(flash_fma_kernel<1, HeadMajorOut<T>>, grid, flash_fma_smem_bytes<1>(),
-                          stream, q, k, v, out, n, n, scale);
-        return launch(flash_fma_kernel<2, HeadMajorOut<T>>, grid, flash_fma_smem_bytes<2>(),
-                      stream, q, k, v, out, n, n, scale);
-    }
+    return run_flash(q, k, v, HeadMajorOut<T>{o, n, dh}, bh, n, n, dh, scale, stream);
 }
 
 }  // namespace asep

@@ -11,24 +11,27 @@
 // Design, as four launches on the caller's stream:
 //   1. RMSNorm: xn = rmsnorm(x)·γ rounded to the input type (as the TPU
 //      kernel rounds it), so the GEMMs stream their operands untouched.
-//   2. A tiled GEMM of xn against [Wqkv | gate_w] (tiles.cuh: tensor cores
-//      for bf16). The epilogue rounds qkv to the input type (as the TPU
-//      kernel does), applies the interleaved-pair RoPE from the pair partner
-//      that sits in the same output tile, rounds again, and writes q, k, v as
-//      (B, heads, n_pad, 64); the gate columns become sigmoid(. + gate_b).
-//   3. A flash-style attention: one block per (64-query tile, head, batch)
-//      walks 64-key tiles with an online softmax, so no (n, n) score matrix
-//      is stored (an 832-key fp32 K and V pair would not fit in shared
-//      memory anyway). Key tiles wholly past n_valid are skipped; key columns
-//      >= n_valid in the last tile get -1e30. The normalised, gated output is
-//      written as merged heads (B, n_pad, heads*64). In bf16 the scores and
-//      the output accumulator stay in registers (flash_mma_kernel); the
-//      float32 version stages them in shared memory (flash_fma_kernel). Both
-//      kernels live in tiles.cuh, shared with attention.cu.
+//   2. A tiled GEMM of xn against [Wqkv | gate_w] (tiles.cuh: wgmma fed by TMA
+//      for bf16, FMA tiles for float32). The epilogue rounds qkv to the input
+//      type (as the TPU kernel does), applies the interleaved-pair RoPE from
+//      the pair partner that sits in the same run of eight columns, rounds
+//      again, and writes q, k, v as (B, heads, n_pad, 64); the gate columns
+//      become sigmoid(. + gate_b). gate_w is (d, gate_cols) with gate_cols the
+//      head count rounded up to a multiple of eight (zero columns), so that
+//      its rows are 16-byte multiples for TMA.
+//   3. A flash-style attention (tiles.cuh, run_flash, shared with
+//      attention.cu): one block per (query tile, head, batch) walks key tiles
+//      with an online softmax, so no (n, n) score matrix is stored (an
+//      832-key fp32 K and V pair would not fit in shared memory anyway). Key
+//      tiles wholly past n_valid are skipped; key columns >= n_valid in the
+//      last tile get -1e30. The normalised, gated output is written as merged
+//      heads (B, n_pad, heads*64). bf16 runs both products on wgmma with K
+//      and V by TMA; float32 runs FMA tiles; in both the scores and the
+//      output accumulator stay in registers.
 //   4. The output projection GEMM with the residual add in its epilogue.
 // The TPU kernel keeps every intermediate in VMEM. Here xn, q, k, v, the
 // gates and the merged heads round-trip through device memory between
-// launches; fusing the chain and a wgmma/TMA pipeline are later work.
+// launches; fusing the chain is later work.
 #include "tiles.cuh"
 
 namespace asep {
@@ -43,10 +46,14 @@ template <typename T> struct QkvEpi {
     const T* sin_t;
     int n_pad, heads;
 
+    struct Pre {};  // the RoPE tables are cache hits, read where they are used
+    static constexpr int PREFETCH = 8;
+    __device__ Pre prefetch(int, int) const { return {}; }
+
     // A run of eight columns lies in one head's 64 lanes of q, k or v (3·hd
     // and hd are multiples of 64), and RoPE pairs (c, c^1) lie inside it.
-    __device__ void operator()(const float* row, int c0, int count, int grow,
-                               int gcol0) const {
+    __device__ void operator()(const float* row, int c0, int count, int grow, int gcol0,
+                               const Pre&) const {
         const int hd = heads * 64;
         const int b = grow / n_pad, n = grow % n_pad;
         if (gcol0 < 3 * hd) {
@@ -57,8 +64,8 @@ template <typename T> struct QkvEpi {
             if (which < 2 && cos_t != nullptr) {
                 // rotate_half: out[2i] = -x[2i+1], out[2i+1] = x[2i].
                 float cs[8], sn[8], rot[8];
-                load8(cos_t + n * 64 + j0, cs);
-                load8(sin_t + n * 64 + j0, sn);
+                load8_ro(cos_t + n * 64 + j0, cs);
+                load8_ro(sin_t + n * 64 + j0, sn);
 #pragma unroll
                 for (int e = 0; e < 8; ++e) rot[e] = (e & 1) ? val[e ^ 1] : -val[e ^ 1];
 #pragma unroll
@@ -67,10 +74,13 @@ template <typename T> struct QkvEpi {
             T* dst = which == 0 ? q : (which == 1 ? k : v);
             store8(dst + (((size_t)b * heads + head) * n_pad + n) * 64 + j0, val);
         } else {
-            for (int e = 0; e < count && gcol0 + e < 3 * hd + heads; ++e) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
                 const int head = gcol0 + e - 3 * hd;
-                const float g = row[c0 + e] + to_f(gate_b[head]);
-                gates[((size_t)b * heads + head) * n_pad + n] = 1.f / (1.f + expf(-g));
+                if (e < count && head < heads) {
+                    const float g = row[c0 + e] + to_f(gate_b[head]);
+                    gates[((size_t)b * heads + head) * n_pad + n] = 1.f / (1.f + expf(-g));
+                }
             }
         }
     }
@@ -99,22 +109,14 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
     if (err != cudaSuccess) return err;
 
     const QkvEpi<T> qkv_epi{q, k, v, gates, gate_b, cos_t, sin_t, n_pad, heads};
-    err = run_gemm(static_cast<const T*>(xn), wqkv, 3 * hd, gate_w, heads, rows, d_model,
-                   qkv_epi, stream);
+    err = run_gemm(static_cast<const T*>(xn), wqkv, 3 * hd, gate_w, (heads + 7) / 8 * 8, rows,
+                   d_model, qkv_epi, stream);
     if (err != cudaSuccess) return err;
 
-    const dim3 grid(batch * heads * (n_pad / TILE));
-    const float scale = 0.125f;  // 64^-0.5
     const MergedGatedOut<T> attn_out{gates, merged, n_pad, heads};
-    if constexpr (sizeof(T) == 2)
-        err = launch_block(flash_mma_kernel<64, MergedGatedOut<T>>, grid, FA_WARPS * 32,
-                           flash_mma_smem_bytes<64>(), stream, static_cast<const T*>(q),
-                           static_cast<const T*>(k), static_cast<const T*>(v), attn_out, n_pad,
-                           n_valid, scale);
-    else
-        err = launch(flash_fma_kernel<1, MergedGatedOut<T>>, grid, flash_fma_smem_bytes<1>(),
-                     stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), attn_out, n_pad, n_valid, scale);
+    err = run_flash(static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), attn_out, batch * heads, n_pad, n_valid, 64,
+                    0.125f /* 64^-0.5 */, stream);
     if (err != cudaSuccess) return err;
 
     const ResidualEpi<T> out_epi{x, nullptr, out, d_model};
@@ -124,8 +126,9 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
 
 }  // namespace asep
 
-// dtype: 0 = float32, 1 = bfloat16. xn, q, k, v, gates (fp32) and merged are
-// scratch the caller allocates. Returns 0 or the first CUDA error.
+// dtype: 0 = float32, 1 = bfloat16. gate_w has heads rounded up to a multiple
+// of eight columns. xn, q, k, v, gates (fp32) and merged are scratch the
+// caller allocates. Returns 0 or the first CUDA error.
 extern "C" int asep_attention_block(int dtype, const void* x, const void* wqkv,
                                     const void* gate_w, const void* gate_b, const void* wo,
                                     const void* norm, const void* cos_t, const void* sin_t,

@@ -10,29 +10,55 @@
 //
 // Design, as three launches on the caller's stream:
 //   1. RMSNorm: xn = rmsnorm(x)·γ rounded to the input type.
-//   2. The first GEMM (tiles.cuh: tensor cores for bf16); the epilogue adds
-//      b1, applies the exact-erf GELU (erff; the TPU kernel's polynomial erf
-//      exists only because Mosaic lowers no erf) and stores the hidden
-//      activation rounded to the input type, as the TPU kernel does.
+//   2. The first GEMM (tiles.cuh; bf16: a persistent wgmma pipeline fed by
+//      TMA, W1 read as it lies through the transpose bit, two consumer
+//      warpgroups taking turns so that one's epilogue overlaps the other's
+//      products); the epilogue, on the accumulator registers, adds b1,
+//      applies the exact-erf GELU and stores the hidden activation rounded to
+//      the input type, as the TPU kernel does. At K = 512 this epilogue, not
+//      the product, sets the launch's time in bf16, hence the cheap erf below.
 //   3. The second GEMM with the bias and the residual add in its epilogue.
-// xn and the hidden activation (B·n_pad x 2048) round-trip through device
-// memory; keeping them on chip is later work.
+// xn and the hidden activation (B·n_pad x hidden) round-trip through device
+// memory; keeping the hidden activation on chip is later work.
 #include "tiles.cuh"
 
 namespace asep {
+
+// The exact (erf) GELU y·Φ(y), Φ(y) = (1 + erf(y/√2))/2. float32 calls erff.
+// For bf16, whose result is rounded to 2^-9 of its size, Φ comes from a
+// branch-free rational form of erfc (Abramowitz & Stegun 7.1.26, |error| <=
+// 1.5e-7 before the special-function units' last-place errors, some 3e-7 in
+// all): u = P(t)·exp(-y²/2)/2 with t = 1/(1 + p·|y|/√2) is Φ(-|y|). It costs a
+// third of erff's instructions, and the first product's epilogue is bound by
+// them.
+template <typename T> __device__ __forceinline__ float gelu(float y) {
+    if constexpr (sizeof(T) == 4) {
+        return 0.5f * y * (1.f + erff(y * 0.7071067811865476f));
+    } else {
+        const float t = rcp(fmaf(0.3275911f * 0.7071067811865476f, fabsf(y), 1.f));
+        float p = fmaf(0.5f * 1.061405429f, t, 0.5f * -1.453152027f);
+        p = fmaf(p, t, 0.5f * 1.421413741f);
+        p = fmaf(p, t, 0.5f * -0.284496736f);
+        p = fmaf(p, t, 0.5f * 0.254829592f);
+        const float u = p * t * ex2(y * y * (-0.5f * LOG2E));
+        return fmaf(-fabsf(y), u, fmaxf(y, 0.f));  // y·(1 - u) or y·u by the sign of y
+    }
+}
 
 // hidden % 64 == 0: every call covers a full run of eight columns.
 template <typename T> struct GeluEpi {
     const T* bias;
     T* h;
     int cols;
-    __device__ void operator()(const float* row, int c0, int, int grow, int gcol0) const {
-        float g[8];
+    struct Pre {};  // the bias is a cache hit, read where it is used
+    static constexpr int PREFETCH = 8;
+    __device__ Pre prefetch(int, int) const { return {}; }
+    __device__ void operator()(const float* row, int c0, int, int grow, int gcol0,
+                               const Pre&) const {
+        float g[8], bv[8];
+        load8_ro(bias + gcol0, bv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            const float y = row[c0 + e] + to_f(bias[gcol0 + e]);
-            g[e] = 0.5f * y * (1.f + erff(y * 0.7071067811865476f));
-        }
+        for (int e = 0; e < 8; ++e) g[e] = gelu<T>(row[c0 + e] + bv[e]);
         store8(h + (size_t)grow * cols + gcol0, g);
     }
 };

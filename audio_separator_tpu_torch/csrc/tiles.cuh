@@ -1,25 +1,29 @@
-// Shared building blocks of the fused RoFormer block kernels (sm_90a).
+// Shared building blocks of the fused RoFormer block kernels and of the
+// whole-sequence attention (sm_90a).
 //
 //   * rmsnorm_kernel — xn = x · rsqrt(max(Σx², 1e-24)) · √d · γ, rounded to
 //                      the storage type (the TPU kernels' xn), one warp a row;
 //   * gemm (run_gemm) — C = A·[B | B2] with a caller-supplied epilogue that
-//                      sees whole fp32 output rows in shared memory:
-//       - bf16: 128x128 output tiles, mma.sync m16n8k16 on the tensor cores
-//               (fp32 accumulate) with ldmatrix operand loads, operand tiles
-//               32 deep fed by a ring of three cp.async stages;
-//       - float32: 128x128 output tiles of register-blocked FMA, 8x8 per
-//               thread (Hopper has no float32 tensor-core mode other than
-//               TF32, which is not float32);
-//   * load_tile / FmaAcc — a 64x64 float32 tile into shared memory and the
-//                      block-level 64x64x64 FMA product on it, used by the
-//                      float32 attention kernel;
-//   * ldmatrix / mma_16816 — the bf16 tensor-core building blocks of the bf16
-//                      GEMM and the bf16 attention kernel;
-//   * flash_fma_kernel / flash_mma_kernel — softmax(q·kᵀ·scale, masked)·v over
-//                      (batch·head, rows, 64 or 128) operands with an online
-//                      softmax over 64-key tiles, float32 (FMA) and bf16
-//                      (tensor cores); where the result goes, and what it is
-//                      multiplied by on the way, is the caller's Out policy.
+//                      sees eight consecutive float32 output columns of a row:
+//       - bf16: gemm_wgmma_kernel, a persistent warp-specialised pipeline in
+//               clusters of two blocks: TMA loads of 128-byte-swizzled tiles
+//               into a ring of stages, completed on mbarriers, the B tile
+//               multicast to both blocks; two consumer warpgroups take turns
+//               at 64x256 output tiles with wgmma m64n256k16 (float32
+//               accumulators in registers); the epilogue runs on the registers;
+//       - float32: gemm_fma_kernel, 128x128 output tiles of register-blocked
+//               FMA, 8x8 per thread (Hopper has no float32 tensor-core mode
+//               other than TF32, which is not float32), the epilogue through
+//               a float32 tile in shared memory;
+//   * attention (run_flash) — softmax(q·kᵀ·scale, masked)·v over (batch·head,
+//                      rows, 64 or 128) operands with an online softmax over
+//                      key tiles; where the result goes, and what it is
+//                      multiplied by on the way, is the caller's Out policy:
+//       - bf16: flash_wgmma_kernel, both products on wgmma, K and V tiles by
+//               TMA, scores, weights and output in registers;
+//       - float32: flash_fma_kernel, register-blocked FMA with the output,
+//               the running maximum and the running sum in registers.
+// The Hopper-only PTX (mbarrier, TMA, wgmma, setmaxnreg) is in hopper.cuh.
 //
 // The launch entry points (attention_block.cu, ff_block.cu, attention.cu)
 // expose a plain C interface so the library builds without PyTorch's headers and loads with
@@ -31,15 +35,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace asep {
 
-constexpr int TILE = 64;
 constexpr int THREADS = 256;
-// fp32 tiles (accumulators, scores), rows kept 16-byte aligned.
-constexpr int ACC_LD = TILE + 4;
-// fp32 operand tiles of the FMA products: an odd stride makes the walks down
-// a column hit distinct banks.
-constexpr int F_LD = TILE + 1;
 
 using bf16 = __nv_bfloat16;
 
@@ -74,22 +74,35 @@ __device__ __forceinline__ void load4(const bf16* p, float v[4]) {
     v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
-// Eight consecutive elements, as one 16-byte access for bf16 or two for
-// float32 (callers keep p 16-byte aligned).
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-    load4(p, v);
-    load4(p + 4, v + 4);
-}
+// Eight consecutive stored elements as they are loaded (one 16-byte access for
+// bf16, two for float32; callers keep p 16-byte aligned), through the
+// read-only path: for operands that no launch of the kernel writes, so the
+// compiler may move the load above earlier stores.
+template <typename T> struct Vec8;
+template <> struct Vec8<float> { float4 lo, hi; };
+template <> struct Vec8<bf16> { uint4 v; };
 
-__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+__device__ __forceinline__ Vec8<float> load_vec8(const float* p) {
+    return {__ldg(reinterpret_cast<const float4*>(p)), __ldg(reinterpret_cast<const float4*>(p) + 1)};
+}
+__device__ __forceinline__ Vec8<bf16> load_vec8(const bf16* p) {
+    return {__ldg(reinterpret_cast<const uint4*>(p))};
+}
+__device__ __forceinline__ void unpack(const Vec8<float>& a, float v[8]) {
+    v[0] = a.lo.x; v[1] = a.lo.y; v[2] = a.lo.z; v[3] = a.lo.w;
+    v[4] = a.hi.x; v[5] = a.hi.y; v[6] = a.hi.z; v[7] = a.hi.w;
+}
+__device__ __forceinline__ void unpack(const Vec8<bf16>& a, float v[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a.v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const float2 f = __bfloat1622float2(h[i]);
         v[2 * i] = f.x;
         v[2 * i + 1] = f.y;
     }
+}
+template <typename T> __device__ __forceinline__ void load8_ro(const T* p, float v[8]) {
+    unpack(load_vec8(p), v);
 }
 
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
@@ -135,86 +148,16 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restri
 }
 
 // ---------------------------------------------------------------------------
-// 64x64 tiles for the float32 attention kernel.
-
-// dst[r][c] = src[r * ld + c] for a 64x64 tile; columns >= valid_cols and
-// rows >= valid_rows read 0 (and are never dereferenced).
-__device__ void load_tile(float* dst, const float* src, int ld, int valid_cols,
-                          int valid_rows = TILE) {
-    const bool vec = (ld % 4 == 0) && (reinterpret_cast<uintptr_t>(src) % 16 == 0);
-    for (int g = threadIdx.x; g < TILE * TILE / 4; g += THREADS) {
-        const int r = g / (TILE / 4), c = (g % (TILE / 4)) * 4;
-        const float* p = src + (size_t)r * ld + c;
-        float v[4];
-        if (r >= valid_rows) {
-            v[0] = v[1] = v[2] = v[3] = 0.f;
-        } else if (vec && c + 4 <= valid_cols) {
-            load4(p, v);
-        } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] = (c + i < valid_cols) ? p[i] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dst[r * F_LD + c + i] = v[i];
-    }
-}
-
-// 64x64 float32 accumulator: thread (ty = tid / 16, tx = tid % 16) owns rows
-// ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, tx+48 of the tile.
-struct FmaAcc {
-    float c[4][4];
-
-    __device__ void zero() {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-    }
-
-    // C += A·B (TRANS_B: B is stored [n][k], i.e. C += A·Bᵀ of the stored tile).
-    template <bool TRANS_B> __device__ void mma(const float* A, const float* B) {
-        constexpr int LD = F_LD;
-        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-        for (int k = 0; k < TILE; ++k) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * LD + k];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                b[j] = TRANS_B ? B[(tx + 16 * j) * LD + k] : B[k * LD + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-        }
-    }
-
-    __device__ void store(float* C) const {
-        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) C[(ty * 4 + i) * ACC_LD + tx + 16 * j] = c[i][j];
-    }
-
-    __device__ void load(const float* C) {
-        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) c[i][j] = C[(ty * 4 + i) * ACC_LD + tx + 16 * j];
-    }
-};
-
-// ---------------------------------------------------------------------------
-// GEMMs. Both compute the output tile of A·[B | B2]: A is (M, K) row-major,
+// GEMMs. Both compute the output tiles of A·[B | B2]: A is (M, K) row-major,
 // B is (K, b_cols), the optional B2 (K, b2_cols) supplies columns b_cols ..
-// b_cols + b2_cols. A column tile never straddles B and B2 (b_cols is a
-// multiple of the tile width). The epilogue is called once per run of eight
-// output columns with their fp32 row in shared memory:
-// epi(row, c0, count, grow, gcol0) covers row[c0 .. c0 + count), count <= 8,
-// which is global row grow, columns gcol0 ...; c0 is a multiple of 8.
+// b_cols + b2_cols. A column tile never straddles B and B2 (float32: b_cols is
+// a multiple of the tile width; bf16: B2's tiles start a new tile). The
+// epilogue is called once per run of eight output columns with their float32
+// values (a row of shared memory in float32, a register array in bf16):
+// epi(row, c0, count, grow, gcol0, pre) covers row[c0 .. c0 + count), count <=
+// 8, which is global row grow, columns gcol0 ...; c0 is a multiple of 8; pre is
+// epi.prefetch(grow, gcol0), an Epi::Pre: what the functor reads from device
+// memory for that run, which the bf16 kernel asks for Epi::PREFETCH runs ahead.
 
 struct ColumnSource {
     const void* src;
@@ -333,180 +276,251 @@ gemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B, int b_
     for (int idx = threadIdx.x; idx < F_BM * F_BN / 8; idx += THREADS) {
         const int r = idx / (F_BN / 8), c0 = (idx % (F_BN / 8)) * 8;
         const int count = min(8, bs.valid - c0);
-        if (row0 + r < M && count > 0) epi(Cs + r * F_C_LD, c0, count, row0 + r, col0 + c0);
+        if (row0 + r < M && count > 0)
+            epi(Cs + r * F_C_LD, c0, count, row0 + r, col0 + c0,
+                epi.prefetch(row0 + r, col0 + c0));
     }
 }
 
-// bf16: 128x128 output tile; 8 warps in 2 (rows) x 4 (columns), each 64x32;
-// operand tiles 32 deep in a ring of W_STAGES cp.async stages, so two loads
-// are in flight while one stage is computed.
-constexpr int W_BM = 128, W_BN = 128, W_BK = 32, W_STAGES = 3;
-constexpr int W_A_LD = W_BK + 8;   // bf16 elements; rows stay 16-byte aligned
-constexpr int W_B_LD = W_BN + 8;
-constexpr int W_C_LD = W_BN + 4;   // fp32 epilogue rows
-constexpr int W_STAGE = W_BM * W_A_LD + W_BK * W_B_LD;  // bf16 elements per stage
+// bf16: a persistent, warp-specialised wgmma + TMA pipeline. Blocks of three
+// warpgroups run in clusters of two. A work item is 128 rows x 256 columns of
+// the output (cluster index, + cluster count, ...; the column tiles of one row
+// group are neighbours, so A stays in L2); block r of the cluster owns rows
+// 64·r .. +63 of it, and inside a block the items alternate between the two
+// consumer warpgroups, so that one's epilogue overlaps the other's products:
+//   * one thread of the producer warpgroup keeps a ring of G_STAGES stages
+//     filled by TMA, item after item: its own 64 A rows as one 64x64 K-major
+//     box, and B rows k0.. as four 64x64 MN-major boxes (B is (K, N) row-major
+//     and is read through wgmma's transpose bit, so no transposed copy of a
+//     weight is ever made). The two blocks need the same B boxes: each loads
+//     two of the four and multicasts them into both blocks' rings. Rows past
+//     M and columns past the source's width arrive as zeros. A column tile
+//     comes from B or from B2 (its own tensor map), never from both;
+//   * a consumer warpgroup runs its item's stages: m64n256k16 from shared
+//     memory into 128 float32 accumulators a thread, one wgmma group a stage,
+//     the previous stage released while it runs;
+//   * the epilogue works on the accumulator registers: the four lanes that
+//     share a row swap column pairs by shuffles so that each holds eight
+//     consecutive columns, and the functor sees those eight as a register
+//     array. What the functor reads from device memory for a run (Epi::Pre,
+//     loaded by Epi::prefetch) is fetched Epi::PREFETCH runs ahead, the first
+//     batch before the last products are waited for.
+// full[s] counts the TMA bytes of stage s, from both blocks' loads; empty[s]
+// takes one arrival from the stage's consumer warpgroup in each block, since
+// a multicast load writes into both rings; turn[w] tells warpgroup w that the
+// other one has finished the products of the item before.
+constexpr int G_WM = 64, G_BN = 256, G_BK = 64, G_STAGES = 5;
+constexpr int G_THREADS = 384;
+constexpr int G_A_BYTES = G_WM * G_BK * 2;
+constexpr int G_PANEL_BYTES = G_BK * 64 * 2;  // 64 k-rows of 64 columns
+constexpr int G_STAGE_BYTES = G_A_BYTES + (G_BN / 64) * G_PANEL_BYTES;
+constexpr size_t GEMM_WGMMA_SMEM_BYTES = G_STAGES * G_STAGE_BYTES + 1024 + (2 * G_STAGES + 2) * 8;
 
-constexpr size_t gemm_mma_smem_bytes() {
-    return (W_STAGES * W_STAGE * sizeof(bf16) > W_BM * W_C_LD * sizeof(float))
-               ? W_STAGES * W_STAGE * sizeof(bf16)
-               : W_BM * W_C_LD * sizeof(float);
+// Tiles are 1024-byte aligned for the swizzle; dynamic shared memory is not.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+    return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+template <bool B> struct Flag { static constexpr bool value = B; };
+
+__device__ __forceinline__ float2 shfl_xor2(float2 v, int mask) {
+    return make_float2(__shfl_xor_sync(0xffffffffu, v.x, mask),
+                       __shfl_xor_sync(0xffffffffu, v.y, mask));
 }
 
-// One stage: A rows row0.. (rows past M zero), B rows k0.. of the column
-// source (columns past `valid`, or a misaligned source, take the scalar path).
-__device__ __forceinline__ void mma_load_stage(bf16* stage, const bf16* A, int M, int K,
-                                                int row0, int k0, const bf16* bsrc, int bld,
-                                                int valid, bool b_vec) {
-    bf16* As = stage;
-    bf16* Bs = stage + W_BM * W_A_LD;
-    for (int ch = threadIdx.x; ch < W_BM * W_BK / 8; ch += THREADS) {
-        const int r = ch / (W_BK / 8), c = (ch % (W_BK / 8)) * 8;
-        bf16* dst = As + r * W_A_LD + c;
-        if (row0 + r < M)
-            cp_async16(dst, A + (size_t)(row0 + r) * K + k0 + c);
-        else
-            *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    for (int ch = threadIdx.x; ch < W_BK * W_BN / 8; ch += THREADS) {
-        const int r = ch / (W_BN / 8), c = (ch % (W_BN / 8)) * 8;
-        bf16* dst = Bs + r * W_B_LD + c;
-        const bf16* src = bsrc + (size_t)(k0 + r) * bld + c;
-        if (b_vec && c + 8 <= valid) {
-            cp_async16(dst, src);
-        } else {
+// The four lanes of a quad (lane % 4 = quad) each hold columns 2·quad, +1 of
+// four runs of eight columns (x[c], c = 0..3) of one row; afterwards lane
+// `quad` holds all eight columns of run `quad` in y.
+__device__ __forceinline__ void quad_transpose(const float2 (&x)[4], int quad, float (&y)[8]) {
+    const bool odd = quad & 1, hi = quad & 2;
+    float2 t[2][2];  // [run pair][lane of the own pair]: run 2b + odd
 #pragma unroll
-            for (int i = 0; i < 8; ++i) dst[i] = (c + i < valid) ? src[i] : __float2bfloat16(0.f);
-        }
+    for (int b = 0; b < 2; ++b) {
+        const float2 keep = odd ? x[2 * b + 1] : x[2 * b];
+        const float2 recv = shfl_xor2(odd ? x[2 * b] : x[2 * b + 1], 1);
+        t[b][0] = odd ? recv : keep;
+        t[b][1] = odd ? keep : recv;
     }
+    const float2 keep0 = hi ? t[1][0] : t[0][0], keep1 = hi ? t[1][1] : t[0][1];
+    const float2 recv0 = shfl_xor2(hi ? t[0][0] : t[1][0], 2);
+    const float2 recv1 = shfl_xor2(hi ? t[0][1] : t[1][1], 2);
+    const float2 lo0 = hi ? recv0 : keep0, lo1 = hi ? recv1 : keep1;  // from lanes 0, 1
+    const float2 hi0 = hi ? keep0 : recv0, hi1 = hi ? keep1 : recv1;  // from lanes 2, 3
+    y[0] = lo0.x; y[1] = lo0.y; y[2] = lo1.x; y[3] = lo1.y;
+    y[4] = hi0.x; y[5] = hi0.y; y[6] = hi1.x; y[7] = hi1.y;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const bf16* p) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const bf16* p) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-}
-
-// c += a·b for one m16n8k16 tile: bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_16816(float c[4], const unsigned a[4], const unsigned b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Warp tile 64x32 = 4 (m16) x 4 (n8) mma tiles. ldmatrix.x4 hands each lane
-// its A fragment (rows lane/4 and +8, k pairs (lane%4)*2 and +8) straight
-// from the row-major tile; .trans does the same for B stored [k][n].
 template <class Epi>
-__global__ void __launch_bounds__(THREADS)
-gemm_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int b_cols,
-                const bf16* __restrict__ B2, int b2_cols, int M, int K, Epi epi) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-    float* Cs = reinterpret_cast<float*>(smem_raw);  // after the main loop
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(G_THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_b2, int b_cols, int b2_cols, int M,
+                  int K, Epi epi) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align_1024(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
+    uint64_t* empty = full + G_STAGES;
+    uint64_t* turn = empty + G_STAGES;
 
-    const int row0 = blockIdx.x * W_BM, col0 = blockIdx.y * W_BN;
-    const ColumnSource bs = column_source(B, b_cols, B2, b2_cols, col0, W_BN);
-    const bf16* bsrc = static_cast<const bf16*>(bs.src);
-    const bool b_vec = (bs.ld % 8 == 0) && (reinterpret_cast<uintptr_t>(bsrc) % 16 == 0);
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-    float acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    const int k_steps = K / W_BK;
-#pragma unroll
-    for (int s = 0; s < W_STAGES - 1; ++s) {
-        if (s < k_steps)
-            mma_load_stage(stages + s * W_STAGE, A, M, K, row0, s * W_BK, bsrc, bs.ld,
-                            bs.valid, b_vec);
-        cp_async_commit();
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < G_STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 2);
+        }
+        mbar_init(turn, 1);
+        mbar_init(turn + 1, 1);
+        mbar_fence_init();
     }
-    for (int kt = 0; kt < k_steps; ++kt) {
-        // Stage kt has landed once at most W_STAGES - 2 groups are pending;
-        // the barrier also tells every thread that stage kt - 1 is consumed,
-        // so its buffer can take step kt + W_STAGES - 1.
-        cp_async_wait<W_STAGES - 2>();
-        __syncthreads();
-        const int next = kt + W_STAGES - 1;
-        if (next < k_steps)
-            mma_load_stage(stages + (next % W_STAGES) * W_STAGE, A, M, K, row0, next * W_BK,
-                            bsrc, bs.ld, bs.valid, b_vec);
-        cp_async_commit();
-        const bf16* As = stages + (kt % W_STAGES) * W_STAGE;
-        const bf16* Bs = As + W_BM * W_A_LD;
+    cluster_sync();  // both blocks' barriers exist before either is used
+
+    const uint32_t rank = cluster_rank();
+    const int b_tiles = (b_cols + G_BN - 1) / G_BN;
+    const int n_tiles = b_tiles + (b2_cols + G_BN - 1) / G_BN;
+    const int total = ((M + 2 * G_WM - 1) / (2 * G_WM)) * n_tiles;
+    const int first = blockIdx.x / 2, step = gridDim.x / 2;
+    const int k_steps = K / G_BK;
+    const int wg = threadIdx.x / 128;
+
+    if (wg == 2) {
+        reg_dealloc<40>();
+        if (threadIdx.x == 256) {
+            uint32_t it = 0;
+            for (int t = first; t < total; t += step) {
+                const int row0 = (t / n_tiles) * 2 * G_WM + rank * G_WM, nt = t % n_tiles;
+                const CUtensorMap* bmap = nt < b_tiles ? &map_b : &map_b2;
+                const int col0 = (nt < b_tiles ? nt : nt - b_tiles) * G_BN;
+                for (int kk = 0; kk < k_steps; ++kk, ++it) {
+                    const int s = it % G_STAGES;
+                    mbar_wait(empty + s, ((it / G_STAGES) & 1) ^ 1);
+                    mbar_arrive_expect_tx(full + s, G_STAGE_BYTES);
+                    unsigned char* st = smem + s * G_STAGE_BYTES;
+                    tma_load_2d(st, &map_a, full + s, kk * G_BK, row0);
 #pragma unroll
-        for (int kk = 0; kk < W_BK; kk += 16) {
-            unsigned a[4][4], b[4][2];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                ldmatrix_x4(a[i], As + (wm + 16 * i + lane % 16) * W_A_LD + kk + (lane / 16) * 8);
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                unsigned t[4];
-                ldmatrix_x4_trans(t, Bs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * W_B_LD + wn +
-                                         16 * jj + (lane / 16) * 8);
-                b[2 * jj][0] = t[0];
-                b[2 * jj][1] = t[1];
-                b[2 * jj + 1][0] = t[2];
-                b[2 * jj + 1][1] = t[3];
+                    for (int p = 2 * rank; p < 2 * rank + 2; ++p)
+                        tma_load_2d_multicast(st + G_A_BYTES + p * G_PANEL_BYTES, bmap, full + s,
+                                              col0 + 64 * p, kk * G_BK, 3);
+                }
             }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], a[i], b[j]);
         }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
+        __syncwarp();
+        // Each role ends on the cluster barrier: no block leaves while its
+        // peer may still multicast into its ring or arrive on its barriers.
+        cluster_sync();
+    } else {
+        reg_alloc<232>();
+        const int lane = threadIdx.x % 32, quad = lane % 4;
+        const int wrow = ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+        const bool elected = threadIdx.x % 128 == 0;
+        const uint32_t ring = smem_u32(smem);
+        constexpr int RUNS = G_BN / 16;  // (row half, four-run group) pairs of a thread
+        constexpr int NB = Epi::PREFETCH;
+        static_assert(RUNS % NB == 0, "prefetch depth must divide the runs of a thread");
+        float acc[G_BN / 2];
+        int item = 0;
+        for (int t = first; t < total; t += step, ++item) {
+            if ((item & 1) != wg) continue;
+            const int row0 = (t / n_tiles) * 2 * G_WM + rank * G_WM, nt = t % n_tiles;
+            const bool from_b = nt < b_tiles;
+            const int col0 = (from_b ? nt : nt - b_tiles) * G_BN;
+            const int valid = (from_b ? b_cols : b2_cols) - col0;  // columns of this tile
+            const int gcol0 = (from_b ? 0 : b_cols) + col0;
+            // Run r of this thread: row half r / 8, columns 8·(4·(r % 8) + quad) .. +7.
+            auto run_row = [&](int r) { return row0 + wrow + 8 * (r / (RUNS / 2)); };
+            auto run_col = [&](int r) { return 8 * (4 * (r % (RUNS / 2)) + quad); };
+            auto run_ok = [&](int r) { return run_row(r) < M && run_col(r) < valid; };
+
+            // The warpgroups take turns at the products: a wait names a phase
+            // by its parity alone, so a warpgroup may look at a stage's
+            // barrier only once the other one is through with all the
+            // stages before its own.
+            if (item > 0) mbar_wait(turn + wg, ((item - 1) / 2) & 1);
+            uint32_t it = (uint32_t)item * k_steps;
+            for (int kk = 0; kk < k_steps; ++kk, ++it) {
+                const int s = it % G_STAGES;
+                mbar_wait(full + s, (it / G_STAGES) & 1);
+                const uint32_t a = ring + s * G_STAGE_BYTES;
+                const uint32_t b = a + G_A_BYTES;
+                wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+                for (int k4 = 0; k4 < G_BK / 16; ++k4)
+                    wgmma_ss_n256<1>(acc, desc_k_major(a + k4 * 32),
+                                     desc_mn_major(b + k4 * 2048, G_PANEL_BYTES),
+                                     (kk | k4) != 0);
+                wgmma_commit();
+                if (kk > 0) {
+                    // The previous stage's group is done once one is pending.
+                    wgmma_wait<1>();
+                    if (elected) {
+                        mbar_arrive(empty + (it - 1) % G_STAGES);
+                        mbar_arrive_cluster(empty + (it - 1) % G_STAGES, rank ^ 1);
+                    }
+                }
+            }
+            // A tile wholly inside the output (nearly all are) runs the
+            // epilogue without a branch between its runs, so that their
+            // shuffles, loads and arithmetic overlap.
+            const bool inside = row0 + G_WM <= M && valid >= G_BN;
+            typename Epi::Pre next[NB];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int r = wm + 16 * i + lane / 4, c = wn + 8 * j + (lane % 4) * 2;
-            *reinterpret_cast<float2*>(Cs + r * W_C_LD + c) = make_float2(acc[i][j][0], acc[i][j][1]);
-            *reinterpret_cast<float2*>(Cs + (r + 8) * W_C_LD + c) =
-                make_float2(acc[i][j][2], acc[i][j][3]);
+            for (int i = 0; i < NB; ++i)
+                if (inside || run_ok(i)) next[i] = epi.prefetch(run_row(i), gcol0 + run_col(i));
+            wgmma_wait<0>();
+            if (elected) {
+                mbar_arrive(empty + (it - 1) % G_STAGES);
+                mbar_arrive_cluster(empty + (it - 1) % G_STAGES, rank ^ 1);
+                mbar_arrive(turn + (wg ^ 1));
+            }
+            fence_registers(acc);
+
+            auto epilogue = [&](auto guarded) {
+                constexpr bool GUARDED = decltype(guarded)::value;
+#pragma unroll
+                for (int r0 = 0; r0 < RUNS; r0 += NB) {
+                    typename Epi::Pre cur[NB];
+#pragma unroll
+                    for (int i = 0; i < NB; ++i) cur[i] = next[i];
+                    if (r0 + NB < RUNS) {
+#pragma unroll
+                        for (int i = 0; i < NB; ++i)
+                            if (!GUARDED || run_ok(r0 + NB + i))
+                                next[i] = epi.prefetch(run_row(r0 + NB + i),
+                                                       gcol0 + run_col(r0 + NB + i));
+                    }
+#pragma unroll
+                    for (int i = 0; i < NB; ++i) {
+                        const int r = r0 + i, h = r / (RUNS / 2), g = r % (RUNS / 2);
+                        float2 x[4];
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            x[c] = make_float2(acc[4 * (4 * g + c) + 2 * h],
+                                               acc[4 * (4 * g + c) + 2 * h + 1]);
+                        float y[8];
+                        quad_transpose(x, quad, y);
+                        if (!GUARDED || run_ok(r))
+                            epi(y, 0, GUARDED ? min(8, valid - run_col(r)) : 8, run_row(r),
+                                gcol0 + run_col(r), cur[i]);
+                    }
+                }
+            };
+            if (inside)
+                epilogue(Flag<false>{});
+            else
+                epilogue(Flag<true>{});
         }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < W_BM * W_BN / 8; idx += THREADS) {
-        const int r = idx / (W_BN / 8), c0 = (idx % (W_BN / 8)) * 8;
-        const int count = min(8, bs.valid - c0);
-        if (row0 + r < M && count > 0) epi(Cs + r * W_C_LD, c0, count, row0 + r, col0 + c0);
+        cluster_sync();
     }
 }
 
 // ---------------------------------------------------------------------------
 // Flash-style attention: o = softmax(q·kᵀ·scale, key columns >= n_valid
 // masked to -1e30)·v for each (batch, head). q, k, v are (batch·heads, n_rows,
-// DH) contiguous, DH = 64 or 128. One block takes 64 queries of one (batch,
-// head) and walks 64-key tiles with an online softmax, so no (n, n) score
+// DH) contiguous, DH = 64 or 128. One block takes a tile of queries of one
+// (batch, head) and walks key tiles with an online softmax, so no (n, n) score
 // matrix is stored. Key tiles wholly past n_valid are skipped; rows past
-// n_rows (the ragged last tile) are read as zeros and never written.
+// n_rows (the ragged last tile) are read as zeros and never written. The
+// softmax runs in base 2 with the scale folded into the exponent: a weight is
+// 2^(s·c - m·c), c = scale·log2(e) > 0, one FMA and one ex2 from the raw score s
+// and the running maximum m of the raw scores.
 //
 // The Out policy says where a query row's result goes and what multiplies it:
 //     T* row(int bh, int n)        first element of the DH outputs of query n
@@ -520,288 +534,425 @@ template <typename T> struct HeadMajorOut {
     __device__ float gain(int, int) const { return 1.f; }
 };
 
-template <int HALVES> constexpr size_t flash_fma_smem_bytes() {
-    // Q, K, V operand tiles per 64-wide half, P; the S tile and one O tile per
-    // half in fp32; running max and sum.
-    return (3 * HALVES + 1) * TILE * F_LD * sizeof(float) +
-           (1 + HALVES) * TILE * ACC_LD * sizeof(float) + 2 * TILE * sizeof(float);
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// float32. blockIdx.x = (batch * heads + head) * q_tiles + q_tile. The head
-// dimension is HALVES 64-wide halves: S sums the halves' products, O keeps one
-// accumulator tile per half.
-template <int HALVES, class Out>
-__global__ void __launch_bounds__(THREADS)
-flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, Out out, int n_rows, int n_valid, float scale) {
-    constexpr int LD = F_LD, DH = TILE * HALVES;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* Qs = reinterpret_cast<float*>(smem_raw);
-    float* Ks = Qs + HALVES * TILE * LD;
-    float* Vs = Ks + HALVES * TILE * LD;
-    float* Ps = Vs + HALVES * TILE * LD;
-    float* Ss = Ps + TILE * LD;
-    float* Os = Ss + TILE * ACC_LD;
-    float* m_s = Os + HALVES * TILE * ACC_LD;
-    float* l_s = m_s + TILE;
+// float32, on the FMA units (TF32 is not float32). 256 threads as 16 x 16:
+// thread (ty, tx) owns query rows ty + 16·i (i < RI) of a tile of 16·RI
+// queries, and of every 64-key tile the keys tx + 16·j (j < 4). Its score
+// rows are its output rows, so the output accumulator (RI rows x DH/16
+// columns: tx·4 .. +3 of every 64), the running maximum and the running sum
+// stay in registers across key tiles and the rescale is a register multiply.
+// Both products read their operands from row-major tiles as float4 along the
+// depth (RI + 4 loads for 16·RI FMAs). Scores never touch shared memory; the
+// weights pass through it once, as the first operand of the second product.
+// K and V have one buffer each, filled by cp.async while the other product
+// runs (V during q·kᵀ and the softmax, the next K during p·v), which leaves
+// room for two blocks an SM at DH 64: one's softmax overlaps the other's
+// products. Two barriers a key tile.
+constexpr int FF_BN = 64;
+constexpr int FF_P_LD = FF_BN + 16;  // rows ty, ty + 1 of a warp land 16 banks apart
 
-    const int q_tiles = (n_rows + TILE - 1) / TILE;
-    const int qt = blockIdx.x % q_tiles;
-    const int bh = blockIdx.x / q_tiles;  // batch * heads + head
-    const size_t base = (size_t)bh * n_rows * DH;
+template <int DH, int RI> constexpr size_t FLASH_FMA_SMEM_BYTES =
+    ((16 * RI + 2 * FF_BN) * (DH + 4) + 16 * RI * FF_P_LD) * sizeof(float);
 
-#pragma unroll
-    for (int h = 0; h < HALVES; ++h)
-        load_tile(Qs + h * TILE * LD, q + base + (size_t)qt * TILE * DH + h * TILE, DH, TILE,
-                  n_rows - qt * TILE);
-    for (int i = threadIdx.x; i < HALVES * TILE * ACC_LD; i += THREADS) Os[i] = 0.f;
-    if (threadIdx.x < TILE) {
-        m_s[threadIdx.x] = -INFINITY;
-        l_s[threadIdx.x] = 0.f;
-    }
-
-    // Softmax work split: 4 threads per query row, columns sub, sub+4, ...
-    const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
-    const int key_tiles = (n_valid + TILE - 1) / TILE;
-    for (int kt = 0; kt < key_tiles; ++kt) {
-        __syncthreads();
-#pragma unroll
-        for (int h = 0; h < HALVES; ++h) {
-            const size_t off = base + (size_t)kt * TILE * DH + h * TILE;
-            load_tile(Ks + h * TILE * LD, k + off, DH, TILE, n_rows - kt * TILE);
-            load_tile(Vs + h * TILE * LD, v + off, DH, TILE, n_rows - kt * TILE);
-        }
-        __syncthreads();
-        {
-            FmaAcc s;
-            s.zero();
-#pragma unroll
-            for (int h = 0; h < HALVES; ++h) s.mma<true>(Qs + h * TILE * LD, Ks + h * TILE * LD);
-            s.store(Ss);
-        }
-        __syncthreads();
-
-        const float m_old = m_s[r];
-        float sv[16];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int c = sub + 4 * i;
-            float val = Ss[r * ACC_LD + c] * scale;
-            if (kt * TILE + c >= n_valid) val = -1e30f;
-            sv[i] = val;
-            mx = fmaxf(mx, val);
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_old, mx);
-        const float alpha = expf(m_old - m_new);
-        float lsum = 0.f;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int c = sub + 4 * i;
-            const float p = expf(sv[i] - m_new);
-            lsum += p;
-            Ps[r * LD + c] = p;
-#pragma unroll
-            for (int h = 0; h < HALVES; ++h) Os[h * TILE * ACC_LD + r * ACC_LD + c] *= alpha;
-        }
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-        if (sub == 0) {
-            m_s[r] = m_new;
-            l_s[r] = l_s[r] * alpha + lsum;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int h = 0; h < HALVES; ++h) {
-            FmaAcc o;
-            o.load(Os + h * TILE * ACC_LD);
-            o.mma<false>(Ps, Vs + h * TILE * LD);
-            o.store(Os + h * TILE * ACC_LD);
-        }
-    }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < TILE * DH; idx += THREADS) {
-        const int rr = idx / DH, j = idx % DH;
-        const int n = qt * TILE + rr;
-        if (n < n_rows)
-            out.row(bh, n)[j] =
-                Os[(j / TILE) * TILE * ACC_LD + rr * ACC_LD + j % TILE] / l_s[rr] * out.gain(bh, n);
-    }
-}
-
-// bf16 attention with scores and output in registers (FlashAttention-2
-// style). A block of 4 warps takes 64 queries of one (batch, head); warp w
-// owns query rows 16w .. 16w+15. Per 64-key tile: S = Q·Kᵀ by mma.sync
-// (K rows read untransposed by ldmatrix are Kᵀ's column fragments), an online
-// softmax on the accumulators (a row lives in the 4 lanes sharing lane/4),
-// P = exp(S - m) rounded to bf16 straight into A fragments, O += P·V (V read
-// with ldmatrix.trans). K and V tiles are double-buffered with cp.async.
-constexpr int FA_WARPS = 4;
-
-// Shared-memory rows are DH + FA_PAD bf16 elements: 16-byte aligned rows
-// whose ldmatrix reads are conflict-free (144 and 272 bytes).
-constexpr int FA_PAD = 8;
-
-template <int DH> constexpr size_t flash_mma_smem_bytes() {
-    return 5 * TILE * (DH + FA_PAD) * sizeof(bf16);
-}
-
-// 64 rows of DH from src (row stride DH); rows >= valid_rows become zeros.
+// rows x DH floats from src (row stride DH) into rows of DH + 4; rows >=
+// valid_rows become zeros.
 template <int DH>
-__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src, int valid_rows) {
-    constexpr int CH = DH / 8, LD = DH + FA_PAD;
-    for (int ch = threadIdx.x; ch < TILE * CH; ch += FA_WARPS * 32) {
-        const int r = ch / CH, c = (ch % CH) * 8;
-        bf16* d = dst + r * LD + c;
+__device__ __forceinline__ void ff_load_tile(float* dst, const float* src, int rows,
+                                             int valid_rows) {
+    constexpr int CH = DH / 4, LD = DH + 4;
+    for (int ch = threadIdx.x; ch < rows * CH; ch += THREADS) {
+        const int r = ch / CH, c = (ch % CH) * 4;
+        float* d = dst + r * LD + c;
         if (r < valid_rows)
             cp_async16(d, src + (size_t)r * DH + c);
         else
-            *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
 }
+
+template <int DH, int RI, class Out>
+__global__ void __launch_bounds__(THREADS, (DH == 64 ? 2 : 1))
+flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, Out out, int n_rows, int n_valid, float scale) {
+    constexpr int BM = 16 * RI, LD = DH + 4, OG = DH / 64;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    float* Qs = reinterpret_cast<float*>(smem_raw);
+    float* Ks = Qs + BM * LD;
+    float* Vs = Ks + FF_BN * LD;
+    float* Ps = Vs + FF_BN * LD;
+
+    const int q_tiles = (n_rows + BM - 1) / BM;
+    const int qt = blockIdx.x % q_tiles;
+    const int bh = blockIdx.x / q_tiles;
+    const size_t base = (size_t)bh * n_rows * DH;
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int key_tiles = (n_valid + FF_BN - 1) / FF_BN;
+    const float sl2 = scale * LOG2E;
+
+    ff_load_tile<DH>(Qs, q + base + (size_t)qt * BM * DH, BM, n_rows - qt * BM);
+    ff_load_tile<DH>(Ks, k + base, FF_BN, n_rows);
+    cp_async_commit();
+
+    float o[RI][4 * OG], m_run[RI], l_run[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+        m_run[i] = -INFINITY;
+        l_run[i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4 * OG; ++c) o[i][c] = 0.f;
+    }
+
+    for (int kt = 0; kt < key_tiles; ++kt) {
+        cp_async_wait<0>();
+        // K of tile kt (and Q) has landed for every thread, and every thread
+        // is past the second product of tile kt - 1: Vs and Ps are free.
+        __syncthreads();
+        ff_load_tile<DH>(Vs, v + base + (size_t)kt * FF_BN * DH, FF_BN, n_rows - kt * FF_BN);
+        cp_async_commit();
+
+        float s[RI][4];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+        for (int d = 0; d < DH; d += 4) {
+            float4 qv[RI];
+#pragma unroll
+            for (int i = 0; i < RI; ++i)
+                qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float4 kv = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+                for (int i = 0; i < RI; ++i) {
+                    s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+                    s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+                    s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+                    s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+                }
+            }
+        }
+
+        if ((kt + 1) * FF_BN > n_valid) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (kt * FF_BN + tx + 16 * j >= n_valid) {
+#pragma unroll
+                    for (int i = 0; i < RI; ++i) s[i][j] = -1e30f;
+                }
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+            float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+            for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+            const float m_new = fmaxf(m_run[i], mx);
+            const float alpha = ex2((m_run[i] - m_new) * sl2);
+            const float ms = m_new * sl2;
+            m_run[i] = m_new;
+            float lsum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float p = ex2(fmaf(s[i][j], sl2, -ms));
+                lsum += p;
+                Ps[(ty + 16 * i) * FF_P_LD + tx + 16 * j] = p;
+            }
+#pragma unroll
+            for (int w = 8; w > 0; w >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, w);
+            l_run[i] = l_run[i] * alpha + lsum;
+#pragma unroll
+            for (int c = 0; c < 4 * OG; ++c) o[i][c] *= alpha;
+        }
+        cp_async_wait<0>();
+        // V of tile kt has landed and Ps is written for every thread, and
+        // every thread is past the first product: Ks is free.
+        __syncthreads();
+        if (kt + 1 < key_tiles) {
+            ff_load_tile<DH>(Ks, k + base + (size_t)(kt + 1) * FF_BN * DH, FF_BN,
+                             n_rows - (kt + 1) * FF_BN);
+            cp_async_commit();
+        }
+
+#pragma unroll 2
+        for (int key = 0; key < FF_BN; key += 4) {
+            float pv[RI][4];
+#pragma unroll
+            for (int i = 0; i < RI; ++i) load4(Ps + (ty + 16 * i) * FF_P_LD + key, pv[i]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int g = 0; g < OG; ++g) {
+                    float vv[4];
+                    load4(Vs + (key + kk) * LD + 64 * g + tx * 4, vv);
+#pragma unroll
+                    for (int i = 0; i < RI; ++i)
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            o[i][4 * g + c] = fmaf(pv[i][kk], vv[c], o[i][4 * g + c]);
+                }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+        const int n = qt * BM + ty + 16 * i;
+        if (n >= n_rows) continue;
+        const float f = out.gain(bh, n) / l_run[i];
+        float* dst = out.row(bh, n);
+#pragma unroll
+        for (int g = 0; g < OG; ++g)
+            *reinterpret_cast<float4*>(dst + 64 * g + tx * 4) =
+                make_float4(o[i][4 * g] * f, o[i][4 * g + 1] * f, o[i][4 * g + 2] * f,
+                            o[i][4 * g + 3] * f);
+    }
+}
+
+// bf16, on wgmma with TMA-fed operands. A block takes 64·CONSUMERS queries of
+// one (batch, head): each consumer warpgroup owns 64 of them (three warpgroups
+// at DH 64, two at DH 128, where the output accumulator is twice as wide); one
+// thread of the producer warpgroup loads Q once and then keeps a ring of
+// (K, V) tiles of 128 keys in flight. Warpgroups whose 64 rows lie wholly past
+// n_rows leave at once. Sequences of at most 64 rows get blocks of one
+// consumer warpgroup and a ring of two tiles, small enough for two blocks an
+// SM: such a block is all latency (loads, one tile, stores), and what hides
+// it is another block. The tensor maps are three-dimensional, (dh, row, batch·head), so rows
+// past n_rows arrive as zeros instead of the next head's rows. Per key tile and
+// warpgroup: S = Q·Kᵀ as m64n128k16 from shared memory (K's rows are the
+// K-major second operand as they lie), the online softmax on the accumulators
+// (a row lives in the four lanes sharing lane / 4), P = exp2(S - m) rounded to
+// bf16 straight into the register first operand of O += P·V, with V read
+// MN-major through the transpose bit. S, P, O, the running maximum and sum
+// never leave registers. A tile's S is started together with the previous
+// tile's P·V and its softmax runs while P·V is still on the tensor cores; the
+// warpgroups start their products in turn (named barriers), so that one's
+// softmax falls on the others' products.
+constexpr int FW_N = 128;
+constexpr int FW_PANEL_BYTES = FW_N * 128;  // 128 keys of 64 bf16
+
+template <int DH> constexpr int FW_CONSUMERS = DH == 64 ? 3 : 2;
+template <int CONSUMERS> constexpr int FW_STAGES = CONSUMERS == 1 ? 2 : 3;
+template <int DH, int CONSUMERS> constexpr size_t FLASH_WGMMA_SMEM_BYTES =
+    (DH / 64) * (CONSUMERS * 64 * 128 + 2 * FW_STAGES<CONSUMERS> * FW_PANEL_BYTES) + 1024 +
+    (1 + 2 * FW_STAGES<CONSUMERS>) * 8;
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const unsigned*>(&h);
 }
 
-template <int DH, class Out>
-__global__ void __launch_bounds__(FA_WARPS * 32)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, Out out, int n_rows, int n_valid, float scale) {
-    constexpr int LD = DH + FA_PAD;
-    constexpr int KC = DH / 16;  // 16-deep chunks of the head dimension
-    constexpr int OT = DH / 8;   // 8-wide output tiles
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Ks = Qs + TILE * LD;      // two stages
-    bf16* Vs = Ks + 2 * TILE * LD;  // two stages
+template <int DH, int CONSUMERS, class Out>
+__global__ void __launch_bounds__(128 * (CONSUMERS + 1), CONSUMERS == 1 ? 2 : 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, Out out, int n_rows, int n_valid,
+                   float scale) {
+    constexpr int BM = 64 * CONSUMERS, STAGES = FW_STAGES<CONSUMERS>;
+    // Registers a thread after setmaxnreg: what the block was given at launch
+    // (the launch bounds' count for every thread), moved from the producer
+    // warpgroup to the consumers.
+    constexpr int PRODUCER_REGS = CONSUMERS == 3 ? 32 : 40;
+    constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : CONSUMERS == 2 ? 232 : 216;
+    constexpr int PANELS = DH / 64, TILE_BYTES = PANELS * FW_PANEL_BYTES;
+    constexpr int Q_PANEL_BYTES = BM * 128;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* Qs = align_1024(smem_raw);
+    unsigned char* Ks = Qs + PANELS * Q_PANEL_BYTES;
+    unsigned char* Vs = Ks + STAGES * TILE_BYTES;
+    uint64_t* q_bar = reinterpret_cast<uint64_t*>(Vs + STAGES * TILE_BYTES);
+    uint64_t* full = q_bar + 1;
+    uint64_t* empty = full + STAGES;
 
-    const int q_tiles = (n_rows + TILE - 1) / TILE;
+    const int q_tiles = (n_rows + BM - 1) / BM;
     const int qt = blockIdx.x % q_tiles;
     const int bh = blockIdx.x / q_tiles;
-    const size_t base = (size_t)bh * n_rows * DH;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int key_tiles = (n_valid + TILE - 1) / TILE;
+    const int key_tiles = (n_valid + FW_N - 1) / FW_N;
+    const int wg = threadIdx.x / 128;
+    // Warpgroups with rows to compute: the others take no part in anything.
+    const int active = min(CONSUMERS, (n_rows - qt * BM + 63) / 64);
 
-    fa_load_tile<DH>(Qs, q + base + (size_t)qt * TILE * DH, n_rows - qt * TILE);
-    fa_load_tile<DH>(Ks, k + base, n_rows);
-    fa_load_tile<DH>(Vs, v + base, n_rows);
-    cp_async_commit();
-
-    unsigned qa[KC][4];  // Q fragments, KC chunks of 16 dims
-    float o[OT][4];      // O: OT tiles of 8 dims; [0..1] row lane/4, [2..3] row +8
-    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < OT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-    for (int kt = 0; kt < key_tiles; ++kt) {
-        const int st = kt & 1;
-        if (kt + 1 < key_tiles) {
-            const size_t off = base + (size_t)(kt + 1) * TILE * DH;
-            fa_load_tile<DH>(Ks + (st ^ 1) * TILE * LD, k + off, n_rows - (kt + 1) * TILE);
-            fa_load_tile<DH>(Vs + (st ^ 1) * TILE * LD, v + off, n_rows - (kt + 1) * TILE);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    if (threadIdx.x == 0) {
+        mbar_init(q_bar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, active);
         }
-        __syncthreads();
-        if (kt == 0) {
-#pragma unroll
-            for (int kc = 0; kc < KC; ++kc)
-                ldmatrix_x4(qa[kc], Qs + (warp * 16 + lane % 16) * LD + kc * 16 + (lane / 16) * 8);
-        }
-        const bf16* Kt = Ks + st * TILE * LD;
-        const bf16* Vt = Vs + st * TILE * LD;
-
-        float s[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                unsigned t[4];
-                ldmatrix_x4(t, Kt + (jj * 16 + lane % 8 + (lane / 16) * 8) * LD + kc * 16 +
-                                   ((lane / 8) % 2) * 8);
-                const unsigned b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
-                mma_16816(s[2 * jj], qa[kc], b0);
-                mma_16816(s[2 * jj + 1], qa[kc], b1);
-            }
-
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int key = kt * TILE + 8 * j + (lane % 4) * 2 + (e & 1);
-                s[j][e] = key < n_valid ? s[j][e] * scale : -1e30f;
-                mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-            }
-        float alpha[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-            const float m_new = fmaxf(m_run[h], mx[h]);
-            alpha[h] = expf(m_run[h] - m_new);
-            m_run[h] = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[j][e] = expf(s[j][e] - m_run[e / 2]);
-                lsum[e / 2] += s[j][e];
-            }
-#pragma unroll
-        for (int j = 0; j < OT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e / 2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
-            lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
-            l_run[h] = l_run[h] * alpha[h] + lsum[h];
-        }
-
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc) {  // 16-key chunks of the tile
-            const unsigned pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                                    pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                                    pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                                    pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-            for (int jj = 0; jj < OT / 2; ++jj) {
-                unsigned t[4];
-                ldmatrix_x4_trans(t, Vt + (kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                         jj * 16 + (lane / 16) * 8);
-                const unsigned b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
-                mma_16816(o[2 * jj], pa, b0);
-                mma_16816(o[2 * jj + 1], pa, b1);
-            }
-        }
-        __syncthreads();
+        mbar_fence_init();
     }
+    __syncthreads();
+
+    if (wg == CONSUMERS) {
+        reg_dealloc<PRODUCER_REGS>();
+        if (threadIdx.x == 128 * CONSUMERS) {
+            mbar_arrive_expect_tx(q_bar, PANELS * Q_PANEL_BYTES);
+#pragma unroll
+            for (int p = 0; p < PANELS; ++p)
+                tma_load_3d(Qs + p * Q_PANEL_BYTES, &map_q, q_bar, 64 * p, qt * BM, bh);
+            for (int kt = 0; kt < key_tiles; ++kt) {
+                const int s = kt % STAGES;
+                mbar_wait(empty + s, ((kt / STAGES) & 1) ^ 1);
+                mbar_arrive_expect_tx(full + s, 2 * TILE_BYTES);
+#pragma unroll
+                for (int p = 0; p < PANELS; ++p) {
+                    tma_load_3d(Ks + s * TILE_BYTES + p * FW_PANEL_BYTES, &map_k, full + s,
+                                64 * p, kt * FW_N, bh);
+                    tma_load_3d(Vs + s * TILE_BYTES + p * FW_PANEL_BYTES, &map_v, full + s,
+                                64 * p, kt * FW_N, bh);
+                }
+            }
+        }
+    } else if (wg < active) {
+        reg_alloc<CONSUMER_REGS>();
+        const int lane = threadIdx.x % 32, quad = lane % 4;
+        const int wrow = wg * 64 + ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+        const bool elected = threadIdx.x % 128 == 0;
+        const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128;
+        const float sl2 = scale * LOG2E;
+
+        float o[DH / 2];  // runs of eight output columns, laid out as wgmma's d
+        float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+
+        // S = Q·Kᵀ for the key tile in stage s, as one wgmma group.
+        auto start_scores = [&](float (&sc)[FW_N / 2], int s) {
+            const uint32_t k_addr = smem_u32(Ks) + s * TILE_BYTES;
+            wgmma_fence();
+#pragma unroll
+            for (int kc = 0; kc < DH / 16; ++kc)
+                wgmma_ss_n128<0>(sc, desc_k_major(q_addr + (kc / 4) * Q_PANEL_BYTES + (kc % 4) * 32),
+                                 desc_k_major(k_addr + (kc / 4) * FW_PANEL_BYTES + (kc % 4) * 32),
+                                 kc != 0);
+            wgmma_commit();
+        };
+
+        // The online softmax of key tile kt on its complete scores, in place:
+        // updates the running maximum and sum, leaves the tile's weights in sc
+        // and the factor that the output accumulated so far must be multiplied
+        // by in alpha.
+        auto softmax = [&](float (&sc)[FW_N / 2], int kt, float (&alpha)[2]) {
+            if ((kt + 1) * FW_N > n_valid) {
+#pragma unroll
+                for (int j = 0; j < FW_N / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (kt * FW_N + 8 * j + 2 * quad + (e & 1) >= n_valid)
+                            sc[4 * j + e] = -1e30f;
+            }
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int j = 0; j < FW_N / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+            // m_run is in score units; the scale is folded into the exponent.
+            float ms[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+                const float m_new = fmaxf(m_run[h], mx[h]);
+                alpha[h] = ex2((m_run[h] - m_new) * sl2);
+                ms[h] = m_new * sl2;
+                m_run[h] = m_new;
+            }
+#pragma unroll
+            for (int j = 0; j < FW_N / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, -ms[e / 2]));
+                    lsum[e / 2] += sc[4 * j + e];
+                }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+                lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+                l_run[h] = l_run[h] * alpha[h] + lsum[h];
+            }
+        };
+
+        // The weights as bf16 first-operand fragments: two adjacent runs of
+        // eight keys are the m16k16 fragment of a k16 step.
+        uint32_t pa[FW_N / 16][4];
+        auto pack_weights = [&](const float (&sc)[FW_N / 2]) {
+#pragma unroll
+            for (int c = 0; c < FW_N / 16; ++c)
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                    pa[c][r] = pack_bf16(sc[8 * c + 2 * r], sc[8 * c + 2 * r + 1]);
+        };
+
+        // O += P·V for the key tile in stage s, as one wgmma group.
+        auto start_pv = [&](int s) {
+            const uint32_t v_addr = smem_u32(Vs) + s * TILE_BYTES;
+            wgmma_fence();
+#pragma unroll
+            for (int c = 0; c < FW_N / 16; ++c) {
+                const uint64_t vd = desc_mn_major(v_addr + c * 2048, FW_PANEL_BYTES);
+                if constexpr (DH == 64)
+                    wgmma_rs_n64<1>(o, pa[c], vd, 1);
+                else
+                    wgmma_rs_n128<1>(o, pa[c], vd, 1);
+            }
+            wgmma_commit();
+        };
+
+        float sc[FW_N / 2], alpha[2];
+        // Warpgroup 0 goes first; each hands the turn to the next.
+        if (active > 1 && wg == active - 1) named_barrier_arrive(1, 256);
+        mbar_wait(q_bar, 0);
+        mbar_wait(full, 0);
+        start_scores(sc, 0);
+        wgmma_wait<0>();
+        fence_registers(sc);
+        softmax(sc, 0, alpha);  // nothing accumulated yet: alpha is not used
+        pack_weights(sc);
+        for (int kt = 1; kt < key_tiles; ++kt) {
+            // This tile's scores and the previous tile's P·V are started
+            // together; the softmax of the scores then runs while the tensor
+            // cores are still busy with P·V. Once that is done the weights'
+            // registers are free for this tile's, and the output is rescaled
+            // before the next P·V adds to it.
+            mbar_wait(full + kt % STAGES, (kt / STAGES) & 1);
+            if (active > 1) named_barrier_sync(1 + wg, 256);
+            start_scores(sc, kt % STAGES);
+            start_pv((kt - 1) % STAGES);
+            if (active > 1) named_barrier_arrive(1 + (wg + 1) % active, 256);
+            wgmma_wait<1>();
+            fence_registers(sc);
+            softmax(sc, kt, alpha);
+            wgmma_wait<0>();
+            fence_registers(o);
+            if (elected) mbar_arrive(empty + (kt - 1) % STAGES);
+#pragma unroll
+            for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+            pack_weights(sc);
+        }
+        start_pv((key_tiles - 1) % STAGES);
+        wgmma_wait<0>();
+        fence_registers(o);
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int n = qt * TILE + warp * 16 + lane / 4 + 8 * h;
-        if (n >= n_rows) continue;
-        const float f = out.gain(bh, n) / l_run[h];
-        bf16* dst = out.row(bh, n) + (lane % 4) * 2;
+        for (int h = 0; h < 2; ++h) {
+            const int n = qt * BM + wrow + 8 * h;
+            if (n >= n_rows) continue;
+            const float f = out.gain(bh, n) / l_run[h];
+            bf16* dst = out.row(bh, n) + 2 * quad;
 #pragma unroll
-        for (int j = 0; j < OT; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-                __floats2bfloat162_rn(o[j][2 * h] * f, o[j][2 * h + 1] * f);
+            for (int j = 0; j < DH / 8; ++j)
+                *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                    __floats2bfloat162_rn(o[4 * j + 2 * h] * f, o[4 * j + 2 * h + 1] * f);
+        }
     }
 }
 
@@ -814,14 +965,19 @@ template <typename T> struct ResidualEpi {
     const T* bias;
     T* out;
     int cols;
-    __device__ void operator()(const float* row, int c0, int, int grow, int gcol0) const {
-        const size_t i = (size_t)grow * cols + gcol0;
-        float xv[8], y[8];
-        load8(x + i, xv);
+    using Pre = Vec8<T>;  // the residual's eight values
+    static constexpr int PREFETCH = 4;
+    __device__ Pre prefetch(int grow, int gcol0) const {
+        return load_vec8(x + (size_t)grow * cols + gcol0);
+    }
+    __device__ void operator()(const float* row, int c0, int, int grow, int gcol0,
+                               const Pre& pre) const {
+        float xv[8], bv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, y[8];
+        unpack(pre, xv);
+        if (bias != nullptr) load8_ro(bias + gcol0, bv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-            y[e] = xv[e] + rnd<T>(row[c0 + e] + (bias != nullptr ? to_f(bias[gcol0 + e]) : 0.f));
-        store8(out + i, y);
+        for (int e = 0; e < 8; ++e) y[e] = xv[e] + rnd<T>(row[c0 + e] + bv[e]);
+        store8(out + (size_t)grow * cols + gcol0, y);
     }
 };
 
@@ -850,18 +1006,110 @@ cudaError_t run_rmsnorm(const T* x, const T* gamma, T* xn, int rows, int d,
                   gamma, xn, rows, d);
 }
 
-// C = A·[B | B2] through the epilogue; M rows, K deep (K % 64 == 0).
+inline int sm_count() {
+    static int count = 0;
+    if (count == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return count;
+}
+
+// C = A·[B | B2] through the epilogue; M rows, K deep (K % 64 == 0). bf16
+// needs every operand 16-byte aligned with row lengths that are multiples of
+// eight (TMA).
 template <typename T, class Epi>
 cudaError_t run_gemm(const T* A, const T* B, int b_cols, const T* B2, int b2_cols, int M, int K,
                      Epi epi, cudaStream_t stream) {
-    const int cols = b_cols + b2_cols;
     if constexpr (sizeof(T) == 2) {
-        return launch(gemm_mma_kernel<Epi>,
-                      dim3((M + W_BM - 1) / W_BM, (cols + W_BN - 1) / W_BN),
-                      gemm_mma_smem_bytes(), stream, A, B, b_cols, B2, b2_cols, M, K, epi);
+        CUtensorMap map_a, map_b, map_b2;
+        cudaError_t err = encode_rows_map(&map_a, A, M, K, G_WM);
+        if (err != cudaSuccess) return err;
+        err = encode_rows_map(&map_b, B, K, b_cols, G_BK);
+        if (err != cudaSuccess) return err;
+        map_b2 = map_b;
+        if (b2_cols > 0) err = encode_rows_map(&map_b2, B2, K, b2_cols, G_BK);
+        if (err != cudaSuccess) return err;
+        const int items = ((M + 2 * G_WM - 1) / (2 * G_WM)) *
+                          ((b_cols + G_BN - 1) / G_BN + (b2_cols + G_BN - 1) / G_BN);
+        return launch_block(gemm_wgmma_kernel<Epi>, dim3(2 * min(items, sm_count() / 2)),
+                            G_THREADS,
+                            GEMM_WGMMA_SMEM_BYTES, stream, map_a, map_b, map_b2, b_cols,
+                            b2_cols, M, K, epi);
     } else {
+        const int cols = b_cols + b2_cols;
         return launch(gemm_fma_kernel<Epi>, dim3((M + F_BM - 1) / F_BM, (cols + F_BN - 1) / F_BN),
                       gemm_fma_smem_bytes(), stream, A, B, b_cols, B2, b2_cols, M, K, epi);
+    }
+}
+
+template <int DH, int CONSUMERS, class Out>
+cudaError_t run_flash_wgmma(const bf16* q, const bf16* k, const bf16* v, Out out, int bh,
+                            int n_rows, int n_valid, float scale, cudaStream_t stream) {
+    constexpr int BM = 64 * CONSUMERS;
+    CUtensorMap map_q, map_k, map_v;
+    cudaError_t err = encode_heads_map(&map_q, q, bh, n_rows, DH, BM);
+    if (err != cudaSuccess) return err;
+    err = encode_heads_map(&map_k, k, bh, n_rows, DH, FW_N);
+    if (err != cudaSuccess) return err;
+    err = encode_heads_map(&map_v, v, bh, n_rows, DH, FW_N);
+    if (err != cudaSuccess) return err;
+    return launch_block(flash_wgmma_kernel<DH, CONSUMERS, Out>,
+                        dim3(bh * ((n_rows + BM - 1) / BM)), 128 * (CONSUMERS + 1),
+                        FLASH_WGMMA_SMEM_BYTES<DH, CONSUMERS>, stream, map_q, map_k, map_v, out,
+                        n_rows, n_valid, scale);
+}
+
+// One attention launch over (bh, n_rows, dh) operands, dh 64 or 128; key
+// columns >= n_valid are masked.
+template <typename T, class Out>
+cudaError_t run_flash(const T* q, const T* k, const T* v, Out out, int bh, int n_rows,
+                      int n_valid, int dh, float scale, cudaStream_t stream) {
+    if constexpr (sizeof(T) == 2) {
+        const bool narrow = n_rows <= 64;  // one consumer warpgroup covers the sequence
+        if (dh == 64)
+            return narrow ? run_flash_wgmma<64, 1>(q, k, v, out, bh, n_rows, n_valid, scale, stream)
+                          : run_flash_wgmma<64, FW_CONSUMERS<64>>(q, k, v, out, bh, n_rows,
+                                                                  n_valid, scale, stream);
+        return narrow ? run_flash_wgmma<128, 1>(q, k, v, out, bh, n_rows, n_valid, scale, stream)
+                      : run_flash_wgmma<128, FW_CONSUMERS<128>>(q, k, v, out, bh, n_rows, n_valid,
+                                                                scale, stream);
+    } else {
+        if (dh == 128)  // 64 queries a block, one block an SM
+            return launch(flash_fma_kernel<128, 4, Out>, dim3(bh * ((n_rows + 63) / 64)),
+                          FLASH_FMA_SMEM_BYTES<128, 4>, stream, q, k, v, out, n_rows, n_valid,
+                          scale);
+        // 16·RI queries a block, two blocks an SM. Every block costs the
+        // same, so the launch takes as long as its waves of blocks: take the
+        // RI with the least waves x (RI + 2), the 2 standing for what a tile
+        // costs beside its FMAs. Short sequences end up at 64 queries a block
+        // and 1344 or 2688 rows at a tile count that fills the last wave.
+        const int slots = 2 * sm_count();
+        int ri = 8, best = 0;
+        for (int cand : {8, 7, 6, 4}) {
+            const int blocks = bh * ((n_rows + 16 * cand - 1) / (16 * cand));
+            const int cost = ((blocks + slots - 1) / slots) * (cand + 2);
+            if (best == 0 || cost < best) {
+                best = cost;
+                ri = cand;
+            }
+        }
+        const dim3 grid(bh * ((n_rows + 16 * ri - 1) / (16 * ri)));
+        switch (ri) {
+            case 8:
+                return launch(flash_fma_kernel<64, 8, Out>, grid, FLASH_FMA_SMEM_BYTES<64, 8>,
+                              stream, q, k, v, out, n_rows, n_valid, scale);
+            case 7:
+                return launch(flash_fma_kernel<64, 7, Out>, grid, FLASH_FMA_SMEM_BYTES<64, 7>,
+                              stream, q, k, v, out, n_rows, n_valid, scale);
+            case 6:
+                return launch(flash_fma_kernel<64, 6, Out>, grid, FLASH_FMA_SMEM_BYTES<64, 6>,
+                              stream, q, k, v, out, n_rows, n_valid, scale);
+            default:
+                return launch(flash_fma_kernel<64, 4, Out>, grid, FLASH_FMA_SMEM_BYTES<64, 4>,
+                              stream, q, k, v, out, n_rows, n_valid, scale);
+        }
     }
 }
 

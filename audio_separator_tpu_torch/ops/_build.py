@@ -3,7 +3,9 @@ table of launch counts.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), loaded with ``ctypes`` at first use: nothing is compiled or loaded
+seconds), linked against ``libcuda`` (``cuTensorMapEncodeTiled``, which encodes
+the TMA tensor maps, lives there) and loaded with ``ctypes`` at first use:
+nothing is compiled or loaded
 until a wrapper launches or :func:`build_kernels` is called.
 """
 
@@ -33,7 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -140,7 +142,8 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def check_cuda_layout(*tensors: torch.Tensor) -> None:
-    """The operands the kernels read and write in 16-byte vectors."""
+    """The operands the kernels read and write in 16-byte vectors or through
+    TMA tensor maps: both need a 16-byte aligned base."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")

@@ -31,9 +31,15 @@ reassociation only.
 
 Where the time goes on the card: 4·B·H·N²·D operations over 4·B·H·N·D elements
 of input and output, so the kernel is operation-bound at the HTDemucs shapes
-(N 1344 and 2688). float32 runs register-blocked FMA tiles with scores and
-output staged through shared memory (TF32 is not float32); bf16 runs
-``mma.sync`` with both in registers. Neither uses ``wgmma`` or TMA yet.
+(N 1344 and 2688). bf16 runs both products on ``wgmma`` (64 queries a consumer
+warpgroup, three of them a block at D 64 and two at D 128, K and V tiles of 128
+keys brought by TMA through a three-dimensional tensor map, so rows past N
+read as zeros, the softmax overlapped with the previous tile's P·V; sequences of
+at most 64 rows get one-warpgroup blocks, two to an SM); float32 runs
+register-blocked FMA tiles (TF32 is not float32) with K and V brought by
+``cp.async`` while the other product runs. In both, scores, output, running maximum and running sum stay
+in registers across key tiles. TMA and the vector loads want 16-byte aligned
+operands, which the wrapper checks before the launch.
 """
 
 from __future__ import annotations

@@ -26,17 +26,26 @@ bf16-level difference the card-side comparison allows for.
 
 Where the time goes on the card, and what the design does about it: every
 product in both blocks is compute-bound at the flagship shapes (over a
-thousand FLOP per byte of input and output), so the products run as tiled
-GEMMs on the tensor cores in bf16 (``mma.sync``, fp32 accumulate, 128×128
-tiles fed by three ``cp.async`` stages) and as register-blocked FMA tiles in
-float32 (Hopper has no float32 tensor-core mode other than TF32, which is
+thousand FLOP per byte of input and output). In bf16 the products run as one
+persistent, warp-specialised GEMM kernel (``csrc/tiles.cuh``): blocks run in
+clusters of two; a producer thread keeps a ring of 128-byte-swizzled tiles
+filled by TMA (the B tile is loaded half by each block and multicast to both);
+the two consumer warpgroups take turns at 64×256 output tiles with ``wgmma``
+(m64n256k16, float32 accumulators in registers), so one's epilogue (GELU,
+residual, RoPE and gates, on the accumulator registers) overlaps the other's
+products. The weights are read as they lie, ``(K, N)``
+row-major, through ``wgmma``'s transpose bit. TMA wants 16-byte aligned
+operands whose rows are multiples of 16 bytes, so the wrapper checks the
+alignment and hands ``gate_w`` over with its head count rounded up to a
+multiple of eight zero columns. In float32 the products are register-blocked
+FMA tiles (Hopper has no float32 tensor-core mode other than TF32, which is
 not float32). The RMSNorm is a launch of its own so the GEMMs stream their
-operands untouched. The attention launch walks 64-key tiles with an online
-softmax (scores and output in registers in bf16), so no ``(n, n)`` score
-matrix is ever stored, and skips key tiles that lie wholly past ``n_valid``.
-The intermediates between the launches of one block (xn, q, k, v, gates,
-merged heads; the FF hidden activation) round-trip through device memory;
-that and the absence of TMA/``wgmma`` are what hold the kernels back today.
+operands untouched. The attention launch walks key tiles with an online
+softmax, with scores and output in registers in both types (``wgmma`` fed by
+TMA in bf16, FMA in float32), so no ``(n, n)`` score matrix is ever
+stored, and skips key tiles that lie wholly past ``n_valid``. The intermediates
+between the launches of one block (xn, q, k, v, gates, merged heads; the FF
+hidden activation) still round-trip through device memory.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "fused_attention_block",
            "fused_attention_block_ref", "fused_ff_block", "fused_ff_block_ref",
-           "check_kernel_dims", "rotate_half"]
+           "check_kernel_dims", "rotate_half", "padded_gate_w"]
 
 # ---------------------------------------------------------------------------
 # Argument checks (shared by both devices) and kernel-only limits.
@@ -89,10 +98,17 @@ def check_kernel_dims(d_model: int, heads: Optional[int] = None,
     if dim_head is not None and dim_head != 64:
         raise ValueError(f"kernel needs dim_head == 64, got {dim_head}")
     if heads is not None and (not 1 <= heads <= 64 or heads % 2):
-        # 128-wide bf16 column tiles must not straddle Wqkv and gate_w.
+        # 128-wide float32 column tiles must not straddle Wqkv and gate_w.
         raise ValueError(f"kernel needs an even heads count <= 64, got {heads}")
     if hidden is not None and hidden % 64:
         raise ValueError(f"kernel needs hidden % 64 == 0, got {hidden}")
+
+
+def padded_gate_w(gate_w: torch.Tensor) -> torch.Tensor:
+    """``gate_w (d, heads)`` with the head count rounded up to a multiple of
+    eight by zero columns: rows the kernel's loads take (16-byte multiples)."""
+    pad = -gate_w.shape[1] % 8
+    return torch.nn.functional.pad(gate_w, (0, pad)) if pad else gate_w
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +190,6 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
         return fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo,
                                          attn_norm, rope, heads, n_valid)
     check_kernel_dims(d, heads, dh)
-    lib = load("attention_block")
     qkv_shape = (b, heads, n_pad, dh)
     q, k, v = (torch.empty(qkv_shape, dtype=x.dtype, device=x.device)
                for _ in range(3))
@@ -182,12 +197,14 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
     merged = torch.empty((b, n_pad, heads * dh), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
     cos, sin = rope if rope is not None else (None, None)
-    check_cuda_layout(x, wqkv, wo, xn, q, k, v, merged, out,
+    gate_w8 = padded_gate_w(gate_w)
+    check_cuda_layout(x, wqkv, gate_w8, wo, xn, q, k, v, merged, out,
                        *(rope if rope is not None else ()))
+    lib = load("attention_block")
     with torch.cuda.device(x.device):
         rc = lib.asep_attention_block(
             DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
-            gate_w.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
+            gate_w8.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
             attn_norm.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None, xn.data_ptr(),
@@ -210,11 +227,11 @@ def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
     if device_kind(x) == "cpu":
         return fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2)
     check_kernel_dims(d, hidden=hidden)
-    lib = load("ff_block")
     b, n_pad, _ = x.shape
     h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
-    check_cuda_layout(x, w1, w2, xn, h, out)
+    check_cuda_layout(x, w1, b1, w2, b2, xn, h, out)
+    lib = load("ff_block")
     with torch.cuda.device(x.device):
         rc = lib.asep_ff_block(
             DTYPE_CODES[x.dtype], x.data_ptr(), ff_norm.data_ptr(),

@@ -17,8 +17,9 @@ result lines are printed):
    frequency axis 4·801 sequences of 62 -> 64 tokens), and the whole-sequence
    attention at the full-width HTDemucs shapes ((4, 8, 1344, 64) on the time
    branch, (4, 8, 2688, 64) on the frequency branch) and one ragged small
-   shape, with ``scaled_dot_product_attention`` timed beside it as a
-   yardstick that the port never calls;
+   shape, plus a 128-wide head, with ``scaled_dot_product_attention`` timed
+   beside it as a yardstick that the port never calls; one cuBLAS product of
+   each bf16 GEMM shape of the two blocks is timed the same way;
 4. the flagship Roformer (seeded random weights) on one 8 s window with the
    kernels, against the same module on the CPU (plain versions), float32:
    SDR floor 40 dB, and 24 launches of each kernel; the full-width HTDemucs
@@ -225,13 +226,18 @@ def phase_kernels(ab, seed):
                     raise AssertionError(f"{name} {dname} {axis}: kernel disagrees with "
                                          f"its plain version: {err}")
             if dtype == torch.bfloat16 and axis == "time":
-                # Yardstick, not used by the port: one cuBLAS product of the
-                # FF's first shape, (B·n_pad, 512)·(512, 2048) in bf16.
+                # Yardsticks, not used by the port: one cuBLAS product of each
+                # GEMM shape of the two blocks, (B·n_pad, K)·(K, N) in bf16.
                 a2d = x.reshape(-1, d)
-                gemm_ms = cuda_time_ms(lambda: a2d @ ff["w1"], iters=5)
-                log(f"[kernels] yardstick: cuBLAS bf16 {tuple(a2d.shape)}x{tuple(ff['w1'].shape)} "
-                    f"product {gemm_ms:.3f} ms ({2 * a2d.shape[0] * d * hidden / gemm_ms / 1e9:.0f} "
-                    f"TFLOP/s)")
+                h2d = torch.empty(a2d.shape[0], hidden, dtype=dtype, device=dev).normal_()
+                for what, lhs, rhs in (("FF first", a2d, ff["w1"]), ("FF second", h2d, ff["w2"]),
+                                       ("QKV", a2d, attn["wqkv"]), ("out projection", a2d, attn["wo"])):
+                    gemm_ms = cuda_time_ms(lambda: lhs @ rhs, iters=5)
+                    flop = 2 * lhs.shape[0] * lhs.shape[1] * rhs.shape[1]
+                    log(f"[kernels] yardstick: cuBLAS bf16 {what} {tuple(lhs.shape)}x"
+                        f"{tuple(rhs.shape)} product {gemm_ms:.3f} ms "
+                        f"({flop / gemm_ms / 1e9:.0f} TFLOP/s)")
+                del h2d
             del x, attn, ff, rope
             torch.cuda.empty_cache()
     return records
@@ -248,7 +254,8 @@ def phase_attention_kernel(att, seed):
     # width, then a ragged last tile with a head dimension the wrapper pads.
     cases = [((4, 8, 1344, 64), torch.float32, True), ((4, 8, 2688, 64), torch.float32, True),
              ((4, 8, 1344, 64), torch.bfloat16, True), ((4, 8, 2688, 64), torch.bfloat16, True),
-             ((2, 4, 173, 8), torch.float32, False)]
+             ((2, 4, 173, 8), torch.float32, False), ((2, 4, 173, 8), torch.bfloat16, False),
+             ((4, 4, 1344, 128), torch.float32, True), ((4, 4, 1344, 128), torch.bfloat16, True)]
     records = []
     for shape, dtype, timed in cases:
         dname = str(dtype).split(".")[-1]
@@ -266,8 +273,9 @@ def phase_attention_kernel(att, seed):
         err = compare(got, want, dname)
         del got, want
         torch.cuda.empty_cache()
-        rec = dict(name="fused_attention", dtype=dname, axis="time" if n == 1344 else "freq",
-                   shape=list(shape), n_valid=n, **err)
+        axis = "wide head" if d == 128 else ("time" if n == 1344 else "freq")
+        rec = dict(name="fused_attention", dtype=dname, axis=axis, shape=list(shape), n_valid=n,
+                   **err)
         tol = TOLERANCE[dname]
         msg = (f"[kernels] fused_attention {dname} q=k=v{shape}: "
                f"max_abs_err={err['max_abs_err']:.3e} "
@@ -723,7 +731,8 @@ def main(argv=None) -> int:
         # the time- and frequency-axis shapes (one forward launches each
         # kernel equally often on both).
         main = [r for r in records
-                if r["name"] == name and r["dtype"] == path_dtype and "ms" in r]
+                if r["name"] == name and r["dtype"] == path_dtype and "ms" in r
+                and r["axis"] in ("time", "freq")]
         library = [r["library_ms"] for r in main if r.get("library_ms") is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -139,8 +139,54 @@ def test_cuda_source_entry_point_matches_ctypes_signature():
     expected = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]] for p in params]
     assert expected == argtypes
     assert '#include "tiles.cuh"' in source
-    for kernel in ("flash_fma_kernel", "flash_mma_kernel"):
-        assert kernel in source
-        with open(os.path.join(_build.CSRC_DIR, "attention_block.cu"), encoding="utf-8") as f:
-            assert kernel in f.read()
+    with open(os.path.join(_build.CSRC_DIR, "attention_block.cu"), encoding="utf-8") as f:
+        block_source = f.read()
+    with open(os.path.join(_build.CSRC_DIR, "tiles.cuh"), encoding="utf-8") as f:
+        tiles = f.read()
+    # Both callers go through the one launcher, and behind it there is one
+    # kernel per type: the earlier kernels are gone, not kept as a second path.
+    assert "run_flash(" in source and "run_flash(" in block_source
+    for kernel in ("flash_fma_kernel", "flash_wgmma_kernel", "gemm_wgmma_kernel"):
+        assert f"\n{kernel}(" in tiles
+    for gone in ("flash_mma_kernel", "gemm_mma_kernel", "mma.sync", "ldmatrix"):
+        assert gone not in tiles + source + block_source
     assert "scaled_dot_product_attention" not in open(att.__file__, encoding="utf-8").read()
+
+
+def _as_if_on_the_card(monkeypatch, module):
+    """Make a wrapper take its CUDA branch with CPU tensors, with a loader
+    that must not be reached: what the wrapper refuses, it refuses before any
+    build or launch."""
+    def no_load(name):
+        raise AssertionError(f"the loader was reached for {name}")
+
+    monkeypatch.setattr(module, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(module, "load", no_load)
+
+
+def test_kernel_wrapper_refuses_misaligned_operands_before_any_build(monkeypatch):
+    """TMA tensor maps and the kernels' vector loads need a 16-byte aligned
+    base: a view that starts one float into its buffer raises ValueError."""
+    _as_if_on_the_card(monkeypatch, att)
+    buf = torch.zeros(2 * 32 * 64 + 1)
+    q = buf[1:].view(1, 2, 32, 64)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    before = dict(att.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        att.fused_attention(q, q, q, 0.125)
+    aligned = torch.zeros(1, 2, 32, 64)
+    with pytest.raises(AssertionError, match="loader was reached"):
+        att.fused_attention(aligned, aligned, aligned, 0.125)
+    assert att.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,d", [(1, 64), (65, 64), (200, 128), (17, 48)])
+def test_cpu_tensor_never_reaches_the_loader(monkeypatch, n, d):
+    def no_load(name):
+        raise AssertionError(f"the loader was reached for {name}")
+
+    monkeypatch.setattr(att, "load", no_load)
+    monkeypatch.setattr(_build, "load", no_load)
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, n, d, seed=3))
+    got = att.dot_product_attention(q, k, v)
+    torch.testing.assert_close(got, att.attention_ref(q, k, v, d ** -0.5), rtol=0, atol=0)

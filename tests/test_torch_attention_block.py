@@ -224,3 +224,80 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     # One loader and one table of launch counts for every kernel.
     assert set(_build.KERNEL_SOURCES) == {"attention_block", "ff_block", "attention"}
     assert ab.LAUNCHES is _build.LAUNCHES
+
+
+def test_build_links_libcuda_and_hashes_every_header():
+    """The tensor maps are encoded by ``cuTensorMapEncodeTiled``, so the libraries
+    link libcuda; a change to any header under csrc/ changes the library names."""
+    assert "-lcuda" in _build.NVCC_FLAGS
+    headers = [fn for fn in _build.os.listdir(_build.CSRC_DIR) if fn.endswith(".cuh")]
+    assert {"tiles.cuh", "hopper.cuh"} <= set(headers)
+    with open(_build.os.path.join(_build.CSRC_DIR, "hopper.cuh"), encoding="utf-8") as f:
+        hopper = f.read()
+    for needed in ("cuTensorMapEncodeTiled", "wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait.parity", "setmaxnreg"):
+        assert needed in hopper
+
+
+@pytest.mark.parametrize("heads", [1, 2, 6, 8, 12, 16])
+def test_gate_weights_are_padded_to_whole_16_byte_rows(heads):
+    g = torch.Generator().manual_seed(heads)
+    gate_w = torch.randn(64, heads, generator=g)
+    padded = ab.padded_gate_w(gate_w)
+    assert padded.shape == (64, -(-heads // 8) * 8) and padded.is_contiguous()
+    assert torch.equal(padded[:, :heads], gate_w)
+    assert not padded[:, heads:].any()
+    if heads % 8 == 0:
+        assert padded is gate_w  # no copy where none is needed
+
+
+def _no_load(name):
+    raise AssertionError(f"the loader was reached for {name}")
+
+
+@pytest.mark.parametrize("block", ["attention", "ff"])
+def test_block_wrappers_refuse_misaligned_operands_before_any_build(monkeypatch, block):
+    """With the CUDA branch forced on CPU tensors and a loader that must not
+    be reached: a weight whose storage starts 4 bytes off raises ValueError,
+    and only well-aligned arguments get as far as the loader."""
+    monkeypatch.setattr(ab, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(ab, "load", _no_load)
+    d, h, dh, hidden = 64, 8, 64, 128
+    x = torch.zeros(2, 64, d)
+
+    def off_by_one_float(*shape):
+        n = int(np.prod(shape))
+        t = torch.zeros(n + 1)[1:].view(*shape)
+        assert t.data_ptr() % 16 and t.is_contiguous()
+        return t
+
+    if block == "attention":
+        args = dict(x=x, wqkv=torch.zeros(d, 3 * h * dh), gate_w=torch.zeros(d, h),
+                    gate_b=torch.zeros(h), wo=torch.zeros(h * dh, d), attn_norm=torch.ones(d),
+                    rope=None, heads=h, n_valid=50)
+        call, bad = ab.fused_attention_block, dict(wqkv=off_by_one_float(d, 3 * h * dh))
+    else:
+        args = dict(x=x, ff_norm=torch.ones(d), w1=torch.zeros(d, hidden), b1=torch.zeros(hidden),
+                    w2=torch.zeros(hidden, d), b2=torch.zeros(d))
+        call, bad = ab.fused_ff_block, dict(b1=off_by_one_float(hidden))
+    before = dict(ab.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        call(**{**args, **bad})
+    with pytest.raises(AssertionError, match="loader was reached"):
+        call(**args)
+    assert ab.LAUNCHES == before
+
+
+@pytest.mark.parametrize("block", ["attention", "ff"])
+def test_cpu_tensors_never_reach_the_loader(monkeypatch, block):
+    monkeypatch.setattr(ab, "load", _no_load)
+    monkeypatch.setattr(_build, "load", _no_load)
+    if block == "attention":
+        out = ab.fused_attention_block(**_valid_attention_args())
+    else:
+        d, hidden = 64, 128
+        g = torch.Generator().manual_seed(1)
+        out = ab.fused_ff_block(torch.randn(3, 64, d, generator=g), torch.ones(d),
+                                torch.randn(d, hidden, generator=g), torch.zeros(hidden),
+                                torch.randn(hidden, d, generator=g), torch.zeros(d))
+    assert torch.isfinite(out).all()

@@ -43,7 +43,8 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n_valid,rope", [(16, 801, True), (96, 62, True), (8, 130, False),
-                                            (4, 64, True), (3, 1, True)])
+                                            (4, 64, True), (3, 1, True), (2, 832, True),
+                                            (5, 1, False), (1, 192, False)])
 def test_attention_kernel_matches_plain(cuda, dtype, b, n_valid, rope):
     d, h, dh = 512, 8, 64
     n_pad = -(-n_valid // 64) * 64
@@ -70,9 +71,12 @@ def test_attention_kernel_matches_plain(cuda, dtype, b, n_valid, rope):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n_pad", [(16, 832), (96, 64)])
-def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad):
-    d, hidden = 512, 2048
+@pytest.mark.parametrize("b,n_pad,hidden", [(16, 832, 2048), (96, 64, 2048), (3, 64, 2048),
+                                            (3, 64, 256), (5, 128, 4096)])
+def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad, hidden):
+    """Row counts that are no multiple of the kernels' row tiles (3·64, 5·128)
+    and hidden widths of one column tile and of sixteen."""
+    d = 512
     g = torch.Generator(device=cuda).manual_seed(1)
 
     def randn(*shape, s=1.0):
@@ -90,9 +94,14 @@ def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad):
 
 # HTDemucs at full width (time and frequency branch), a ragged small shape
 # with a padded head dimension, D = 48 (HTDemucs without bottom_channels),
-# a 128-wide head, a single short tile.
+# a 128-wide head, a single short tile; then N below one key tile, N one past
+# a tile, a 128-wide head over several tiles, and a single (batch, head).
 WHOLE_SEQ_SHAPES = [(4, 8, 1344, 64), (4, 8, 2688, 64), (2, 4, 173, 8), (2, 8, 336, 48),
-                    (1, 2, 200, 128), (3, 2, 5, 64)]
+                    (1, 2, 200, 128), (3, 2, 5, 64), (2, 2, 1, 64), (2, 3, 17, 64),
+                    (1, 2, 63, 64), (2, 2, 65, 64), (1, 2, 129, 64), (1, 2, 2689, 64),
+                    (2, 2, 700, 128), (1, 1, 300, 64), (1, 1, 130, 48),
+                    # at most 64 rows: the one-warpgroup blocks, two to an SM
+                    (40, 8, 64, 64), (2, 3, 64, 128), (1, 1, 33, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -109,6 +118,63 @@ def test_whole_sequence_attention_kernel_matches_plain(cuda, dtype, shape, scale
     assert got.shape == q.shape and got.dtype == dtype
     want = att.attention_ref(q, k, v, scale if scale is not None else shape[-1] ** -0.5)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_deterministic(cuda, dtype):
+    """The same call twice gives bit-identical results: nothing in the
+    producer / consumer pipelines races."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * s).to(dtype)
+
+    q, k, v = (randn(2, 4, 777, 64, s=0.7) for _ in range(3))
+    first = att.dot_product_attention(q, k, v)
+    assert torch.equal(first, att.dot_product_attention(q, k, v))
+
+    d, h, dh, hidden, n_valid, n_pad = 512, 8, 64, 2048, 801, 832
+    x = randn(6, n_pad, d)
+    ff = dict(ff_norm=(1 + randn(d, s=0.1).float()).to(dtype), w1=randn(d, hidden, s=0.05),
+              b1=randn(hidden, s=0.05), w2=randn(hidden, d, s=0.05), b2=randn(d, s=0.05))
+    first = ab.fused_ff_block(x, **ff)
+    assert torch.equal(first, ab.fused_ff_block(x, **ff))
+    w = dict(wqkv=randn(d, 3 * h * dh, s=0.05), gate_w=randn(d, h, s=0.05),
+             gate_b=randn(h, s=0.05), wo=randn(h * dh, d, s=0.05),
+             attn_norm=(1 + randn(d, s=0.1).float()).to(dtype))
+    cos, sin = _rope_tables(n_valid, dh, dtype, cuda)
+    tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    first = ab.fused_attention_block(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    again = ab.fused_attention_block(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    assert torch.equal(first, again)
+
+
+def test_attention_block_with_a_head_count_that_is_no_multiple_of_eight(cuda):
+    """gate_w is handed to the kernel with zero columns up to a multiple of 8."""
+    d, h, dh = 256, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        def randn(*shape, s=1.0):
+            return (torch.randn(*shape, generator=g, device=cuda) * s).to(dtype)
+
+        x = randn(3, 64, d)
+        w = dict(wqkv=randn(d, 3 * h * dh, s=0.05), gate_w=randn(d, h, s=0.05),
+                 gate_b=randn(h, s=0.05), wo=randn(h * dh, d, s=0.05),
+                 attn_norm=(1 + randn(d, s=0.1).float()).to(dtype))
+        got = ab.fused_attention_block(x, rope=None, heads=h, n_valid=50, **w)
+        want = ab.fused_attention_block_ref(x, rope=None, heads=h, n_valid=50, **w)
+        _close(got[:, :50], want[:, :50], dtype)
+
+
+def test_cuda_wrappers_reject_misaligned_operands(cuda):
+    """TMA and the vector loads need 16-byte aligned operands: a view that
+    starts 4 bytes into a buffer raises before any launch."""
+    buf = torch.zeros(1 * 2 * 32 * 64 + 1, device=cuda)
+    q = buf[1:].view(1, 2, 32, 64)
+    before = dict(att.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        att.fused_attention(q, q, q, 0.125)
+    assert att.LAUNCHES == before
 
 
 def test_whole_sequence_attention_takes_strided_heads(cuda):
