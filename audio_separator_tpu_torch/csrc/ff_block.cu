@@ -10,10 +10,11 @@
 //
 // Design, as three launches on the caller's stream:
 //   1. RMSNorm: xn = rmsnorm(x)·γ rounded to the input type.
-//   2. The first GEMM (tiles.cuh; bf16: a persistent wgmma pipeline fed by
-//      TMA, W1 read as it lies through the transpose bit, two consumer
-//      warpgroups taking turns so that one's epilogue overlaps the other's
-//      products); the epilogue, on the accumulator registers, adds b1,
+//   2. The first GEMM (tiles.cuh: a persistent wgmma pipeline fed by TMA,
+//      two consumer warpgroups taking turns so that one's epilogue overlaps
+//      the other's products; bf16 reads W1 as it lies through the transpose
+//      bit, float32 runs three TF32 products a term on W1's prepared form,
+//      gemm_tf32.cuh); the epilogue, on the accumulator registers, adds b1,
 //      applies the exact-erf GELU and stores the hidden activation rounded to
 //      the input type, as the TPU kernel does. At K = 512 this epilogue, not
 //      the product, sets the launch's time in bf16, hence the cheap erf below.
@@ -69,18 +70,18 @@ int run_ff_block(const T* x, const T* norm, const T* w1, const T* b1, const T* w
     cudaError_t err = run_rmsnorm(x, norm, xn, rows, d_model, stream);
     if (err != cudaSuccess) return err;
     const GeluEpi<T> gelu_epi{b1, h, hidden};
-    err = run_gemm(static_cast<const T*>(xn), w1, hidden, static_cast<const T*>(nullptr), 0,
-                   rows, d_model, gelu_epi, stream);
+    err = run_gemm(static_cast<const T*>(xn), w1, hidden, rows, d_model, gelu_epi, stream);
     if (err != cudaSuccess) return err;
     const ResidualEpi<T> out_epi{x, b2, out, d_model};
-    return run_gemm(static_cast<const T*>(h), w2, d_model, static_cast<const T*>(nullptr), 0,
-                    rows, hidden, out_epi, stream);
+    return run_gemm(static_cast<const T*>(h), w2, d_model, rows, hidden, out_epi, stream);
 }
 
 }  // namespace asep
 
-// dtype: 0 = float32, 1 = bfloat16. rows = B * n_pad; xn and h are scratch the
-// caller allocates. Returns 0 or the first CUDA error.
+// dtype: 0 = float32, 1 = bfloat16. rows = B * n_pad; w1 and w2 are the (K, N)
+// weights in bf16 and their prepared 3xTF32 forms (2, N, K) in float32
+// (ops/tf32.py); xn and h are scratch the caller allocates. Returns 0 or the
+// first CUDA error.
 extern "C" int asep_ff_block(int dtype, const void* x, const void* norm, const void* w1,
                              const void* b1, const void* w2, const void* b2, void* xn, void* h,
                              void* out, int rows, int d_model, int hidden, void* stream) {

@@ -1,14 +1,15 @@
-// Hopper-only building blocks (sm_90a) as raw PTX, shared by the bf16 kernels
-// of tiles.cuh:
+// Hopper-only building blocks (sm_90a) as raw PTX, shared by the tensor-core
+// kernels of tiles.cuh and gemm_tf32.cuh:
 //   * mbarrier — shared-memory barriers that count thread arrivals and the
 //     bytes of TMA transfers, in this block or in another block of the cluster;
 //   * TMA — cp.async.bulk.tensor loads of whole 128-byte-swizzled tiles, driven
 //     by tensor maps that the host encodes per launch (cuTensorMapEncodeTiled,
 //     which lives in libcuda: the libraries link it), to one block or multicast
-//     to the blocks of a cluster;
-//   * wgmma — the warpgroup matrix multiply (m64nNk16, bf16 in, float32
-//     accumulators in registers), its shared-memory matrix descriptors for
-//     the 128-byte swizzle, and its fences;
+//     to the blocks of a cluster, and stores of whole tiles from shared memory
+//     (with stmatrix, which writes accumulator fragments into such a tile);
+//   * wgmma — the warpgroup matrix multiply (m64nNk16 bf16 or m64nNk8 tf32 in,
+//     float32 accumulators in registers), its shared-memory matrix descriptors
+//     for the 128-byte swizzle, and its fences;
 //   * setmaxnreg — moving registers from the producer warpgroup to the
 //     consumer warpgroups.
 #pragma once
@@ -145,18 +146,70 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
         : "memory");
 }
 
-// A bf16 tensor of `rank` dimensions (innermost first; strides in bytes for
-// dimensions 1..) cut into boxes, 128-byte swizzle, zeros out of bounds.
-// The innermost box is 64 elements: one 128-byte swizzled row.
+// TMA stores: one thread hands a whole box in shared memory (laid out as the
+// map's swizzle says) to the copy engine; rows outside the tensor are not
+// written. The bulk group tracks completion: wait_read until the box may be
+// overwritten, wait until the writes are done.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (TMA stores, wgmma operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from the mma fragment layout (register i of lane l
+// holds row l / 4, columns 2·(l % 4), +1 of matrix i) to shared memory: lane
+// l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+                 "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+                 : "memory");
+}
+
+// A tensor of `rank` dimensions (innermost first; strides in bytes for
+// dimensions 1..) cut into boxes, 128-byte swizzle, zeros out of bounds. The
+// innermost box is one 128-byte swizzled row: 64 bf16 or 32 float32.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const uint64_t* dims, const uint64_t* strides,
+                              const uint32_t* box) {
+    const uint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+    const CUresult rc = cuTensorMapEncodeTiled(
+        map, type, rank, const_cast<void*>(base), dims, strides, box, elem_strides,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                                    const uint64_t* dims, const uint64_t* strides,
                                    const uint32_t* box) {
-    const uint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-    const CUresult rc = cuTensorMapEncodeTiled(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
-        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// (rows, cols) row-major float32, boxes of box_rows x 32 columns.
+inline cudaError_t encode_rows_map_f32(CUtensorMap* map, const void* base, uint64_t rows,
+                                       uint64_t cols, uint32_t box_rows) {
+    const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 4};
+    const uint32_t box[2] = {32, box_rows};
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 2, dims, strides, box);
 }
 
 // (rows, cols) row-major bf16, boxes of box_rows x 64 columns.
@@ -377,6 +430,45 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+}
+
+// d (+)= a·b for one m64n128k8 step of TF32 operands, both K-major in
+// shared memory (wgmma has no transpose for 32-bit types); the tensor cores
+// read the top 19 bits of each float32 operand.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace asep

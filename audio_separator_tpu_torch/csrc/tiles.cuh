@@ -3,18 +3,20 @@
 //
 //   * rmsnorm_kernel — xn = x · rsqrt(max(Σx², 1e-24)) · √d · γ, rounded to
 //                      the storage type (the TPU kernels' xn), one warp a row;
-//   * gemm (run_gemm) — C = A·[B | B2] with a caller-supplied epilogue that
-//                      sees eight consecutive float32 output columns of a row:
-//       - bf16: gemm_wgmma_kernel, a persistent warp-specialised pipeline in
-//               clusters of two blocks: TMA loads of 128-byte-swizzled tiles
-//               into a ring of stages, completed on mbarriers, the B tile
-//               multicast to both blocks; two consumer warpgroups take turns
-//               at 64x256 output tiles with wgmma m64n256k16 (float32
-//               accumulators in registers); the epilogue runs on the registers;
-//       - float32: gemm_fma_kernel, 128x128 output tiles of register-blocked
-//               FMA, 8x8 per thread (Hopper has no float32 tensor-core mode
-//               other than TF32, which is not float32), the epilogue through
-//               a float32 tile in shared memory;
+//     rmsnorm_gates_kernel — the same xn and the attention block's gates
+//                      sigmoid(xn·gate_w + gate_b), gate_w in shared memory;
+//   * gemm (run_gemm) — C = A·B with a caller-supplied epilogue on the
+//                      float32 accumulators, both types on the tensor cores in
+//                      one pipeline shape (persistent, warp-specialised,
+//                      clusters of two blocks with multicast weights, TMA rings
+//                      on mbarriers, two consumer warpgroups taking turns):
+//       - bf16: gemm_wgmma_kernel, m64n256k16, the weight read as it lies
+//               through wgmma's transpose bit; run epilogues (eight
+//               consecutive columns of a row) or a tile epilogue (the
+//               accumulator registers as wgmma leaves them);
+//       - float32: gemm_tf32x3_kernel (gemm_tf32.cuh), three TF32 products
+//               a term (heads and tails of both operands), m64n128k8, the
+//               weight in a prepared transposed form;
 //   * attention (run_flash) — softmax(q·kᵀ·scale, masked)·v over (batch·head,
 //                      rows, 64 or 128) operands with an online softmax over
 //                      key tiles; where the result goes, and what it is
@@ -23,7 +25,8 @@
 //               TMA, scores, weights and output in registers;
 //       - float32: flash_fma_kernel, register-blocked FMA with the output,
 //               the running maximum and the running sum in registers.
-// The Hopper-only PTX (mbarrier, TMA, wgmma, setmaxnreg) is in hopper.cuh.
+// The Hopper-only PTX (mbarrier, TMA, wgmma, stmatrix, setmaxnreg) is in
+// hopper.cuh.
 //
 // The launch entry points (attention_block.cu, ff_block.cu, attention.cu)
 // expose a plain C interface so the library builds without PyTorch's headers and loads with
@@ -34,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -148,139 +153,148 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restri
 }
 
 // ---------------------------------------------------------------------------
-// GEMMs. Both compute the output tiles of A·[B | B2]: A is (M, K) row-major,
-// B is (K, b_cols), the optional B2 (K, b2_cols) supplies columns b_cols ..
-// b_cols + b2_cols. A column tile never straddles B and B2 (float32: b_cols is
-// a multiple of the tile width; bf16: B2's tiles start a new tile). The
-// epilogue is called once per run of eight output columns with their float32
-// values (a row of shared memory in float32, a register array in bf16):
-// epi(row, c0, count, grow, gcol0, pre) covers row[c0 .. c0 + count), count <=
-// 8, which is global row grow, columns gcol0 ...; c0 is a multiple of 8; pre is
-// epi.prefetch(grow, gcol0), an Epi::Pre: what the functor reads from device
-// memory for that run, which the bf16 kernel asks for Epi::PREFETCH runs ahead.
+// RMSNorm with the attention block's gates: xn as rmsnorm_kernel writes it,
+// and gates = sigmoid(xn·gate_w + gate_b) in float32 from the rounded xn (where
+// the TPU kernel takes them), written (B, heads, n_pad). One warp a row, as in
+// rmsnorm_kernel: the launch is bound by its bytes, and it takes many warps
+// in flight to keep them moving (a warp with more rows, or with the row kept
+// in registers between the two passes, holds more registers, and fewer warps
+// fit: both were slower). gate_w sits in shared memory once per block,
+// transposed, as [H][d] of the storage type with H the head count rounded up
+// to a power of two (zero rows past it): lane l reads columns 4l..4l+3 of a
+// head as one load, so a warp's loads fall on distinct banks. The blocks are
+// persistent, as many as fit, so gate_w is read from device memory once per
+// block and not once per row. Each lane sums its columns' share of the H dot
+// products, and one transposing reduction leaves every lane with a whole sum.
 
-struct ColumnSource {
-    const void* src;
-    int ld, valid;
-};
-
-template <typename T>
-__device__ ColumnSource column_source(const T* B, int b_cols, const T* B2, int b2_cols,
-                                      int col0, int width) {
-    if (col0 < b_cols) return {B + col0, b_cols, min(width, b_cols - col0)};
-    return {B2 + (col0 - b_cols), b2_cols, min(width, b2_cols - (col0 - b_cols))};
+// v holds V (a power of two) partial sums on each lane of the warp;
+// afterwards v[j], j < max(V / 32, 1), holds the warp's total of element
+// lane·V/32 + j (lane·V/32 rounded down: 32/V lanes hold each element when V
+// < 32). Each step keeps half of the values and adds the other half from the
+// lane `m` away; once one value is left, the steps add it across the lanes.
+template <int V> __device__ __forceinline__ void warp_transpose_sum(float (&v)[V], int lane) {
+#pragma unroll
+    for (int step = 0; step < 5; ++step) {
+        const int m = 16 >> step, half = (V >> step) / 2;
+        if (half == 0) {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], m);
+            continue;
+        }
+        const bool upper = lane & m;
+#pragma unroll
+        for (int i = 0; i < half; ++i) {
+            const float send = upper ? v[i] : v[i + half];
+            const float keep = upper ? v[i + half] : v[i];
+            v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+        }
+    }
 }
 
-// float32: 128x128 output tile; thread (ty, tx) = (tid / 16, tid % 16) owns
-// rows {ty*4 .. +3, 64 + ty*4 .. +3} and columns {tx*4 .. +3, 64 + tx*4 .. +3},
-// an 8x8 block of FMA accumulators. Operand tiles are 8 deep, A stored
-// k-major so a thread reads its eight rows as two float4; the next tile is
-// prefetched into registers while the current one is multiplied.
-constexpr int F_BM = 128, F_BN = 128, F_BK = 8;
-constexpr int F_C_LD = F_BN + 4;
-
-constexpr size_t gemm_fma_smem_bytes() {
-    return F_BM * F_C_LD * sizeof(float);  // the epilogue tile; operands need 16 KB
+template <typename T> __device__ __forceinline__ void store4(T* p, const float v[4]);
+template <> __device__ __forceinline__ void store4(float* p, const float v[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-static_assert(2 * F_BK * (F_BM + F_BN) * sizeof(float) <= gemm_fma_smem_bytes(),
-              "operand stages must fit in the epilogue tile");
+template <> __device__ __forceinline__ void store4(bf16* p, const float v[4]) {
+    uint2 a;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
+    h[0] = __floats2bfloat162_rn(v[0], v[1]);
+    h[1] = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = a;
+}
 
-template <class Epi>
+template <typename T, int H>
 __global__ void __launch_bounds__(THREADS)
-gemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B, int b_cols,
-                const float* __restrict__ B2, int b2_cols, int M, int K, Epi epi) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    float* As = reinterpret_cast<float*>(smem_raw);  // [2][F_BK][F_BM]
-    float* Bs = As + 2 * F_BK * F_BM;                 // [2][F_BK][F_BN]
-    float* Cs = reinterpret_cast<float*>(smem_raw);  // after the main loop
-
-    const int row0 = blockIdx.x * F_BM, col0 = blockIdx.y * F_BN;
-    const ColumnSource bs = column_source(B, b_cols, B2, b2_cols, col0, F_BN);
-    const float* bsrc = static_cast<const float*>(bs.src);
-    const bool b_vec = (bs.ld % 4 == 0) && (reinterpret_cast<uintptr_t>(bsrc) % 16 == 0);
-
-    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-    // Each thread moves one float4 of A (row a_r, depth a_k..+3) and one of B
-    // (depth b_k, columns b_c..+3) per tile.
-    const int a_r = tid / 2, a_k = (tid % 2) * 4;
-    const int b_k = tid / 32, b_c = (tid % 32) * 4;
-    const float* a_src = A + (size_t)(row0 + a_r) * K + a_k;
-    const bool a_ok = row0 + a_r < M;
-    float ra[4], rb[4];
-
-    auto fetch = [&](int k0) {
-        if (a_ok) {
-            const float4 t = *reinterpret_cast<const float4*>(a_src + k0);
-            ra[0] = t.x; ra[1] = t.y; ra[2] = t.z; ra[3] = t.w;
-        } else {
-            ra[0] = ra[1] = ra[2] = ra[3] = 0.f;
-        }
-        const float* p = bsrc + (size_t)(k0 + b_k) * bs.ld + b_c;
-        if (b_vec && b_c + 4 <= bs.valid) {
-            const float4 t = *reinterpret_cast<const float4*>(p);
-            rb[0] = t.x; rb[1] = t.y; rb[2] = t.z; rb[3] = t.w;
-        } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) rb[i] = (b_c + i < bs.valid) ? p[i] : 0.f;
-        }
-    };
-    auto stash = [&](int st) {
-        float* as = As + st * F_BK * F_BM;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) as[(a_k + i) * F_BM + a_r] = ra[i];
-        *reinterpret_cast<float4*>(Bs + st * F_BK * F_BN + b_k * F_BN + b_c) =
-            make_float4(rb[0], rb[1], rb[2], rb[3]);
-    };
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    const int k_steps = K / F_BK;
-    fetch(0);
-    stash(0);
+rmsnorm_gates_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                     const T* __restrict__ gate_w, const T* __restrict__ gate_b,
+                     T* __restrict__ xn, float* __restrict__ gates, int rows, int d, int heads,
+                     int n_pad) {
+    extern __shared__ __align__(16) unsigned char gw_raw[];
+    T* gw = reinterpret_cast<T*>(gw_raw);  // [H][d]
+    // gate_w read as it lies, (d, heads), in whole lines; zero rows past heads.
+#pragma unroll 4
+    for (int i = threadIdx.x; i < d * heads; i += THREADS)
+        gw[(i % heads) * d + i / heads] = gate_w[i];
+    for (int i = d * heads + threadIdx.x; i < d * H; i += THREADS) gw[i] = Op<T>::from_float(0.f);
     __syncthreads();
-    for (int kt = 0; kt < k_steps; ++kt) {
-        const int st = kt & 1;
-        if (kt + 1 < k_steps) fetch((kt + 1) * F_BK);
-        const float* as = As + st * F_BK * F_BM;
-        const float* bsm = Bs + st * F_BK * F_BN;
-#pragma unroll
-        for (int k = 0; k < F_BK; ++k) {
-            const float4 a0 = *reinterpret_cast<const float4*>(as + k * F_BM + ty * 4);
-            const float4 a1 = *reinterpret_cast<const float4*>(as + k * F_BM + 64 + ty * 4);
-            const float4 b0 = *reinterpret_cast<const float4*>(bsm + k * F_BN + tx * 4);
-            const float4 b1 = *reinterpret_cast<const float4*>(bsm + k * F_BN + 64 + tx * 4);
-            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    const int lane = threadIdx.x % 32;
+    const int warps = gridDim.x * (THREADS / 32);
+    for (int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32; row < rows; row += warps) {
+        const T* xr = x + (size_t)row * d;
+        float ssq = 0.f;
+        for (int c = lane * 4; c < d; c += 128) {
+            float v[4];
+            load4(xr + c, v);
+            ssq += v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
         }
-        // Stage st ^ 1 was last read before the previous barrier.
-        if (kt + 1 < k_steps) stash(st ^ 1);
-        __syncthreads();
-    }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        float* row = Cs + ((i < 4 ? 0 : 64) + ty * 4 + (i & 3)) * F_C_LD;
-        *reinterpret_cast<float4*>(row + tx * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < F_BM * F_BN / 8; idx += THREADS) {
-        const int r = idx / (F_BN / 8), c0 = (idx % (F_BN / 8)) * 8;
-        const int count = min(8, bs.valid - c0);
-        if (row0 + r < M && count > 0)
-            epi(Cs + r * F_C_LD, c0, count, row0 + r, col0 + c0,
-                epi.prefetch(row0 + r, col0 + c0));
+        for (int o = 16; o > 0; o >>= 1) ssq += __shfl_xor_sync(0xffffffffu, ssq, o);
+        const float inv = rsqrtf(fmaxf(ssq, 1e-24f)) * sqrtf((float)d);
+        float acc[H];
+#pragma unroll
+        for (int h = 0; h < H; ++h) acc[h] = 0.f;
+        for (int c = lane * 4; c < d; c += 128) {
+            float v[4], g[4], y[4];
+            load4(xr + c, v);
+            load4(gamma + c, g);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) y[i] = rnd<T>(v[i] * inv * g[i]);
+            store4(xn + (size_t)row * d + c, y);
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+                float w[4];
+                load4(gw + h * d + c, w);
+                acc[h] = fmaf(y[3], w[3], fmaf(y[2], w[2], fmaf(y[1], w[1], fmaf(y[0], w[0], acc[h]))));
+            }
+        }
+        warp_transpose_sum(acc, lane);
+#pragma unroll
+        for (int j = 0; j < (H >= 32 ? H / 32 : 1); ++j) {
+            const int h = lane * H / 32 + j;
+            if (lane % (H >= 32 ? 1 : 32 / H) == 0 && h < heads) {
+                const float s = acc[j] + to_f(gate_b[h]);
+                gates[((size_t)(row / n_pad) * heads + h) * n_pad + row % n_pad] =
+                    1.f / (1.f + expf(-s));
+            }
+        }
     }
 }
+
+// ---------------------------------------------------------------------------
+// GEMMs. Both compute the output tiles of A·B: A is (M, K) row-major, B has N
+// columns (bf16: (K, N) row-major as the weight lies; float32: the prepared
+// form (2, N, K), the TF32 heads and tails of Bᵀ, see gemm_tf32.cuh). Rows past
+// M and columns past N arrive as zeros (TMA) and are never handed on. Two
+// kinds of epilogue functor:
+//   * a run epilogue is called once per run of eight output columns with
+//     their float32 values in a register array: epi(row, c0, count, grow,
+//     gcol0, pre) covers row[c0 .. c0 + count), count <= 8, which is global
+//     row grow, columns gcol0 ...; c0 is a multiple of 8; pre is
+//     epi.prefetch(grow, gcol0), an Epi::Pre: what the functor reads from
+//     device memory for that run, asked for Epi::PREFETCH runs ahead;
+//   * a tile epilogue (bf16 only; it has a type Epi::Tile) takes a consumer
+//     warpgroup's whole 64-row accumulator tile as it lies in the registers,
+//     with Epi::STAGING_BYTES of shared memory of its own (see TileCtx).
+
+template <class E, class = void> struct IsTileEpilogue : std::false_type {};
+template <class E> struct IsTileEpilogue<E, std::void_t<typename E::Tile>> : std::true_type {};
+
+// Shared memory of a consumer warpgroup's own for its tile epilogue (a
+// variable: nvcc does not let device code call a constexpr host function).
+template <class Epi, bool = IsTileEpilogue<Epi>::value> struct Staging {
+    static constexpr int bytes = 0;
+};
+template <class Epi> struct Staging<Epi, true> {
+    static constexpr int bytes = Epi::STAGING_BYTES;
+};
+template <class Epi> constexpr int STAGING_BYTES = Staging<Epi>::bytes;
+
+// What a tile epilogue is told about its tile and its warpgroup.
+struct TileCtx {
+    int row0, gcol0, valid;  // the tile's first row and column; columns of it inside N
+    int wrow, quad, lane, warp, wg;  // this thread's row in the tile, lane % 4, ...
+    bool elected;                    // one thread of the warpgroup
+    unsigned char* staging;          // this warpgroup's STAGING_BYTES, 1024-byte aligned
+};
 
 // bf16: a persistent, warp-specialised wgmma + TMA pipeline. Blocks of three
 // warpgroups run in clusters of two. A work item is 128 rows x 256 columns of
@@ -294,17 +308,17 @@ gemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B, int b_
 //     and is read through wgmma's transpose bit, so no transposed copy of a
 //     weight is ever made). The two blocks need the same B boxes: each loads
 //     two of the four and multicasts them into both blocks' rings. Rows past
-//     M and columns past the source's width arrive as zeros. A column tile
-//     comes from B or from B2 (its own tensor map), never from both;
+//     M and columns past N arrive as zeros;
 //   * a consumer warpgroup runs its item's stages: m64n256k16 from shared
 //     memory into 128 float32 accumulators a thread, one wgmma group a stage,
 //     the previous stage released while it runs;
-//   * the epilogue works on the accumulator registers: the four lanes that
+//   * a run epilogue works on the accumulator registers: the four lanes that
 //     share a row swap column pairs by shuffles so that each holds eight
 //     consecutive columns, and the functor sees those eight as a register
 //     array. What the functor reads from device memory for a run (Epi::Pre,
 //     loaded by Epi::prefetch) is fetched Epi::PREFETCH runs ahead, the first
-//     batch before the last products are waited for.
+//     batch before the last products are waited for. A tile epilogue gets
+//     the registers as they are (Epi::tile_prefetch before the wait).
 // full[s] counts the TMA bytes of stage s, from both blocks' loads; empty[s]
 // takes one arrival from the stage's consumer warpgroup in each block, since
 // a multicast load writes into both rings; turn[w] tells warpgroup w that the
@@ -314,7 +328,8 @@ constexpr int G_THREADS = 384;
 constexpr int G_A_BYTES = G_WM * G_BK * 2;
 constexpr int G_PANEL_BYTES = G_BK * 64 * 2;  // 64 k-rows of 64 columns
 constexpr int G_STAGE_BYTES = G_A_BYTES + (G_BN / 64) * G_PANEL_BYTES;
-constexpr size_t GEMM_WGMMA_SMEM_BYTES = G_STAGES * G_STAGE_BYTES + 1024 + (2 * G_STAGES + 2) * 8;
+template <class Epi> constexpr size_t GEMM_WGMMA_SMEM_BYTES =
+    G_STAGES * G_STAGE_BYTES + 2 * STAGING_BYTES<Epi> + 1024 + (2 * G_STAGES + 2) * 8;
 
 // Tiles are 1024-byte aligned for the swizzle; dynamic shared memory is not.
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -350,15 +365,71 @@ __device__ __forceinline__ void quad_transpose(const float2 (&x)[4], int quad, f
     y[4] = hi0.x; y[5] = hi0.y; y[6] = hi1.x; y[7] = hi1.y;
 }
 
+// A run epilogue over a consumer warpgroup's 64 x BN accumulator tile (laid
+// out as wgmma's d), shared by both GEMMs. Run r of a thread: row half
+// r / (RUNS / 2), columns 8·(4·(r % (RUNS / 2)) + quad) .. +7.
+template <int BN, class Epi> struct RunEpilogue {
+    static constexpr int RUNS = BN / 16;  // (row half, four-run group) pairs of a thread
+    static constexpr int NB = Epi::PREFETCH;
+    static_assert(RUNS % NB == 0, "prefetch depth must divide the runs of a thread");
+    const Epi epi;  // a copy in registers: pointers and sizes
+    int row0, wrow, quad, gcol0, valid, M;
+    typename Epi::Pre next[NB];
+
+    __device__ __forceinline__ int run_row(int r) const { return row0 + wrow + 8 * (r / (RUNS / 2)); }
+    __device__ __forceinline__ int run_col(int r) const { return 8 * (4 * (r % (RUNS / 2)) + quad); }
+    __device__ __forceinline__ bool run_ok(int r) const { return run_row(r) < M && run_col(r) < valid; }
+
+    // The first batch of prefetches, issued before the last products are
+    // waited for.
+    __device__ __forceinline__ void start(bool inside) {
+#pragma unroll
+        for (int i = 0; i < NB; ++i)
+            if (inside || run_ok(i)) next[i] = epi.prefetch(run_row(i), gcol0 + run_col(i));
+    }
+
+    // A tile wholly inside the output (nearly all are) runs without a branch
+    // between its runs (GUARDED false), so that their shuffles, loads and
+    // arithmetic overlap.
+    template <bool GUARDED> __device__ __forceinline__ void run(const float (&acc)[BN / 2]) {
+#pragma unroll
+        for (int r0 = 0; r0 < RUNS; r0 += NB) {
+            typename Epi::Pre cur[NB];
+#pragma unroll
+            for (int i = 0; i < NB; ++i) cur[i] = next[i];
+            if (r0 + NB < RUNS) {
+#pragma unroll
+                for (int i = 0; i < NB; ++i)
+                    if (!GUARDED || run_ok(r0 + NB + i))
+                        next[i] = epi.prefetch(run_row(r0 + NB + i), gcol0 + run_col(r0 + NB + i));
+            }
+#pragma unroll
+            for (int i = 0; i < NB; ++i) {
+                const int r = r0 + i, h = r / (RUNS / 2), g = r % (RUNS / 2);
+                float2 x[4];
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    x[c] = make_float2(acc[4 * (4 * g + c) + 2 * h], acc[4 * (4 * g + c) + 2 * h + 1]);
+                float y[8];
+                quad_transpose(x, quad, y);
+                if (!GUARDED || run_ok(r))
+                    epi(y, 0, GUARDED ? min(8, valid - run_col(r)) : 8, run_row(r),
+                        gcol0 + run_col(r), cur[i]);
+            }
+        }
+    }
+};
+
 template <class Epi>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(G_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                  const __grid_constant__ CUtensorMap map_b,
-                  const __grid_constant__ CUtensorMap map_b2, int b_cols, int b2_cols, int M,
-                  int K, Epi epi) {
+                  const __grid_constant__ CUtensorMap map_b, int n_cols, int M, int K,
+                  const __grid_constant__ Epi epi) {
+    constexpr bool TILE = IsTileEpilogue<Epi>::value;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = align_1024(smem_raw);
-    uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
+    unsigned char* staging = smem + G_STAGES * G_STAGE_BYTES;
+    uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * STAGING_BYTES<Epi>);
     uint64_t* empty = full + G_STAGES;
     uint64_t* turn = empty + G_STAGES;
 
@@ -374,8 +445,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     cluster_sync();  // both blocks' barriers exist before either is used
 
     const uint32_t rank = cluster_rank();
-    const int b_tiles = (b_cols + G_BN - 1) / G_BN;
-    const int n_tiles = b_tiles + (b2_cols + G_BN - 1) / G_BN;
+    const int n_tiles = (n_cols + G_BN - 1) / G_BN;
     const int total = ((M + 2 * G_WM - 1) / (2 * G_WM)) * n_tiles;
     const int first = blockIdx.x / 2, step = gridDim.x / 2;
     const int k_steps = K / G_BK;
@@ -386,9 +456,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         if (threadIdx.x == 256) {
             uint32_t it = 0;
             for (int t = first; t < total; t += step) {
-                const int row0 = (t / n_tiles) * 2 * G_WM + rank * G_WM, nt = t % n_tiles;
-                const CUtensorMap* bmap = nt < b_tiles ? &map_b : &map_b2;
-                const int col0 = (nt < b_tiles ? nt : nt - b_tiles) * G_BN;
+                const int row0 = (t / n_tiles) * 2 * G_WM + rank * G_WM;
+                const int col0 = (t % n_tiles) * G_BN;
                 for (int kk = 0; kk < k_steps; ++kk, ++it) {
                     const int s = it % G_STAGES;
                     mbar_wait(empty + s, ((it / G_STAGES) & 1) ^ 1);
@@ -397,7 +466,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                     tma_load_2d(st, &map_a, full + s, kk * G_BK, row0);
 #pragma unroll
                     for (int p = 2 * rank; p < 2 * rank + 2; ++p)
-                        tma_load_2d_multicast(st + G_A_BYTES + p * G_PANEL_BYTES, bmap, full + s,
+                        tma_load_2d_multicast(st + G_A_BYTES + p * G_PANEL_BYTES, &map_b, full + s,
                                               col0 + 64 * p, kk * G_BK, 3);
                 }
             }
@@ -412,22 +481,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         const int wrow = ((threadIdx.x % 128) / 32) * 16 + lane / 4;
         const bool elected = threadIdx.x % 128 == 0;
         const uint32_t ring = smem_u32(smem);
-        constexpr int RUNS = G_BN / 16;  // (row half, four-run group) pairs of a thread
-        constexpr int NB = Epi::PREFETCH;
-        static_assert(RUNS % NB == 0, "prefetch depth must divide the runs of a thread");
         float acc[G_BN / 2];
         int item = 0;
         for (int t = first; t < total; t += step, ++item) {
             if ((item & 1) != wg) continue;
-            const int row0 = (t / n_tiles) * 2 * G_WM + rank * G_WM, nt = t % n_tiles;
-            const bool from_b = nt < b_tiles;
-            const int col0 = (from_b ? nt : nt - b_tiles) * G_BN;
-            const int valid = (from_b ? b_cols : b2_cols) - col0;  // columns of this tile
-            const int gcol0 = (from_b ? 0 : b_cols) + col0;
-            // Run r of this thread: row half r / 8, columns 8·(4·(r % 8) + quad) .. +7.
-            auto run_row = [&](int r) { return row0 + wrow + 8 * (r / (RUNS / 2)); };
-            auto run_col = [&](int r) { return 8 * (4 * (r % (RUNS / 2)) + quad); };
-            auto run_ok = [&](int r) { return run_row(r) < M && run_col(r) < valid; };
+            const int row0 = (t / n_tiles) * 2 * G_WM + rank * G_WM;
+            const int col0 = (t % n_tiles) * G_BN;
+            const int valid = n_cols - col0;  // columns of this tile inside N
 
             // The warpgroups take turns at the products: a wait names a phase
             // by its parity alone, so a warpgroup may look at a stage's
@@ -456,60 +516,45 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                     }
                 }
             }
-            // A tile wholly inside the output (nearly all are) runs the
-            // epilogue without a branch between its runs, so that their
-            // shuffles, loads and arithmetic overlap.
-            const bool inside = row0 + G_WM <= M && valid >= G_BN;
-            typename Epi::Pre next[NB];
-#pragma unroll
-            for (int i = 0; i < NB; ++i)
-                if (inside || run_ok(i)) next[i] = epi.prefetch(run_row(i), gcol0 + run_col(i));
-            wgmma_wait<0>();
-            if (elected) {
-                mbar_arrive(empty + (it - 1) % G_STAGES);
-                mbar_arrive_cluster(empty + (it - 1) % G_STAGES, rank ^ 1);
-                mbar_arrive(turn + (wg ^ 1));
-            }
-            fence_registers(acc);
-
-            auto epilogue = [&](auto guarded) {
-                constexpr bool GUARDED = decltype(guarded)::value;
-#pragma unroll
-                for (int r0 = 0; r0 < RUNS; r0 += NB) {
-                    typename Epi::Pre cur[NB];
-#pragma unroll
-                    for (int i = 0; i < NB; ++i) cur[i] = next[i];
-                    if (r0 + NB < RUNS) {
-#pragma unroll
-                        for (int i = 0; i < NB; ++i)
-                            if (!GUARDED || run_ok(r0 + NB + i))
-                                next[i] = epi.prefetch(run_row(r0 + NB + i),
-                                                       gcol0 + run_col(r0 + NB + i));
-                    }
-#pragma unroll
-                    for (int i = 0; i < NB; ++i) {
-                        const int r = r0 + i, h = r / (RUNS / 2), g = r % (RUNS / 2);
-                        float2 x[4];
-#pragma unroll
-                        for (int c = 0; c < 4; ++c)
-                            x[c] = make_float2(acc[4 * (4 * g + c) + 2 * h],
-                                               acc[4 * (4 * g + c) + 2 * h + 1]);
-                        float y[8];
-                        quad_transpose(x, quad, y);
-                        if (!GUARDED || run_ok(r))
-                            epi(y, 0, GUARDED ? min(8, valid - run_col(r)) : 8, run_row(r),
-                                gcol0 + run_col(r), cur[i]);
-                    }
+            // Wait for the last products, release their stage and hand the
+            // turn to the other warpgroup.
+            auto finish_products = [&]() {
+                wgmma_wait<0>();
+                if (elected) {
+                    mbar_arrive(empty + (it - 1) % G_STAGES);
+                    mbar_arrive_cluster(empty + (it - 1) % G_STAGES, rank ^ 1);
+                    mbar_arrive(turn + (wg ^ 1));
                 }
+                fence_registers(acc);
             };
-            if (inside)
-                epilogue(Flag<false>{});
-            else
-                epilogue(Flag<true>{});
+            if constexpr (TILE) {
+                const typename Epi::Tile pre = epi.tile_prefetch(row0, wrow, quad);
+                finish_products();
+                epi.tile(acc, pre,
+                         TileCtx{row0, col0, valid, wrow, quad, lane, (int)(threadIdx.x % 128) / 32,
+                                 wg, elected, staging + wg * STAGING_BYTES<Epi>});
+            } else {
+                const bool inside = row0 + G_WM <= M && valid >= G_BN;
+                RunEpilogue<G_BN, Epi> runs{epi, row0, wrow, quad, col0, valid, M};
+                runs.start(inside);
+                finish_products();
+                auto epilogue = [&](auto guarded) {
+                    runs.template run<decltype(guarded)::value>(acc);
+                };
+                if (inside)
+                    epilogue(Flag<false>{});
+                else
+                    epilogue(Flag<true>{});
+            }
+        }
+        if constexpr (TILE) {
+            if (elected) bulk_wait<0>();  // the last tile's stores are written
         }
         cluster_sync();
     }
 }
+
+#include "gemm_tf32.cuh"
 
 // ---------------------------------------------------------------------------
 // Flash-style attention: o = softmax(q·kᵀ·scale, key columns >= n_valid
@@ -1016,31 +1061,74 @@ inline int sm_count() {
     return count;
 }
 
-// C = A·[B | B2] through the epilogue; M rows, K deep (K % 64 == 0). bf16
-// needs every operand 16-byte aligned with row lengths that are multiples of
-// eight (TMA).
+// gates and xn of the attention block: the kernel for the head count rounded
+// up to a power of two (heads <= 64), persistent blocks as many as fit.
+template <typename T, int H>
+cudaError_t run_rmsnorm_gates_h(const T* x, const T* gamma, const T* gate_w, const T* gate_b,
+                                T* xn, float* gates, int rows, int d, int heads, int n_pad,
+                                cudaStream_t stream) {
+    const auto kernel = rmsnorm_gates_kernel<T, H>;
+    const size_t smem = (size_t)d * H * sizeof(T);
+    if (smem > 48 * 1024) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    int per_sm = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (err != cudaSuccess) return err;
+    const int rows_a_block = THREADS / 32;
+    const int blocks = min((rows + rows_a_block - 1) / rows_a_block, max(per_sm, 1) * sm_count());
+    return launch_block(kernel, dim3(blocks), THREADS, smem, stream, x, gamma, gate_w, gate_b, xn,
+                        gates, rows, d, heads, n_pad);
+}
+
+template <typename T>
+cudaError_t run_rmsnorm_gates(const T* x, const T* gamma, const T* gate_w, const T* gate_b,
+                              T* xn, float* gates, int rows, int d, int heads, int n_pad,
+                              cudaStream_t stream) {
+#define ASEP_GATES(H)                                                                         \
+    if (heads <= H)                                                                           \
+        return run_rmsnorm_gates_h<T, H>(x, gamma, gate_w, gate_b, xn, gates, rows, d, heads, \
+                                         n_pad, stream);
+    ASEP_GATES(1) ASEP_GATES(2) ASEP_GATES(4) ASEP_GATES(8) ASEP_GATES(16) ASEP_GATES(32)
+    ASEP_GATES(64)
+#undef ASEP_GATES
+    return cudaErrorInvalidValue;
+}
+
+// C = A·B through the epilogue; M rows, K deep (K % 64 == 0), N columns.
+// bf16: B is (K, N) row-major; float32: B is the prepared (2, N, K) form. Both
+// need every operand 16-byte aligned with row lengths that are multiples of
+// 16 bytes (TMA).
 template <typename T, class Epi>
-cudaError_t run_gemm(const T* A, const T* B, int b_cols, const T* B2, int b2_cols, int M, int K,
-                     Epi epi, cudaStream_t stream) {
+cudaError_t run_gemm(const T* A, const T* B, int n_cols, int M, int K, Epi epi,
+                     cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
-        CUtensorMap map_a, map_b, map_b2;
+        const int row_groups = (M + 2 * G_WM - 1) / (2 * G_WM);
+        CUtensorMap map_a, map_b;
         cudaError_t err = encode_rows_map(&map_a, A, M, K, G_WM);
         if (err != cudaSuccess) return err;
-        err = encode_rows_map(&map_b, B, K, b_cols, G_BK);
+        err = encode_rows_map(&map_b, B, K, n_cols, G_BK);
         if (err != cudaSuccess) return err;
-        map_b2 = map_b;
-        if (b2_cols > 0) err = encode_rows_map(&map_b2, B2, K, b2_cols, G_BK);
-        if (err != cudaSuccess) return err;
-        const int items = ((M + 2 * G_WM - 1) / (2 * G_WM)) *
-                          ((b_cols + G_BN - 1) / G_BN + (b2_cols + G_BN - 1) / G_BN);
+        const int items = row_groups * ((n_cols + G_BN - 1) / G_BN);
         return launch_block(gemm_wgmma_kernel<Epi>, dim3(2 * min(items, sm_count() / 2)),
-                            G_THREADS,
-                            GEMM_WGMMA_SMEM_BYTES, stream, map_a, map_b, map_b2, b_cols,
-                            b2_cols, M, K, epi);
+                            G_THREADS, GEMM_WGMMA_SMEM_BYTES<Epi>, stream, map_a, map_b, n_cols,
+                            M, K, epi);
     } else {
-        const int cols = b_cols + b2_cols;
-        return launch(gemm_fma_kernel<Epi>, dim3((M + F_BM - 1) / F_BM, (cols + F_BN - 1) / F_BN),
-                      gemm_fma_smem_bytes(), stream, A, B, b_cols, B2, b2_cols, M, K, epi);
+        CUtensorMap map_a, map_hi, map_lo;
+        cudaError_t err = encode_rows_map_f32(&map_a, A, M, K, G_WM);
+        if (err != cudaSuccess) return err;
+        err = encode_rows_map_f32(&map_hi, B, n_cols, K, T_BN / T_CLUSTER);
+        if (err != cudaSuccess) return err;
+        err = encode_rows_map_f32(&map_lo, B + (size_t)n_cols * K, n_cols, K, T_BN / T_CLUSTER);
+        if (err != cudaSuccess) return err;
+        const int items = ((M + T_CLUSTER * G_WM - 1) / (T_CLUSTER * G_WM)) *
+                          ((n_cols + T_BN - 1) / T_BN);
+        return launch_block(gemm_tf32x3_kernel<Epi>,
+                            dim3(T_CLUSTER * min(items, sm_count() / T_CLUSTER)), G_THREADS,
+                            GEMM_TF32_SMEM_BYTES, stream, map_a, map_hi, map_lo, n_cols, M, K, epi);
     }
 }
 

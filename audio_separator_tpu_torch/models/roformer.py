@@ -29,6 +29,7 @@ from torch import nn
 
 from ..ops.attention_block import fused_attention_block, fused_ff_block
 from ..ops.stft import hann_window, istft, stft
+from ..ops.tf32 import split_tf32
 from .melbands import mel_band_membership
 
 SEQ_GRANULARITY = 64  # the fused blocks' n_pad % 64 == 0 contract
@@ -182,10 +183,12 @@ def _feedforward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 def _transformer(stack: Dict[str, torch.Tensor], x: torch.Tensor, heads: int,
                  inner_depth: int,
                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                 linear: bool = False) -> torch.Tensor:
+                 linear: bool = False,
+                 tf32: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Inner transformer: ``inner_depth`` × (attention + feed-forward), then
     the optional output norm. ``stack`` tensors carry a leading
-    ``(inner_depth, ...)`` axis.
+    ``(inner_depth, ...)`` axis; so do ``tf32``'s, the prepared 3xTF32 forms
+    of ``wqkv``, ``wo``, ``ff_w1`` and ``ff_w2`` for a float32 stack on the card.
 
     Softmax layers run as the two fused blocks over tokens padded once to a
     multiple of 64 (``n_valid`` masks the padded key columns); the padding is
@@ -204,17 +207,31 @@ def _transformer(stack: Dict[str, torch.Tensor], x: torch.Tensor, heads: int,
         if rope is not None and pad:
             rope_p = (F.pad(rope[0], (0, 0, 0, pad)), F.pad(rope[1], (0, 0, 0, pad)))
         for j in range(inner_depth):
+            forms = {k: v[j] for k, v in tf32.items()} if tf32 is not None else None
             x = fused_attention_block(
                 x, stack["wqkv"][j], stack["gate_w"][j], stack["gate_b"][j],
-                stack["wo"][j], stack["attn_norm"][j], rope_p, heads, n_valid=n)
+                stack["wo"][j], stack["attn_norm"][j], rope_p, heads, n_valid=n,
+                tf32_weights=(forms["wqkv"], forms["wo"]) if forms else None)
             x = fused_ff_block(x, stack["ff_norm"][j], stack["ff_w1"][j],
                                stack["ff_b1"][j], stack["ff_w2"][j],
-                               stack["ff_b2"][j])
+                               stack["ff_b2"][j],
+                               tf32_weights=(forms["ff_w1"], forms["ff_w2"]) if forms else None)
         if pad:
             x = x[:, :n]
     if "out_norm" in stack:
         x = _rmsnorm(x, stack["out_norm"])
     return x
+
+
+def tf32_stack_forms(stack, names) -> Dict[str, torch.Tensor]:
+    """``{name: (depth, inner, 2, N, K)}``: for every layer of a stack, the
+    prepared 3xTF32 form of its ``(K, N)`` weight ``name``, as
+    ``ops/tf32.prepare_tf32_weight`` makes it."""
+    forms = {}
+    for name in names:
+        hi, lo = split_tf32(stack[name].transpose(-1, -2).contiguous())
+        forms[name] = torch.stack([hi, lo], dim=2)
+    return forms
 
 
 def _gather_run(feats: torch.Tensor, layout: BandLayout, run) -> torch.Tensor:
@@ -328,6 +345,27 @@ class Roformer(nn.Module):
                      gate_w=(ns, e0 - s0, final_in, w), gate_b=(ns, e0 - s0, w))
              for (s0, e0, w, _dense) in layout.runs])
 
+    TF32_WEIGHTS = ("wqkv", "wo", "ff_w1", "ff_w2")
+
+    def tf32_forms(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """The prepared 3xTF32 forms (``ops/tf32.prepare_tf32_weight``) of the
+        softmax stacks' product weights, ``{branch: {name: (depth, inner, 2,
+        N, K)}}``, for float32 parameters on the card (None otherwise). Made at
+        first use and kept until a weight changes (in place or moved): 0.6 GB
+        for the flagship's 24 layers."""
+        params = {br: self.blocks[br] for br in ("time", "freq")}
+        first = params["time"]["wqkv"]
+        if first.device.type != "cuda" or first.dtype != torch.float32:
+            return None
+        key = tuple((p.data_ptr(), p._version) for st in params.values()
+                    for name, p in st.items() if name in self.TF32_WEIGHTS)
+        cached = getattr(self, "_tf32_cache", None)
+        if cached is None or cached[0] != key:
+            cached = (key, {br: tf32_stack_forms(st, self.TF32_WEIGHTS)
+                            for br, st in params.items()})
+            self._tf32_cache = cached
+        return cached[1]
+
     @torch.no_grad()
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         cfg, layout = self.cfg, self.layout
@@ -353,9 +391,12 @@ class Roformer(nn.Module):
         time_rope = _rope_tables(tf, cfg.dim_head, dt, dev)
         freq_rope = _rope_tables(layout.n_bands, cfg.dim_head, dt, dev)
         nb, dim, heads = layout.n_bands, cfg.dim, cfg.heads
+        forms = self.tf32_forms()
         for d in range(cfg.depth):
             lp = {branch: {k: v[d] for k, v in params.items()}
                   for branch, params in self.blocks.items()}
+            tf32 = ({br: {k: v[d] for k, v in f.items()} for br, f in forms.items()}
+                    if forms is not None else {"time": None, "freq": None})
             if "linear" in lp:
                 flat = _transformer(lp["linear"], x.reshape(b, tf * nb, dim), heads,
                                     cfg.linear_transformer_depth, None, linear=True)
@@ -363,12 +404,12 @@ class Roformer(nn.Module):
             # time attention: tokens = frames, bands folded into batch
             xt = x.permute(0, 2, 1, 3).reshape(b * nb, tf, dim)
             xt = _transformer(lp["time"], xt, heads, cfg.time_transformer_depth,
-                              time_rope)
+                              time_rope, tf32=tf32["time"])
             x = xt.reshape(b, nb, tf, dim).permute(0, 2, 1, 3)
             # freq attention: tokens = bands, frames folded into batch
             xf = x.reshape(b * tf, nb, dim)
             xf = _transformer(lp["freq"], xf, heads, cfg.freq_transformer_depth,
-                              freq_rope)
+                              freq_rope, tf32=tf32["freq"])
             x = xf.reshape(b, tf, nb, dim)
 
         if cfg.kind == "bs":

@@ -26,26 +26,32 @@ bf16-level difference the card-side comparison allows for.
 
 Where the time goes on the card, and what the design does about it: every
 product in both blocks is compute-bound at the flagship shapes (over a
-thousand FLOP per byte of input and output). In bf16 the products run as one
-persistent, warp-specialised GEMM kernel (``csrc/tiles.cuh``): blocks run in
-clusters of two; a producer thread keeps a ring of 128-byte-swizzled tiles
-filled by TMA (the B tile is loaded half by each block and multicast to both);
-the two consumer warpgroups take turns at 64×256 output tiles with ``wgmma``
-(m64n256k16, float32 accumulators in registers), so one's epilogue (GELU,
-residual, RoPE and gates, on the accumulator registers) overlaps the other's
-products. The weights are read as they lie, ``(K, N)``
-row-major, through ``wgmma``'s transpose bit. TMA wants 16-byte aligned
-operands whose rows are multiples of 16 bytes, so the wrapper checks the
-alignment and hands ``gate_w`` over with its head count rounded up to a
-multiple of eight zero columns. In float32 the products are register-blocked
-FMA tiles (Hopper has no float32 tensor-core mode other than TF32, which is
-not float32). The RMSNorm is a launch of its own so the GEMMs stream their
-operands untouched. The attention launch walks key tiles with an online
-softmax, with scores and output in registers in both types (``wgmma`` fed by
-TMA in bf16, FMA in float32), so no ``(n, n)`` score matrix is ever
-stored, and skips key tiles that lie wholly past ``n_valid``. The intermediates
-between the launches of one block (xn, q, k, v, gates, merged heads; the FF
-hidden activation) still round-trip through device memory.
+thousand FLOP per byte of input and output). The products of both types run
+on the tensor cores in one pipeline shape (``csrc/tiles.cuh``): persistent,
+warp-specialised blocks in clusters of two; a producer thread keeps a ring of
+128-byte-swizzled tiles filled by TMA (the weight tile is loaded half by each
+block and multicast to both); the two consumer warpgroups take turns at
+output tiles with ``wgmma`` (float32 accumulators in registers), so one's
+epilogue (GELU, residual, RoPE, on the accumulator registers) overlaps the
+other's products. In bf16 (m64n256k16) the weights are read as they lie,
+``(K, N)`` row-major, through ``wgmma``'s transpose bit. In float32 the
+products are 3xTF32 (``ops/tf32.py``, ``csrc/gemm_tf32.cuh``): three TF32
+products a term, heads and tails of both operands, which keeps float32's
+accuracy; ``wgmma`` reads 32-bit operands K-major only, so each float32 weight
+is used in a prepared form, its transpose's TF32 heads and tails ``(2, N,
+K)``, made once per weight tensor (the RoFormer module keeps them; a caller
+that passes none gets them made for the call). The RMSNorm is a launch of its
+own so the GEMMs stream their operands untouched; in the attention block it
+also computes the gates, ``σ(xn·gate_w + gate_b)``, from the rounded xn. The
+bf16 QKV product's epilogue works on whole 64×64 head boxes: RoPE on the
+accumulator's own register pairs, q, k, v out by TMA stores. The attention
+launch walks key tiles with an online softmax, with scores and output in
+registers in both types (``wgmma`` fed by TMA in bf16, FMA in float32), so no
+``(n, n)`` score matrix is ever stored, and skips key tiles that lie wholly
+past ``n_valid``. TMA wants 16-byte aligned operands whose rows are multiples
+of 16 bytes, so the wrappers check the alignment. The intermediates between
+the launches of one block (xn, q, k, v, gates, merged heads; the FF hidden
+activation) still round-trip through device memory.
 """
 
 from __future__ import annotations
@@ -57,10 +63,11 @@ import torch
 
 from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind,
                      load, reset_launch_counts, stream)
+from .tf32 import prepare_tf32_weight
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "fused_attention_block",
            "fused_attention_block_ref", "fused_ff_block", "fused_ff_block_ref",
-           "check_kernel_dims", "rotate_half", "padded_gate_w"]
+           "check_kernel_dims", "rotate_half", "gate_columns"]
 
 # ---------------------------------------------------------------------------
 # Argument checks (shared by both devices) and kernel-only limits.
@@ -89,26 +96,49 @@ def _check_tensors(x: torch.Tensor, n_valid: Optional[int],
             raise ValueError(f"{name} must be contiguous")
 
 
+# Dynamic shared memory a block may use on the H100.
+MAX_SMEM_BYTES = 232448
+
+
+def gate_columns(heads: int) -> int:
+    """Columns of the norm launch's gate weights in shared memory: ``heads``
+    rounded up to a power of two (zero columns past it)."""
+    return 1 << max(0, heads - 1).bit_length()
+
+
 def check_kernel_dims(d_model: int, heads: Optional[int] = None,
                       dim_head: Optional[int] = None,
                       hidden: Optional[int] = None) -> None:
-    """Limits of the CUDA kernels' tiling (64-wide tiles, one 64-lane head)."""
+    """Limits of the CUDA kernels' tiling (64-wide tiles, one 64-lane head,
+    the gate weights in one block's shared memory)."""
     if d_model % 64:
         raise ValueError(f"kernel needs d_model % 64 == 0, got {d_model}")
     if dim_head is not None and dim_head != 64:
         raise ValueError(f"kernel needs dim_head == 64, got {dim_head}")
-    if heads is not None and (not 1 <= heads <= 64 or heads % 2):
-        # 128-wide float32 column tiles must not straddle Wqkv and gate_w.
-        raise ValueError(f"kernel needs an even heads count <= 64, got {heads}")
+    if heads is not None:
+        if not 1 <= heads <= 64:
+            raise ValueError(f"kernel needs 1 <= heads <= 64, got {heads}")
+        if d_model * gate_columns(heads) * 4 > MAX_SMEM_BYTES:
+            raise ValueError(f"gate weights of d_model={d_model} x {gate_columns(heads)} "
+                             f"float32 exceed one block's shared memory")
     if hidden is not None and hidden % 64:
         raise ValueError(f"kernel needs hidden % 64 == 0, got {hidden}")
 
 
-def padded_gate_w(gate_w: torch.Tensor) -> torch.Tensor:
-    """``gate_w (d, heads)`` with the head count rounded up to a multiple of
-    eight by zero columns: rows the kernel's loads take (16-byte multiples)."""
-    pad = -gate_w.shape[1] % 8
-    return torch.nn.functional.pad(gate_w, (0, pad)) if pad else gate_w
+def _tf32_forms(forms: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                weights: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor):
+    """The prepared 3xTF32 forms the float32 kernels read in place of the
+    weights: those given (checked), or made here for this call."""
+    if forms is None:
+        return tuple(prepare_tf32_weight(w) for w in weights)
+    for w, f in zip(weights, forms):
+        shape = (2, w.shape[1], w.shape[0])
+        if (tuple(f.shape) != shape or f.dtype != torch.float32 or f.device != x.device
+                or not f.is_contiguous()):
+            raise ValueError(f"prepared weight form {tuple(f.shape)} {f.dtype} on {f.device} "
+                             f"is not the contiguous float32 {shape} on {x.device} "
+                             f"that prepare_tf32_weight makes")
+    return tuple(forms)
 
 
 # ---------------------------------------------------------------------------
@@ -173,9 +203,14 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
                           gate_w: torch.Tensor, gate_b: torch.Tensor,
                           wo: torch.Tensor, attn_norm: torch.Tensor,
                           rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                          heads: int, n_valid: int) -> torch.Tensor:
+                          heads: int, n_valid: int, *,
+                          tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> torch.Tensor:
     """``x (B, n_pad, d)`` → same shape; ``n_pad % 64 == 0``, key columns
-    ``≥ n_valid`` masked. ``rope`` is ``(cos, sin)``, each ``(n_pad, dh)``."""
+    ``≥ n_valid`` masked. ``rope`` is ``(cos, sin)``, each ``(n_pad, dh)``.
+    ``tf32_weights``: the prepared forms of ``(wqkv, wo)``
+    (:func:`~audio_separator_tpu_torch.ops.tf32.prepare_tf32_weight`) for a
+    float32 call on the card; made for the call where not given."""
     b, n_pad, d = x.shape if x.dim() == 3 else (0, 0, 0)
     hd3 = wqkv.shape[-1] if wqkv.dim() == 2 else 0
     dh = hd3 // (3 * heads)
@@ -197,14 +232,15 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
     merged = torch.empty((b, n_pad, heads * dh), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
     cos, sin = rope if rope is not None else (None, None)
-    gate_w8 = padded_gate_w(gate_w)
-    check_cuda_layout(x, wqkv, gate_w8, wo, xn, q, k, v, merged, out,
-                       *(rope if rope is not None else ()))
+    check_cuda_layout(x, wqkv, wo, xn, q, k, v, merged, out,
+                      *(rope if rope is not None else ()))
+    if x.dtype == torch.float32:
+        wqkv, wo = _tf32_forms(tf32_weights, (wqkv, wo), x)
     lib = load("attention_block")
     with torch.cuda.device(x.device):
         rc = lib.asep_attention_block(
             DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
-            gate_w8.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
+            gate_w.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
             attn_norm.data_ptr(),
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None, xn.data_ptr(),
@@ -217,9 +253,12 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
 
 
 def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
-                   b1: torch.Tensor, w2: torch.Tensor,
-                   b2: torch.Tensor) -> torch.Tensor:
-    """``x + FeedForward(rmsnorm(x))`` over ``x (B, n_pad, d)``."""
+                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, *,
+                   tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
+    """``x + FeedForward(rmsnorm(x))`` over ``x (B, n_pad, d)``.
+    ``tf32_weights``: the prepared forms of ``(w1, w2)`` for a float32 call on
+    the card; made for the call where not given."""
     d = x.shape[-1] if x.dim() == 3 else 0
     hidden = w1.shape[-1] if w1.dim() == 2 else 0
     _check_tensors(x, None, ff_norm=(ff_norm, (d,)), w1=(w1, (d, hidden)),
@@ -231,6 +270,8 @@ def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
     h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
     check_cuda_layout(x, w1, b1, w2, b2, xn, h, out)
+    if x.dtype == torch.float32:
+        w1, w2 = _tf32_forms(tf32_weights, (w1, w2), x)
     lib = load("ff_block")
     with torch.cuda.device(x.device):
         rc = lib.asep_ff_block(

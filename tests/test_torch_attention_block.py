@@ -200,12 +200,21 @@ def test_ff_wrapper_rejects_bad_arguments(case):
 
 
 @pytest.mark.parametrize("dims", [(100, 8, 64, None), (512, 8, 32, None),
-                                  (512, 66, 64, None), (512, 7, 64, None),
-                                  (512, 8, 64, 100)])
+                                  (512, 66, 64, None), (512, 0, 64, None),
+                                  (512, 8, 64, 100), (1024, 64, 64, None)])
 def test_kernel_dims_outside_the_tiling_raise(dims):
+    """The last case: 1024 x 64 float32 gate weights exceed a block's shared
+    memory."""
     with pytest.raises(ValueError):
         ab.check_kernel_dims(*dims)
     ab.check_kernel_dims(512, 8, 64, 2048)  # the flagship layer fits
+
+
+@pytest.mark.parametrize("heads", [1, 3, 7, 8, 33, 64])
+def test_odd_head_counts_fit_the_kernels(heads):
+    """The QKV product has no gate columns, so no column tile can straddle
+    Wqkv and gate_w: any head count up to 64 fits."""
+    ab.check_kernel_dims(512, heads, 64, 2048)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -240,15 +249,13 @@ def test_build_links_libcuda_and_hashes_every_header():
 
 
 @pytest.mark.parametrize("heads", [1, 2, 6, 8, 12, 16])
-def test_gate_weights_are_padded_to_whole_16_byte_rows(heads):
-    g = torch.Generator().manual_seed(heads)
-    gate_w = torch.randn(64, heads, generator=g)
-    padded = ab.padded_gate_w(gate_w)
-    assert padded.shape == (64, -(-heads // 8) * 8) and padded.is_contiguous()
-    assert torch.equal(padded[:, :heads], gate_w)
-    assert not padded[:, heads:].any()
-    if heads % 8 == 0:
-        assert padded is gate_w  # no copy where none is needed
+def test_gate_weights_fill_a_power_of_two_of_columns(heads):
+    """The norm launch keeps gate_w in shared memory transposed, [H][d] of the
+    storage type, H the head count rounded up to a power of two: each warp
+    reduces its row's H sums in one transposing reduction."""
+    cols = ab.gate_columns(heads)
+    assert cols >= heads and cols & (cols - 1) == 0 and cols < 2 * heads
+    assert (32 % cols == 0) or cols == 64
 
 
 def _no_load(name):

@@ -7,8 +7,11 @@ skips without one. Run on the card with
 (``--noconftest``: tests/conftest.py imports JAX, which the port does not need.)
 
 Tolerances (relative to the reference's largest magnitude) are those of
-chip_smoke.py: float32 1e-4 max / 1e-5 mean; bf16 four bf16 steps max
-(4·2⁻⁸) and a quarter step mean."""
+chip_smoke.py: float32 1e-4 max / 1e-5 mean (the whole-sequence attention on
+the FMA pipe), and 1e-5 max / 1e-6 mean for the RoFormer blocks, whose float32
+products run as 3xTF32 on the tensor cores (a term good to about 2⁻²¹, float32
+sums: the float32 level); bf16 four bf16 steps max (4·2⁻⁸) and a quarter step
+mean."""
 
 import numpy as np
 import pytest
@@ -18,10 +21,13 @@ import torch.nn.functional as F
 from audio_separator_tpu_torch.models.roformer import _rope_tables
 from audio_separator_tpu_torch.ops import attention as att
 from audio_separator_tpu_torch.ops import attention_block as ab
+from audio_separator_tpu_torch.ops.tf32 import prepare_tf32_weight
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (4 * 2.0 ** -8, 2.0 ** -10)}
+# The fused RoFormer blocks: float32 through the 3xTF32 products.
+BLOCK_TOL = {**TOL, torch.float32: (1e-5, 1e-6)}
 
 
 @pytest.fixture
@@ -33,10 +39,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tol=TOL):
     diff = (got.float() - want.float()).abs()
     scale = float(want.float().abs().max())
-    tmax, tmean = TOL[dtype]
+    tmax, tmean = tol[dtype]
     assert float(diff.max()) <= tmax * scale, (float(diff.max()), scale)
     assert float(diff.mean()) <= tmean * scale, (float(diff.mean()), scale)
 
@@ -67,16 +73,17 @@ def test_attention_kernel_matches_plain(cuda, dtype, b, n_valid, rope):
     torch.cuda.synchronize()
     assert ab.LAUNCHES["fused_attention_block"] == before + 1
     want = ab.fused_attention_block_ref(x, rope=tables, heads=h, n_valid=n_valid, **w)
-    _close(got[:, :n_valid], want[:, :n_valid], dtype)
+    _close(got[:, :n_valid], want[:, :n_valid], dtype, BLOCK_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n_pad,hidden", [(16, 832, 2048), (96, 64, 2048), (3, 64, 2048),
-                                            (3, 64, 256), (5, 128, 4096)])
-def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad, hidden):
-    """Row counts that are no multiple of the kernels' row tiles (3·64, 5·128)
-    and hidden widths of one column tile and of sixteen."""
-    d = 512
+@pytest.mark.parametrize("b,n_pad,hidden,d", [(16, 832, 2048, 512), (96, 64, 2048, 512),
+                                              (3, 64, 2048, 512), (3, 64, 256, 512),
+                                              (5, 128, 4096, 512), (3, 64, 256, 64)])
+def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad, hidden, d):
+    """Row counts that are no multiple of the kernels' row tiles (3·64, 5·128),
+    hidden widths of one column tile and of sixteen, and products 64, 256,
+    512, 2048 and 4096 deep."""
     g = torch.Generator(device=cuda).manual_seed(1)
 
     def randn(*shape, s=1.0):
@@ -89,7 +96,7 @@ def test_ff_kernel_matches_plain(cuda, dtype, b, n_pad, hidden):
     got = ab.fused_ff_block(x, **w)
     torch.cuda.synchronize()
     assert ab.LAUNCHES["fused_ff_block"] == before + 1
-    _close(got, ab.fused_ff_block_ref(x, **w), dtype)
+    _close(got, ab.fused_ff_block_ref(x, **w), dtype, BLOCK_TOL)
 
 
 # HTDemucs at full width (time and frequency branch), a ragged small shape
@@ -150,7 +157,8 @@ def test_kernels_are_deterministic(cuda, dtype):
 
 
 def test_attention_block_with_a_head_count_that_is_no_multiple_of_eight(cuda):
-    """gate_w is handed to the kernel with zero columns up to a multiple of 8."""
+    """The norm launch keeps gate_w in shared memory with zero columns up to a
+    power of two (here 2 heads, a QKV product 384 columns wide)."""
     d, h, dh = 256, 2, 64
     g = torch.Generator(device=cuda).manual_seed(9)
     for dtype in (torch.float32, torch.bfloat16):
@@ -163,7 +171,90 @@ def test_attention_block_with_a_head_count_that_is_no_multiple_of_eight(cuda):
                  attn_norm=(1 + randn(d, s=0.1).float()).to(dtype))
         got = ab.fused_attention_block(x, rope=None, heads=h, n_valid=50, **w)
         want = ab.fused_attention_block_ref(x, rope=None, heads=h, n_valid=50, **w)
-        _close(got[:, :50], want[:, :50], dtype)
+        _close(got[:, :50], want[:, :50], dtype, BLOCK_TOL)
+
+
+def _block_weights(g, cuda, dtype, d, h, dh=64):
+    def randn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * s).to(dtype)
+
+    return dict(wqkv=randn(d, 3 * h * dh, s=0.05), gate_w=randn(d, h, s=0.05),
+                gate_b=randn(h, s=0.05), wo=randn(h * dh, d, s=0.05),
+                attn_norm=(1 + randn(d, s=0.1).float()).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,rope", [(3, True), (1, False), (5, True)])
+def test_attention_block_with_odd_head_counts(cuda, dtype, h, rope):
+    """An odd head count: the QKV product (192·h columns) ends inside a column
+    tile and its head boxes straddle q, k and v; one head makes the output
+    projection 64 deep."""
+    d, n_valid, n_pad = 256, 100, 128
+    g = torch.Generator(device=cuda).manual_seed(10 + h)
+    x = (torch.randn(3, n_pad, d, generator=g, device=cuda)).to(dtype)
+    x[:, n_valid:] = 0
+    w = _block_weights(g, cuda, dtype, d, h)
+    tables = None
+    if rope:
+        cos, sin = _rope_tables(n_valid, 64, dtype, cuda)
+        tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    got = ab.fused_attention_block(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    want = ab.fused_attention_block_ref(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    _close(got[:, :n_valid], want[:, :n_valid], dtype, BLOCK_TOL)
+
+
+def test_prepared_float32_forms_are_reused_across_calls(cuda):
+    """The forms a model keeps give the same result as forms made for the
+    call, call after call, and a form of the wrong shape is refused."""
+    d, h, hidden, n_valid, n_pad = 512, 8, 2048, 62, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(40, n_pad, d, generator=g, device=cuda)
+    x[:, n_valid:] = 0
+    w = _block_weights(g, cuda, torch.float32, d, h)
+    cos, sin = _rope_tables(n_valid, 64, torch.float32, cuda)
+    tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    forms = (prepare_tf32_weight(w["wqkv"]), prepare_tf32_weight(w["wo"]))
+    made = ab.fused_attention_block(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    for _ in range(2):
+        kept = ab.fused_attention_block(x, rope=tables, heads=h, n_valid=n_valid,
+                                        tf32_weights=forms, **w)
+        assert torch.equal(kept, made)
+    ff = dict(ff_norm=torch.ones(d, device=cuda),
+              w1=torch.randn(d, hidden, generator=g, device=cuda) * 0.05,
+              b1=torch.zeros(hidden, device=cuda),
+              w2=torch.randn(hidden, d, generator=g, device=cuda) * 0.05,
+              b2=torch.zeros(d, device=cuda))
+    ff_forms = (prepare_tf32_weight(ff["w1"]), prepare_tf32_weight(ff["w2"]))
+    assert torch.equal(ab.fused_ff_block(x, tf32_weights=ff_forms, **ff),
+                       ab.fused_ff_block(x, **ff))
+    with pytest.raises(ValueError, match="prepared weight form"):
+        ab.fused_ff_block(x, tf32_weights=ff_forms[::-1], **ff)
+
+
+@pytest.mark.parametrize("axis", ["time", "freq"])
+def test_float32_blocks_at_the_flagship_shapes(cuda, axis):
+    """Both blocks in float32 at the flagship BS-RoFormer's shapes (4 windows:
+    62 sequences of 801 -> 832 tokens, or 801 of 62 -> 64), within 1e-5 of the
+    output scale of their float32 plain versions."""
+    b, n_valid = {"time": (4 * 62, 801), "freq": (4 * 801, 62)}[axis]
+    d, h, hidden = 512, 8, 2048
+    n_pad = -(-n_valid // 64) * 64
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(b, n_pad, d, generator=g, device=cuda)
+    x[:, n_valid:] = 0
+    w = _block_weights(g, cuda, torch.float32, d, h)
+    cos, sin = _rope_tables(n_valid, 64, torch.float32, cuda)
+    tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    got = ab.fused_attention_block(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    want = ab.fused_attention_block_ref(x, rope=tables, heads=h, n_valid=n_valid, **w)
+    _close(got[:, :n_valid], want[:, :n_valid], torch.float32, BLOCK_TOL)
+    del got, want
+    ff = dict(ff_norm=(1 + 0.1 * torch.randn(d, generator=g, device=cuda)),
+              w1=torch.randn(d, hidden, generator=g, device=cuda) * 0.05,
+              b1=torch.randn(hidden, generator=g, device=cuda) * 0.05,
+              w2=torch.randn(hidden, d, generator=g, device=cuda) * 0.05,
+              b2=torch.randn(d, generator=g, device=cuda) * 0.05)
+    _close(ab.fused_ff_block(x, **ff), ab.fused_ff_block_ref(x, **ff), torch.float32, BLOCK_TOL)
 
 
 def test_cuda_wrappers_reject_misaligned_operands(cuda):
