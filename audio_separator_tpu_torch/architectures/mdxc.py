@@ -1,10 +1,10 @@
-"""MDXC architecture separator, RoFormer branch.
+"""MDXC architecture separator: BS/Mel-Band RoFormer and TFC-TDF v3 (MDX23C).
 
-Port of ``audio_separator_tpu/architectures/mdxc.py`` for BS/Mel-Band
-RoFormer checkpoints: the same chunk geometry, Hamming-window overlap-add,
-output-single-stem fetch plan, residual secondary and pitch-shift semantics,
-with the model as a PyTorch module on the separator's device. The TFC-TDF
-(MDX23C) branch is a later slice.
+Port of ``audio_separator_tpu/architectures/mdxc.py``: the same chunk
+geometry, Hamming-window overlap-add (RoFormer) and unfold with uniform
+windows (TFC-TDF), output-single-stem fetch plan, residual secondary,
+pitch-shift semantics and cross-job batching (``separate_batch``), with the
+model as a PyTorch module on the separator's device.
 """
 
 from __future__ import annotations
@@ -16,10 +16,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models.convert import convert_roformer, load_jax_params, load_torch_state_dict
-from ..models.roformer import Roformer, RoformerConfig
+from ..models.convert import (
+    convert_roformer,
+    convert_tfc_tdf,
+    load_jax_params,
+    load_jax_tfc_tdf_params,
+    load_torch_state_dict,
+)
+from ..models.roformer import Roformer
+from ..models.tfc_tdf import TFCTDFNet, build_tfc_tdf_config
 from ..ops import spec as spec_ops
-from ..ops.demix import overlap_add_demix
+from ..ops.demix import demix_jobs, overlap_add_demix
 from ..ops.resample import change_pitch_semitones_np
 from ..ops.stft import hamming_window
 from ..separator.common import BaseSeparator
@@ -50,8 +57,8 @@ class MDXCSeparator(BaseSeparator):
             or "roformer" in (self.model_path or "").lower()
             or "roformer" in (self.model_name or "").lower()
         )
-        self.model_cfg: Optional[RoformerConfig] = None
-        self.model: Optional[Roformer] = None
+        self.model_cfg = None
+        self.model: Optional[torch.nn.Module] = None
         self.loading_result = None
         self.load_model()
 
@@ -66,12 +73,16 @@ class MDXCSeparator(BaseSeparator):
     # ----------------------------------------------------------------- model
 
     def load_model(self):
-        """checkpoint → ``convert_roformer`` → ``load_jax_params`` → the module
-        on the separator's device, in the compute dtype."""
+        """checkpoint → parameter tree → the module on the separator's device,
+        in the compute dtype: ``convert_roformer`` → ``load_jax_params`` for a
+        RoFormer, ``convert_tfc_tdf`` → ``load_jax_tfc_tdf_params`` for
+        TFC-TDF."""
         if not self.is_roformer:
-            raise NotImplementedError(
-                "MDXC TFC-TDF (MDX23C) checkpoints are not ported to PyTorch yet "
-                "(ROADMAP, Queue A: the TFC-TDF unfold path)")
+            self.model_cfg = build_tfc_tdf_config(self.model_data)
+            tree = convert_tfc_tdf(load_torch_state_dict(self.model_path), self.model_cfg)
+            model = load_jax_tfc_tdf_params(TFCTDFNet(self.model_cfg), tree)
+            self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+            return
         t0 = time.perf_counter()
         self.model_cfg = build_roformer_config(self.model_data, self.model_path or "")
         tree = convert_roformer(load_torch_state_dict(self.model_path), self.model_cfg)
@@ -105,6 +116,52 @@ class MDXCSeparator(BaseSeparator):
         mix = spec_ops.normalize(mix, self.normalization_threshold, self.amplification_threshold)
         source = self.demix(mix)
         return self._finalize_outputs(source, custom_output_names)
+
+    def separate_batch(self, audio_file_paths: list,
+                       custom_output_names_list: Optional[list] = None) -> list:
+        """Separate several files through one engine pass (cross-job window
+        batching, ``ops/demix.demix_jobs``). Returns one output-file list per
+        input.
+
+        Falls back to sequential :meth:`separate` for TFC-TDF (unfold path),
+        pitch shift, a single file, or any track under the 10 s segment-size
+        override.
+
+        Each file's stems are written at that file's own input bit depth. The
+        JAX package writes every file of a batch at the last file's depth
+        (ROADMAP Queue C2); this is a deliberate divergence from it.
+        """
+        names = custom_output_names_list or [None] * len(audio_file_paths)
+        if len(names) != len(audio_file_paths):
+            raise ValueError(
+                f"custom_output_names_list has {len(names)} entries for "
+                f"{len(audio_file_paths)} files")
+        batchable = (self.is_roformer and self.pitch_shift == 0
+                     and len(audio_file_paths) > 1)
+        prepared, depths = [], []
+        if batchable:
+            for path in audio_file_paths:
+                self.audio_file_path = path
+                mix = self.prepare_mix(path)
+                if mix.shape[1] / self.sample_rate < 10.0:
+                    batchable = False
+                    break
+                depths.append(self.input_bit_depth)
+                prepared.append(spec_ops.normalize(
+                    mix, self.normalization_threshold, self.amplification_threshold))
+        if not batchable:
+            return [self.separate(p, n) for p, n in zip(audio_file_paths, names)]
+
+        sources = self._demix_batch(prepared)
+        outputs = []
+        for path, source, custom, depth in zip(audio_file_paths, sources, names, depths):
+            self.primary_source = None
+            self.secondary_source = None
+            self.audio_file_path = path
+            self.audio_file_base = os.path.splitext(os.path.basename(path))[0]
+            self.input_bit_depth = depth
+            outputs.append(self._finalize_outputs(source, custom))
+        return outputs
 
     def _finalize_outputs(self, source, custom_output_names: Optional[Dict]):
         output_files = []
@@ -157,7 +214,10 @@ class MDXCSeparator(BaseSeparator):
         return int(inference.get("dim_t", self.segment_size))
 
     def _model_fn(self):
-        model, stereo = self.model, self.model_cfg.stereo
+        model = self.model
+        if not self.is_roformer:
+            return model  # (B, C, chunk) -> (B, S, C, chunk)
+        stereo = self.model_cfg.stereo
 
         def fn(chunks: torch.Tensor) -> torch.Tensor:  # (B, C, chunk) -> (B, S, C, chunk)
             x = chunks if stereo else chunks.reshape(-1, 1, chunks.shape[-1])
@@ -198,28 +258,11 @@ class MDXCSeparator(BaseSeparator):
         step = chunk if desired_step <= 0 else min(desired_step, chunk)
         return chunk, step, hamming_window(chunk).numpy()
 
-    def demix(self, mix: np.ndarray):
-        orig_mix = mix
-        sample_rate = self.sample_rate
-        if self.pitch_shift != 0:
-            mix, sample_rate = change_pitch_semitones_np(
-                mix, self.sample_rate, semitone_shift=-self.pitch_shift)
-
-        num_stems = len(self.stem_list)
-        fetch_stems, kept_names = self._fetch_plan(num_stems)
-        chunk, step, window = self._roformer_geometry()
-        out = overlap_add_demix(
-            self._model_fn(), mix, chunk, step, window, num_stems=num_stems,
-            batch_size=max(1, int(self.batch_size)), fetch_stems=fetch_stems,
-            device=self.device)
-
+    def _sources_from_out(self, out, kept_names, num_stems, orig_mix):
+        """Engine output → the job's sources dict or array: stem naming and
+        the residual secondary of target-instrument models."""
         names = kept_names if num_stems > 1 else [self.stem_list[0]]
-        sources = {}
-        for i, name in enumerate(names):
-            value = out[i]
-            if self.pitch_shift != 0:
-                value = self._pitch_fix(value, sample_rate, orig_mix)
-            sources[name] = np.asarray(value, dtype=np.float32)
+        sources = {name: np.asarray(out[i], dtype=np.float32) for i, name in enumerate(names)}
         if num_stems > 1:
             # Multi-stem models never take the residual secondary.
             return sources
@@ -233,6 +276,63 @@ class MDXCSeparator(BaseSeparator):
                 self.secondary_stem_name: orig_mix - primary,
             }
         return primary
+
+    def _demix_batch(self, mixes: list) -> list:
+        """K prepared mixes → K sources through one engine pass
+        (``ops/demix.demix_jobs``). Callers guarantee the RoFormer path with
+        no pitch shift; stem naming and the residual secondary apply per job."""
+        num_stems = len(self.stem_list)
+        fetch_stems, kept_names = self._fetch_plan(num_stems)
+        chunk, step, window = self._roformer_geometry()
+        outs = demix_jobs(
+            self._model_fn(), mixes, chunk, step, window, num_stems=num_stems,
+            batch_size=max(1, int(self.batch_size)), fetch_stems=fetch_stems,
+            device=self.device)
+        return [self._sources_from_out(out, kept_names, num_stems, mix)
+                for out, mix in zip(outs, mixes)]
+
+    def demix(self, mix: np.ndarray):
+        orig_mix = mix
+        sample_rate = self.sample_rate
+        if self.pitch_shift != 0:
+            mix, sample_rate = change_pitch_semitones_np(
+                mix, self.sample_rate, semitone_shift=-self.pitch_shift)
+
+        num_stems = len(self.stem_list)
+        fetch_stems, kept_names = self._fetch_plan(num_stems)
+        if self.is_roformer:
+            chunk, step, window = self._roformer_geometry()
+            out = overlap_add_demix(
+                self._model_fn(), mix, chunk, step, window, num_stems=num_stems,
+                batch_size=max(1, int(self.batch_size)), fetch_stems=fetch_stems,
+                device=self.device)
+        else:
+            audio_section = self.model_data.get("audio") or {}
+            chunk = int(audio_section.get("hop_length", 1024)) * (self._segment_size() - 1)
+            out = self._demix_unfold(mix, chunk, chunk // int(self.overlap), num_stems,
+                                     fetch_stems=fetch_stems)
+        if self.pitch_shift != 0:
+            out = [self._pitch_fix(value, sample_rate, orig_mix) for value in out]
+        return self._sources_from_out(out, kept_names, num_stems, orig_mix)
+
+    def _demix_unfold(self, mix: np.ndarray, chunk: int, hop_size: int, num_stems: int,
+                      fetch_stems: Optional[tuple] = None):
+        """MDX23C path: a lead of ``chunk - hop_size`` zeros and a tail, a
+        uniform window at explicit positions every ``hop_size``, the
+        accumulated window count as the divider, then the crop
+        ``[lead : lead + total]``."""
+        c, total = mix.shape
+        pad_size = hop_size - (total - chunk) % hop_size
+        lead = chunk - hop_size
+        padded = np.concatenate(
+            [np.zeros((c, lead), np.float32), mix.astype(np.float32),
+             np.zeros((c, pad_size + lead), np.float32)], axis=1)
+        positions = np.arange(0, padded.shape[1] - chunk + 1, hop_size, dtype=np.int64)
+        out = overlap_add_demix(
+            self._model_fn(), padded, chunk, hop_size, np.ones(chunk, np.float32),
+            num_stems=num_stems, batch_size=max(1, int(self.batch_size)),
+            positions=positions, fetch_stems=fetch_stems, device=self.device)
+        return out[..., lead : lead + total]
 
     def _pitch_fix(self, source: np.ndarray, sr_pitched: int, orig_mix: np.ndarray):
         source = change_pitch_semitones_np(source, sr_pitched,

@@ -202,12 +202,43 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     return module
 
 
-def load_jax_htdemucs_params(module: nn.Module, tree: Any) -> nn.Module:
-    """Copy the JAX package's HTDemucs parameter tree (nested dicts of numpy
-    arrays keyed by the upstream state-dict path split on ``.``) into an
-    ``HTDemucs`` module. Strict: every key of the tree is consumed and every
-    parameter of the module is set."""
+def _load_path_tree(module: nn.Module, tree: Any) -> nn.Module:
+    """Strict ``load_state_dict`` of a tree keyed by the state-dict path split
+    on ``.``: every key of the tree is consumed and every parameter and
+    buffer of the module is set."""
     state = {key: torch.from_numpy(np.ascontiguousarray(value, np.float32))
              for key, value in flatten_tree(tree).items()}
     module.load_state_dict(state, strict=True)
     return module
+
+
+def load_jax_htdemucs_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX package's HTDemucs parameter tree (nested dicts of numpy
+    arrays keyed by the upstream state-dict path split on ``.``) into an
+    ``HTDemucs`` module, strictly."""
+    return _load_path_tree(module, tree)
+
+
+def tree_from_state_dict(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``'a.b.c'`` keys → nested tree (drops ``num_batches_tracked`` buffers)."""
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        node = tree
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(value)
+    return tree
+
+
+def convert_tfc_tdf(sd: Dict[str, np.ndarray], cfg=None) -> Dict[str, Any]:
+    """TFC-TDF v3 checkpoints map directly to a path-addressed tree."""
+    return tree_from_state_dict(sd)
+
+
+def load_jax_tfc_tdf_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX package's TFC-TDF parameter tree (``convert_tfc_tdf``'s
+    layout) into a ``TFCTDFNet``, strictly."""
+    return _load_path_tree(module, tree)

@@ -20,7 +20,6 @@ too — as the JAX package computes both outside any Pallas kernel.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from dataclasses import dataclass, fields
@@ -32,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.precision import full_float32
 from ..ops.stft import hann_window, istft, stft
 
 
@@ -82,20 +82,6 @@ def config_from_kwargs(kwargs: Dict[str, Any], args: tuple = ()) -> HTDemucsConf
     if "segment" in picked:
         picked["segment"] = float(picked["segment"])
     return HTDemucsConfig(sources=sources, **picked)
-
-
-@contextlib.contextmanager
-def full_float32():
-    """Keep cuDNN convolutions and cuBLAS products of the enclosed float32
-    work in full float32, whatever the process-wide TF32 switches say (cuDNN
-    allows TF32 by default; it keeps about three decimal digits)."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.allow_tf32, matmul.allow_tf32)
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 # --------------------------------------------------------------------------

@@ -106,3 +106,51 @@ def overlap_add_demix(
     if post_device_fn is not None:
         return post_device_fn(acc).cpu().numpy()
     return acc[..., :total].cpu().numpy()
+
+
+def demix_jobs(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],
+    mixes: list,
+    chunk: int,
+    step: int,
+    window: np.ndarray,
+    num_stems: int,
+    batch_size: int,
+    fetch_stems: Optional[tuple] = None,
+    device="cuda",
+) -> list:
+    """Cross-job window batching: demix K same-geometry mixes ``(C, T_i)`` in
+    one engine pass and return per-job ``(num_stems, C, T_i)`` stems.
+
+    The mixes lie end to end in one buffer, each spanning ``max(T_i, chunk)``
+    so that a clamped window never reads a neighbour; the positions are each
+    job's own window grid offset by its start, and the normaliser is the
+    shared window sum. No window and no overlap-add crosses a job boundary,
+    so each job's slice is its solo :func:`overlap_add_demix` result, while
+    batch padding and the fetch are shared by the jobs.
+
+    The JAX package groups jobs by peak when its host-device link transfers
+    are quantised; this port has no quantised transfer, so every job always
+    shares one pass.
+    """
+    if not mixes:
+        return []
+    c = mixes[0].shape[0]
+    offs, lens, pos_parts = [], [], []
+    cur = 0
+    for m in mixes:
+        if m.shape[0] != c:
+            raise ValueError("demix_jobs: mixes must share channel count")
+        t = int(m.shape[1])
+        offs.append(cur)
+        lens.append(t)
+        pos_parts.append(window_positions(t, chunk, step) + cur)
+        cur += max(t, chunk)
+    mix_cat = np.zeros((c, cur), dtype=np.float32)
+    for m, off, t in zip(mixes, offs, lens):
+        mix_cat[:, off : off + t] = m
+    out = overlap_add_demix(
+        model_fn, mix_cat, chunk, step, window, num_stems=num_stems,
+        batch_size=batch_size, positions=np.concatenate(pos_parts),
+        fetch_stems=fetch_stems, device=device)
+    return [out[..., off : off + t] for off, t in zip(offs, lens)]

@@ -61,3 +61,30 @@ def istft(spec: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor,
                       window=window.to(spec.device, torch.float32),
                       center=center, length=length)
     return out.reshape(*lead, out.shape[-1])
+
+
+def stft_real_packed(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor,
+                     dim_f: int) -> torch.Tensor:
+    """MDX-style packed STFT: ``(..., C, L)`` → ``(..., C*2, dim_f, T)``
+    float32, the channel axis interleaved per input channel as
+    ``[c0_re, c0_im, c1_re, c1_im]`` and cropped to the lowest ``dim_f``
+    bins."""
+    spec = stft(x, n_fft, hop, window)  # (..., C, F, T)
+    packed = torch.stack([spec.real, spec.imag], dim=-3)  # (..., C, 2, F, T)
+    shape = packed.shape
+    packed = packed.reshape(*shape[:-4], shape[-4] * 2, shape[-2], shape[-1])
+    return packed[..., :dim_f, :]
+
+
+def istft_real_packed(packed: torch.Tensor, n_fft: int, hop: int,
+                      window: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`stft_real_packed`: ``(..., C*2, dim_f, T)`` is
+    zero-padded on the frequency axis to ``n_fft//2 + 1`` bins and inverted
+    to ``(..., C, L)``."""
+    n_bins = n_fft // 2 + 1
+    *batch, c2, dim_f, t = packed.shape
+    if dim_f < n_bins:
+        packed = torch.nn.functional.pad(packed, (0, 0, 0, n_bins - dim_f))
+    packed = packed.float().reshape(*batch, c2 // 2, 2, n_bins, t)
+    spec = torch.complex(packed[..., 0, :, :], packed[..., 1, :, :])
+    return istft(spec, n_fft, hop, window)

@@ -1,11 +1,13 @@
 """The public ``Separator`` facade of the PyTorch/CUDA port.
 
 Port of ``audio_separator_tpu/separator/separator.py``: the constructor,
-device setup, ``load_model`` (registry lookup, model data resolution,
-architecture instantiation), ``separate`` and ``_separate_file``. The
-MDXC/RoFormer family and Demucs v4 (HTDemucs bags) are ported; the other
-families, Demucs v3, ensembles, chunked processing, ``warmup`` and
-``separate_batch`` are later slices (ROADMAP, Queue A).
+device setup, the registry's listing and download methods, ``load_model``
+(registry lookup, model data resolution, architecture instantiation),
+``separate``, ``separate_batch``, ``warmup`` and chunked processing
+(``chunk_duration``). The MDXC family (BS/Mel RoFormer and TFC-TDF, MDX23C)
+and Demucs v4 (HTDemucs bags) are ported; MDX, VR, Demucs v3, ensembles and
+the device mesh are not yet (ROADMAP, Queue A), and loading or asking for
+them raises ``NotImplementedError``.
 
 Computation runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, ``device=None`` raises.
@@ -16,19 +18,27 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
+import shutil
+import tempfile
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import __version__
 from ..io import audio as audio_io
-from .registry import ModelRegistry
 from ..io.yaml_config import read_yaml_config
+from ..utils.profiling import device_trace
+from .chunking import AudioChunker
+from .registry import ModelRegistry, get_model_hash
 
 DEFAULT_MODEL = "model_bs_roformer_ep_317_sdr_12.9755.ckpt"
 
 _AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".opus", ".m4a", ".aiff", ".ac3")
+
+_PORTED_TYPES = ("MDXC", "Demucs")
 
 
 class Separator:
@@ -49,9 +59,18 @@ class Separator:
         sample_rate=44100,
         use_soundfile=False,
         use_autocast=False,
+        use_directml=False,
+        chunk_duration=None,
+        mdx_params=None,
+        vr_params=None,
         demucs_params=None,
         mdxc_params=None,
+        ensemble_algorithm=None,
+        ensemble_weights=None,
+        ensemble_preset=None,
         info_only=False,
+        trace_dir=None,
+        use_mesh=False,
         device=None,
     ):
         self.logger = logging.getLogger(__name__)
@@ -91,8 +110,27 @@ class Separator:
         self.sample_rate = int(sample_rate)
         self.use_soundfile = use_soundfile
         self.use_autocast = use_autocast
+        if use_directml:
+            self.logger.warning("use_directml is ignored: this build runs on CUDA or the CPU")
+        if (ensemble_algorithm is not None or ensemble_weights is not None
+                or ensemble_preset is not None):
+            raise NotImplementedError(
+                "ensembling is not ported to PyTorch yet (ROADMAP, Queue A item 14)")
+        if use_mesh:
+            raise NotImplementedError(
+                "multi-device execution (use_mesh) is not ported to PyTorch yet "
+                "(ROADMAP, Queue A item 16)")
+        self.chunk_duration = chunk_duration
+        self.trace_dir = trace_dir
 
         self.arch_specific_params = {
+            "MDX": mdx_params if mdx_params is not None else {
+                "hop_length": 1024, "segment_size": 256, "overlap": 0.25,
+                "batch_size": 4, "enable_denoise": False},
+            "VR": vr_params if vr_params is not None else {
+                "batch_size": 4, "window_size": 512, "aggression": 5,
+                "enable_tta": False, "enable_post_process": False,
+                "post_process_threshold": 0.2, "high_end_process": False},
             "Demucs": demucs_params if demucs_params is not None else {
                 "segment_size": "Default", "shifts": 2, "overlap": 0.25,
                 "segments_enabled": True},
@@ -104,6 +142,8 @@ class Separator:
         self.registry = ModelRegistry(self.model_file_dir, self.logger)
         self.model_instance = None
         self.model_filename = None
+        self.model_is_uvr_vip = False
+        self.model_friendly_name = None
         self.device = None
         if not info_only:
             self.setup_inferencing_device(device)
@@ -127,6 +167,72 @@ class Separator:
             raise ValueError(f"unsupported device {dev} (cuda or cpu)")
         self.device = dev
         return dev
+
+    # --------------------------------------------------------------- registry
+
+    def list_supported_model_files(self):
+        return self.registry.list_supported_model_files()
+
+    def download_model_files(self, model_filename: str):
+        result = self.registry.download_model_files(model_filename)
+        self.model_friendly_name = result[2]
+        self.model_is_uvr_vip = "VIP" in (self.model_friendly_name or "")
+        self.print_uvr_vip_message()
+        return result
+
+    def get_model_hash(self, model_path: str) -> str:
+        return get_model_hash(model_path)
+
+    def print_uvr_vip_message(self):
+        if self.model_is_uvr_vip:
+            self.logger.warning(
+                f"The model: '{self.model_friendly_name}' is a VIP model, intended by "
+                f"Anjok07 for access by paying subscribers only.")
+            self.logger.warning(
+                "If you are not already subscribed, please consider supporting the "
+                "developer of UVR, Anjok07 by subscribing here: https://patreon.com/uvr")
+
+    def get_simplified_model_list(self, filter_sort_by: Optional[str] = None):
+        """Flat ``{filename: {Name, Type, Stems, SDR}}`` listing, sorted by
+        ``name`` or ``filename``, or filtered to a stem and sorted by its SDR."""
+        simplified = {}
+        for model_type, models in self.list_supported_model_files().items():
+            for name, data in models.items():
+                scores = data.get("scores") or {}
+                target_stem = data.get("target_stem")
+                stems_with_scores, stem_sdr = [], {}
+                for stem in data.get("stems") or []:
+                    stem_scores = scores.get(stem, {})
+                    display = f"{stem}*" if stem == target_stem else stem
+                    if isinstance(stem_scores, dict) and "SDR" in stem_scores:
+                        sdr = round(stem_scores["SDR"], 1)
+                        stems_with_scores.append(f"{display} ({sdr})")
+                        stem_sdr[stem.lower()] = sdr
+                    else:
+                        stems_with_scores.append(display)
+                        stem_sdr[stem.lower()] = None
+                if not stems_with_scores:
+                    stems_with_scores = ["Unknown"]
+                    stem_sdr["unknown"] = None
+                simplified[data["filename"]] = {
+                    "Name": name, "Type": model_type,
+                    "Stems": stems_with_scores, "SDR": stem_sdr,
+                }
+
+        if not filter_sort_by:
+            return simplified
+        if filter_sort_by == "name":
+            return dict(sorted(simplified.items(), key=lambda x: x[1]["Name"]))
+        if filter_sort_by == "filename":
+            return dict(sorted(simplified.items()))
+        key = filter_sort_by.lower()
+        filtered = {k: v for k, v in simplified.items() if key in v["SDR"]}
+
+        def sort_key(item):
+            sdr = item[1]["SDR"][key]
+            return (0 if sdr is None else 1, sdr if sdr is not None else float("-inf"))
+
+        return dict(sorted(filtered.items(), key=sort_key, reverse=True))
 
     # ------------------------------------------------------------------ model
 
@@ -162,16 +268,16 @@ class Separator:
         start = time.perf_counter()
 
         model_filename, model_type, _friendly, model_path, yaml_config_filename = (
-            self.registry.download_model_files(model_filename))
+            self.download_model_files(model_filename))
         model_name = model_filename.split(".")[0]
         if model_path.lower().endswith(".yaml"):
             yaml_config_filename = model_path
         model_data = self._resolve_model_data(model_path, yaml_config_filename)
 
-        if model_type not in self.arch_specific_params:
+        if model_type not in _PORTED_TYPES:
             raise NotImplementedError(
                 f"model type {model_type} is not ported to PyTorch yet "
-                f"(ROADMAP, Queue A); MDXC/RoFormer and Demucs v4 models are")
+                f"(ROADMAP, Queue A); MDXC (RoFormer, MDX23C) and Demucs v4 models are")
         if model_type == "Demucs":
             from ..architectures.demucs import DemucsSeparator as separator_class
         else:
@@ -199,6 +305,18 @@ class Separator:
             common_config=common_params,
             arch_config=self.arch_specific_params[model_type])
         self.logger.info(f"Load model duration: {time.perf_counter() - start:.2f}s")
+
+    def download_model_and_data(self, model_filename: str):
+        """Download a model and its config or data without loading it."""
+        self.logger.info(f"Downloading model {model_filename}...")
+        model_filename, model_type, friendly_name, model_path, yaml_config_filename = (
+            self.download_model_files(model_filename))
+        if model_path.lower().endswith(".yaml"):
+            yaml_config_filename = model_path
+        model_data = self._resolve_model_data(model_path, yaml_config_filename)
+        self.logger.info(
+            f"Model downloaded, type: {model_type}, friendly name: {friendly_name}, "
+            f"model_path: {model_path}, model_data: {len(model_data)} items")
 
     # --------------------------------------------------------------- separate
 
@@ -233,11 +351,70 @@ class Separator:
                     self.logger.error(f"Failed to process file {path}: {exc}")
         return output_files
 
+    def separate_batch(self, audio_file_paths: List[str],
+                       custom_output_names_list: Optional[List] = None) -> List[List[str]]:
+        """Separate several files, sharing one engine pass where the loaded
+        architecture batches across jobs (the MDXC RoFormer branch,
+        ``ops/demix.demix_jobs``); otherwise, and whenever ``chunk_duration``
+        is set, one :meth:`separate` a file. Returns one output-file list per
+        input path, in order."""
+        if not self.model_instance:
+            raise ValueError("Load a model before calling separate_batch.")
+        names = custom_output_names_list or [None] * len(audio_file_paths)
+        if len(names) != len(audio_file_paths):
+            raise ValueError("custom_output_names_list length mismatch")
+        batch_fn = getattr(self.model_instance, "separate_batch", None)
+        # chunk_duration bounds what one engine pass holds; the batch path
+        # would run whole tracks and skip the split, so it goes file by file.
+        if batch_fn is not None and len(audio_file_paths) > 1 and self.chunk_duration is None:
+            with device_trace(self.trace_dir, self.logger):
+                outputs = batch_fn(audio_file_paths, names)
+            self.model_instance.clear_file_specific_paths()
+            return outputs
+        return [self._separate_file(p, n) for p, n in zip(audio_file_paths, names)]
+
+    def warmup(self, seconds: float = 8.0) -> float:
+        """Run the loaded model once on a seeded synthetic track of
+        ``seconds`` through :meth:`separate` (chunking included), so that the
+        first user request does not pay the first call's costs (kernel
+        builds and loads, cuDNN and cuFFT plans, allocator growth). Outputs
+        go to a temporary directory and are discarded. Returns the elapsed
+        seconds."""
+        if not self.model_instance:
+            raise ValueError("Load a model before warming up.")
+        start = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="audsep_warmup_") as td:
+            path = os.path.join(td, "warmup.wav")
+            noise = (np.random.default_rng(0).standard_normal(
+                (2, max(1, int(seconds * self.sample_rate)))) * 0.05).astype(np.float32)
+            audio_io.save_audio(path, noise, self.sample_rate)
+            prev_output_dir = self.output_dir
+            self.output_dir = td
+            self.model_instance.output_dir = td
+            try:
+                self.separate(path)
+            finally:
+                self.output_dir = prev_output_dir
+                self.model_instance.clear_file_specific_paths()
+                self.model_instance.output_dir = prev_output_dir
+        elapsed = time.perf_counter() - start
+        self.logger.info(f"Warmup separation took {elapsed:.1f}s ({seconds:.0f}s synthetic track)")
+        return elapsed
+
     def _separate_file(self, audio_file_path: str, custom_output_names=None) -> List[str]:
+        if self.chunk_duration is not None:
+            chunker = AudioChunker(self.chunk_duration, self.logger)
+            if chunker.should_chunk(audio_file_path):
+                self.logger.info(
+                    f"File exceeds chunk size {self.chunk_duration}s, using chunked processing")
+                return self._process_with_chunking(audio_file_path, custom_output_names)
+
         self.logger.info(f"Starting separation process for audio_file_path: {audio_file_path}")
         start = time.perf_counter()
-        output_files = self.model_instance.separate(audio_file_path, custom_output_names)
+        with device_trace(self.trace_dir, self.logger):
+            output_files = self.model_instance.separate(audio_file_path, custom_output_names)
         self.model_instance.clear_file_specific_paths()
+        self.print_uvr_vip_message()
         elapsed = time.perf_counter() - start
         self.logger.info(f"Separation duration: {elapsed:.2f}s")
         try:
@@ -247,3 +424,52 @@ class Separator:
         if info.frames > 0 and info.sample_rate > 0 and elapsed > 0:
             self.logger.info(f"Real-time factor: {info.frames / info.sample_rate / elapsed:.1f}x")
         return output_files
+
+    def _process_with_chunking(self, audio_file_path: str, custom_output_names=None) -> List[str]:
+        """Split into ``chunk_duration`` pieces (float32 WAV intermediates),
+        separate each, and merge each stem's pieces in order."""
+        temp_dir = tempfile.mkdtemp(prefix="audio-separator-chunks-")
+        try:
+            chunker = AudioChunker(self.chunk_duration, self.logger)
+            chunk_paths = chunker.split_audio(audio_file_path, temp_dir)
+            chunks_by_stem: Dict[str, List[str]] = {}
+
+            for i, chunk_path in enumerate(chunk_paths):
+                self.logger.info(f"Processing chunk {i + 1}/{len(chunk_paths)}: {chunk_path}")
+                original_chunk_duration = self.chunk_duration
+                original_output_dir = self.output_dir
+                original_model_output_dir = self.model_instance.output_dir
+                self.chunk_duration = None
+                self.output_dir = temp_dir
+                self.model_instance.output_dir = temp_dir
+                try:
+                    outputs = self._separate_file(chunk_path)
+                    for stem_index, stem_path in enumerate(outputs):
+                        match = re.search(r"_\(([^)]+)\)", os.path.basename(stem_path))
+                        # Positional keys stay stable across chunks, so an
+                        # unmatched output still merges per stem.
+                        stem_name = match.group(1) if match else f"stem_{stem_index}"
+                        abs_path = (stem_path if os.path.isabs(stem_path)
+                                    else os.path.join(temp_dir, stem_path))
+                        chunks_by_stem.setdefault(stem_name, []).append(abs_path)
+                finally:
+                    self.chunk_duration = original_chunk_duration
+                    self.output_dir = original_output_dir
+                    self.model_instance.output_dir = original_model_output_dir
+
+            base_name = os.path.splitext(os.path.basename(audio_file_path))[0]
+            output_files = []
+            for stem_name in sorted(chunks_by_stem):
+                paths = chunks_by_stem[stem_name]
+                if custom_output_names and stem_name in custom_output_names:
+                    output_filename = custom_output_names[stem_name]
+                else:
+                    output_filename = f"{base_name}_({stem_name})"
+                output_path = os.path.join(
+                    self.output_dir or ".", f"{output_filename}.{self.output_format.lower()}")
+                self.logger.info(f"Merging {len(paths)} chunks for stem: {stem_name}")
+                chunker.merge_chunks(paths, output_path)
+                output_files.append(output_path)
+            return output_files
+        finally:
+            shutil.rmtree(temp_dir, ignore_errors=True)

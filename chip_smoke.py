@@ -28,21 +28,38 @@ result lines are printed):
    SDR floor 108.95 dB (the 3xTF32 products' condition: within 10 dB of the
    FMA products' 118.95), and 24 launches of each kernel; the full-width HTDemucs
    (seeded random weights) on one batch of 4 segments the same way: SDR floor
-   40 dB per source and 6 launches of the attention kernel;
+   40 dB per source and 6 launches of the attention kernel; the full-width
+   MDX23C (TFC-TDF v3, the published ``model_2_stem_full_band_8k.yaml``
+   geometry, seeded oracle weights) on one batch of 4 windows in float32 with
+   the process-wide cuDNN TF32 switch left on, so that the module's
+   ``full_float32`` scope is what keeps it float32, against the same module on
+   the CPU at a batch of 1: SDR floor 40 dB per stem, with its warm time,
+   TFLOP/s (FLOP counted by ``torch.utils.flop_counter``), peak device
+   memory, and the bf16 forward beside it;
 5. the main paths, each with the launch counts set to 0 just before and read
    just after: a full-width synthetic BS-RoFormer checkpoint in the upstream
    key layout, ``Separator(use_autocast=True).load_model()`` then
    ``.separate()`` of a seeded stereo WAV (two finite stems of the input's
    length), then the same with the default float32 (``use_autocast=False``),
-   each with one more call under torch.profiler for the card's busy time; a
+   each with one more call under torch.profiler for the card's busy time;
+   then, on that float32 separator, ``separate_batch`` of a 16-bit and a
+   24-bit WAV (each output >= 100 dB against its solo ``separate`` and at its
+   input's bit depth), ``warmup(8)``, and the CLI (``utils/cli.main`` in a
+   child process) on the card with and without ``--chunk_duration 10``; a
    full-width synthetic HTDemucs package and its YAML bag,
    ``Separator().load_model("htdemucs.yaml")`` with the default Demucs
-   parameters then ``.separate()`` of the same WAV (four finite stems);
+   parameters then ``.separate()`` of the same WAV (four finite stems); the
+   full-width MDX23C checkpoint under its published file names,
+   ``Separator().load_model("MDX23C-8KFFT-InstVoc_HQ_2.ckpt")`` then
+   ``.separate()`` in float32 and under ``use_autocast=True`` (two finite
+   stems each; the device time split into convolution, norm, elementwise and
+   the rest; bf16's SDR against float32 reported without a floor);
 6. one JSON line describing each kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every float32 comparison (``torch.backends.cuda.matmul`` and
-``torch.backends.cudnn``), so the plain versions run in full float32.
+``torch.backends.cudnn``), so the plain versions run in full float32; the
+MDX23C forward of phase 4 turns the cuDNN switch back on for its card run.
 """
 
 from __future__ import annotations
@@ -89,6 +106,9 @@ def log(msg: str) -> None:
 
 
 def sdr_db(ref, est) -> float:
+    import torch
+
+    ref, est = torch.as_tensor(ref), torch.as_tensor(est)
     num = float((ref.double() ** 2).sum())
     den = float(((ref.double() - est.double()) ** 2).sum())
     return 10 * math.log10(num / max(den, 1e-300))
@@ -461,6 +481,316 @@ def phase_htdemucs_model(att, seed):
     return {"sdr_db": sdrs, "launches": launches, "forward_ms": forward_ms}
 
 
+# model_2_stem_full_band_8k.yaml (UVR mdx_c_configs), the published config of
+# MDX23C-8KFFT-InstVoc_HQ(_2).ckpt, as JSON-flow YAML.
+MDX23C_MODEL = "MDX23C-8KFFT-InstVoc_HQ_2.ckpt"
+MDX23C_CONFIG = "model_2_stem_full_band_8k.yaml"
+MDX23C_MODEL_DATA = {
+    "audio": {"chunk_size": 261120, "dim_f": 4096, "dim_t": 256, "hop_length": 1024,
+              "n_fft": 8192, "num_channels": 2, "sample_rate": 44100, "min_mean_abs": 0.001},
+    "model": {"act": "gelu", "bottleneck_factor": 4, "growth": 128, "norm": "InstanceNorm",
+              "num_blocks_per_scale": 2, "num_channels": 128, "num_scales": 5,
+              "num_subbands": 4, "scale": [2, 2]},
+    "training": {"instruments": ["Vocals", "Instrumental"], "target_instrument": None},
+    "inference": {"batch_size": 1, "dim_t": 256, "num_overlap": 8},
+}
+MDX23C_FLOP_PER_WINDOW = 2.43e12  # torch.utils.flop_counter, one 261120-sample window
+
+
+def mdx23c_state_dict(seed: int) -> dict:
+    """Full-width MDX23C weights in the upstream key layout: the test oracle's
+    default initialisation under ``torch.manual_seed(seed)``."""
+    import torch
+
+    from audio_separator_tpu_torch.models.tfc_tdf import build_tfc_tdf_config
+
+    cfg = build_tfc_tdf_config(MDX23C_MODEL_DATA)
+    torch.manual_seed(seed)
+    oracle = _oracle_class("tfc_tdf_oracle", "TFCTDFNetOracle")(
+        num_subbands=cfg.num_subbands, num_scales=cfg.num_scales, scale=cfg.scale,
+        l=cfg.num_blocks_per_scale, c=cfg.num_channels, g=cfg.growth,
+        bn=cfg.bottleneck_factor, dim_f=cfg.dim_f, num_stems=cfg.num_stems,
+        norm_type=cfg.norm, act_type=cfg.act, audio_channels=cfg.audio_channels)
+    return oracle.state_dict()
+
+
+def phase_mdx23c_model(seed):
+    """Phase 4, MDX23C: the full-width TFC-TDF forward on one batch of 4
+    windows, float32, with the process-wide cuDNN TF32 switch at PyTorch's
+    default (on) so that the module's own ``full_float32`` scope is what keeps
+    it float32; against the same module on the CPU at a batch of 1."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audio_separator_tpu_torch.models.convert import (convert_tfc_tdf,
+                                                          load_jax_tfc_tdf_params)
+    from audio_separator_tpu_torch.models.tfc_tdf import TFCTDFNet, build_tfc_tdf_config
+
+    cfg = build_tfc_tdf_config(MDX23C_MODEL_DATA)
+    chunk = cfg.hop_length * (MDX23C_MODEL_DATA["inference"]["dim_t"] - 1)
+    tree = convert_tfc_tdf({k: v.numpy() for k, v in mdx23c_state_dict(seed).items()})
+    rng = np.random.default_rng(seed)
+    t = np.arange(chunk) / 44100
+    audio = torch.from_numpy((0.2 * np.sin(2 * np.pi * 220 * t)
+                              + 0.05 * rng.standard_normal((4, 2, chunk))).astype(np.float32))
+
+    gpu = load_jax_tfc_tdf_params(TFCTDFNet(cfg), tree).cuda().eval()
+    n_params = sum(p.numel() for p in gpu.parameters())
+    x = audio.cuda()
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out_gpu = gpu(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        forward_ms = cuda_time_ms(lambda: gpu(x), iters=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    out_gpu = out_gpu.cpu()
+    bf16 = gpu.to(torch.bfloat16)
+    forward_bf16_ms = cuda_time_ms(lambda: bf16(x), iters=3)
+    out_bf16 = bf16(x).cpu()
+    del gpu, bf16, x
+    torch.cuda.empty_cache()
+
+    cpu = load_jax_tfc_tdf_params(TFCTDFNet(cfg), tree).eval()
+    with FlopCounterMode(display=False) as counter:
+        t0 = time.perf_counter()
+        out_cpu = cpu(audio[:1])
+        cpu_s = time.perf_counter() - t0
+    flop = counter.get_total_flops()
+    sdrs = [sdr_db(out_cpu[0, i], out_gpu[0, i]) for i in range(cfg.num_stems)]
+    sdrs_bf16 = [sdr_db(out_gpu[:, i], out_bf16[:, i]) for i in range(cfg.num_stems)]
+    tflops = 4 * flop / (forward_ms * 1e-3) / 1e12
+    log(f"[model] full-width MDX23C (TFC-TDF v3, {n_params / 1e6:.1f} M parameters) fp32 "
+        f"under full_float32 (process-wide cuDNN TF32 on), {tuple(audio.shape)} -> "
+        f"{tuple(out_gpu.shape)}: SDR vs CPU plain path (batch row 0) per stem "
+        f"{[round(v, 2) for v in sdrs]} dB (floor {SDR_FLOOR_DB}); card first call "
+        f"{first_s:.3f} s, warm forward {forward_ms:.1f} ms for 4 windows "
+        f"({flop / 1e12:.3f} TFLOP a window by torch.utils.flop_counter, expected "
+        f"{MDX23C_FLOP_PER_WINDOW / 1e12:.2f}; {tflops:.1f} TFLOP/s; FMA bound "
+        f"{4 * flop / PEAK_FLOPS['float32'] * 1e3:.1f} ms), peak device memory {peak_gb:.2f} GiB; "
+        f"bf16 forward {forward_bf16_ms:.1f} ms ({4 * flop / (forward_bf16_ms * 1e-3) / 1e12:.1f}"
+        f" TFLOP/s, bound {4 * flop / PEAK_FLOPS['bfloat16'] * 1e3:.1f} ms), bf16 vs fp32 card "
+        f"SDR {[round(v, 2) for v in sdrs_bf16]} dB; CPU {cpu_s:.1f} s a window; output peak "
+        f"{float(out_cpu.abs().max()):.3f}")
+    if tuple(out_gpu.shape) != (4, cfg.num_stems, 2, chunk):
+        raise AssertionError(f"MDX23C output shape {tuple(out_gpu.shape)}")
+    if not bool(torch.isfinite(out_gpu).all()):
+        raise AssertionError("MDX23C output is not finite")
+    if min(sdrs) < SDR_FLOOR_DB:
+        raise AssertionError(f"MDX23C SDR {sdrs} dB below {SDR_FLOOR_DB}")
+    return {"sdr_db": sdrs, "forward_ms": forward_ms, "forward_bf16_ms": forward_bf16_ms,
+            "flop_per_window": flop, "peak_gb": peak_gb}
+
+
+def write_synthetic_mdx23c(model_dir: str, seed: int) -> None:
+    """The full-width MDX23C checkpoint under the published file name, its
+    published YAML and an empty remote listing, so the registry resolves the
+    model locally."""
+    import torch
+
+    torch.save(mdx23c_state_dict(seed), os.path.join(model_dir, MDX23C_MODEL))
+    with open(os.path.join(model_dir, MDX23C_CONFIG), "w") as f:
+        json.dump(MDX23C_MODEL_DATA, f)  # JSON-flow YAML
+    with open(os.path.join(model_dir, "download_checks.json"), "w") as f:
+        f.write("{}")
+
+
+def phase_mdx23c_separator(seed, seconds, device_label):
+    """Phase 5, MDX23C: ``Separator().load_model(MDX23C_MODEL).separate()`` in
+    float32 and under ``use_autocast=True``."""
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.separator import Separator
+
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        write_synthetic_mdx23c(model_dir, seed)
+        write_s = time.perf_counter() - t0
+        sr = 44100
+        wav = os.path.join(tmp, "mix.wav")
+        mix = write_seeded_wav(wav, seed, seconds, sr)
+
+        result = {}
+        stems = {}
+        for label, autocast in (("float32", False), ("bf16", True)):
+            out_dir = os.path.join(tmp, f"out_{label}")
+            t0 = time.perf_counter()
+            sep = Separator(model_file_dir=model_dir, output_dir=out_dir,
+                            use_autocast=autocast, log_level=logging.WARNING)
+            sep.load_model(MDX23C_MODEL)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            files = sep.separate(wav)
+            wall = time.perf_counter() - t0
+            check_stems(out_dir, files, 2, mix, sr)
+            t0 = time.perf_counter()
+            sep.separate(wav)
+            wall2 = time.perf_counter() - t0
+            prof = profile_separate(sep, wav, tag=f"mdx23c {label}")
+            stems[label] = {f.split("_(")[1].split(")")[0]:
+                            audio_io.load_audio(os.path.join(out_dir, f))[0] for f in files}
+            inst = sep.model_instance
+            log(f"[mdx23c] {device_label}: {seconds:.0f} s stereo WAV, full-width MDX23C "
+                f"({label}), batch {inst.batch_size}, overlap {inst.overlap}, stems "
+                f"{sorted(files)}: first separate {wall:.3f} s ({seconds / wall:.2f}x "
+                f"realtime), second {wall2:.3f} s ({seconds / wall2:.2f}x realtime); "
+                f"load_model {load_s:.1f} s")
+            result[label] = {"wall_s": wall, "wall2_s": wall2, **prof}
+            del sep, inst
+        sdr = {name: sdr_db(stems["float32"][name], stems["bf16"][name])
+               for name in stems["float32"]}
+        log(f"[mdx23c] bf16 stems vs float32 card stems: SDR "
+            f"{ {k: round(v, 2) for k, v in sdr.items()} } dB (no floor); checkpoint write "
+            f"{write_s:.1f} s")
+        result["bf16_vs_float32_sdr_db"] = sdr
+        if sorted(stems["float32"]) != ["Instrumental", "Vocals"]:
+            raise AssertionError(f"MDX23C stems {sorted(stems['float32'])}")
+        return result
+
+
+CLI_CHILD = (
+    "import json, sys\n"
+    "from audio_separator_tpu_torch.ops import attention_block as ab\n"
+    "from audio_separator_tpu_torch.utils import cli\n"
+    "ab.reset_launch_counts()\n"
+    "cli.main(sys.argv[1:])\n"
+    "print('RESULT ' + json.dumps(ab.LAUNCHES))\n")
+
+# A fresh process: load the default model, optionally warmup(seconds), then
+# time two separate() calls of the same WAV.
+FIRST_CALL_CHILD = (
+    "import json, logging, sys, time\n"
+    "import torch\n"
+    "from audio_separator_tpu_torch.separator import Separator\n"
+    "model_dir, out_dir, wav, warm = sys.argv[1:5]\n"
+    "sep = Separator(model_file_dir=model_dir, output_dir=out_dir, log_level=logging.WARNING)\n"
+    "sep.load_model()\n"
+    "times = {'warmup_s': sep.warmup(float(warm)) if float(warm) > 0 else None}\n"
+    "for key in ('first_s', 'second_s'):\n"
+    "    t0 = time.perf_counter()\n"
+    "    sep.separate(wav)\n"
+    "    torch.cuda.synchronize()\n"
+    "    times[key] = time.perf_counter() - t0\n"
+    "print('RESULT ' + json.dumps(times))\n")
+
+
+def run_child(code, args, timeout=300):
+    """``code`` in a child Python process on the card; returns its wall time
+    and the JSON it printed after ``RESULT``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code] + [str(a) for a in args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"child {args} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    return wall, json.loads(line[len("RESULT "):])
+
+
+def phase_user_surface(ab, sep, model_dir, tmp, seed, seconds, device_label):
+    """Phase 5, the rest of the user surface over the default RoFormer
+    (float32): ``separate_batch`` of a 16-bit and a 24-bit WAV against each
+    file's solo ``separate``, ``warmup(8)``, and the CLI with and without
+    ``--chunk_duration``. Each path runs with the launch counts set to 0
+    just before it and read just after."""
+    from audio_separator_tpu_torch.io import audio as audio_io
+
+    sr = 44100
+    durations = {"a16.wav": (seconds, 16), "b24.wav": (2 * seconds / 3, 24)}
+    wavs, mixes = [], []
+    for i, (name, (secs, depth)) in enumerate(durations.items()):
+        path = os.path.join(tmp, name)
+        mix = write_seeded_wav(path, seed + 1 + i, secs, sr, bit_depth=depth)
+        wavs.append(path)
+        mixes.append(mix)
+
+    def stems_of(out_dir, files):
+        return {os.path.basename(f): audio_io.load_audio(os.path.join(out_dir, f))[0]
+                for f in files}
+
+    solo_dir, batch_dir = os.path.join(tmp, "solo"), os.path.join(tmp, "batch")
+    sep.output_dir = sep.model_instance.output_dir = solo_dir
+    solo, solo_walls = [], []
+    for wav in wavs:
+        t0 = time.perf_counter()
+        solo.append(stems_of(solo_dir, sep.separate(wav)))
+        solo_walls.append(time.perf_counter() - t0)
+    sep.output_dir = sep.model_instance.output_dir = batch_dir
+    ab.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch_files = sep.separate_batch(wavs)
+    batch_wall = time.perf_counter() - t0
+    batch_launches = dict(ab.LAUNCHES)
+    worst = math.inf
+    for wav, mix, files, want, (_, depth) in zip(wavs, mixes, batch_files, solo,
+                                                 durations.values()):
+        check_stems(batch_dir, files, 2, mix, sr)
+        got = stems_of(batch_dir, files)
+        for name in files:
+            bits = audio_io.probe(os.path.join(batch_dir, name)).bits_per_sample
+            if bits != depth:
+                raise AssertionError(f"{name}: written at {bits} bits, input had {depth}")
+            worst = min(worst, sdr_db(want[os.path.basename(name)],
+                                         got[os.path.basename(name)]))
+    log(f"[batch] {device_label}: separate_batch of a {durations['a16.wav'][0]:.0f} s 16-bit "
+        f"and a {durations['b24.wav'][0]:.0f} s 24-bit WAV (default RoFormer, float32): "
+        f"{batch_wall:.3f} s against solo separate() {solo_walls[0]:.3f} s + "
+        f"{solo_walls[1]:.3f} s = {sum(solo_walls):.3f} s; worst stem SDR against its solo "
+        f"output {worst:.2f} dB (floor 100); bit depths kept per file; launches {batch_launches}")
+    if worst < 100.0:
+        raise AssertionError(f"separate_batch differs from solo separate: {worst:.2f} dB")
+    if any(batch_launches[name] == 0 for name in ("fused_attention_block", "fused_ff_block")):
+        raise AssertionError(f"separate_batch never launched a kernel: {batch_launches}")
+
+    ab.reset_launch_counts()
+    warm_s = sep.warmup(8)
+    warm_launches = dict(ab.LAUNCHES)
+    log(f"[warmup] warmup(8) on the loaded float32 RoFormer: {warm_s:.3f} s; launches "
+        f"{warm_launches}")
+    if any(warm_launches[name] == 0 for name in ("fused_attention_block", "fused_ff_block")):
+        raise AssertionError(f"warmup never launched a kernel: {warm_launches}")
+
+    cli_runs = {}
+    for label, extra in (("whole", []), ("chunk_duration 10", ["--chunk_duration", "10"])):
+        out_dir = os.path.join(tmp, "cli_" + label.split()[0])
+        wall, launches = run_child(CLI_CHILD, [wavs[0], "--model_file_dir", model_dir,
+                                               "--output_dir", out_dir, "--log_level",
+                                               "warning"] + extra)
+        files = sorted(os.listdir(out_dir))
+        check_stems(out_dir, files, 2, mixes[0], sr)
+        log(f"[cli] {device_label}: python -c 'cli.main(argv)' child, default model on the "
+            f"{seconds:.0f} s WAV ({label}): {wall:.3f} s wall (process start, kernel load, "
+            f"checkpoint load and separation), stems {files}, launches {launches}")
+        if any(launches[name] == 0 for name in ("fused_attention_block", "fused_ff_block")):
+            raise AssertionError(f"the CLI ({label}) never launched a kernel: {launches}")
+        cli_runs[label] = {"wall_s": wall, "launches": launches}
+
+    # The first call of a fresh process against its second, without and with
+    # a warmup of the track's own length (a warmup under 10 s would switch
+    # the instance to the short-track segment size, ROADMAP C6).
+    first_call = {}
+    for warm in (0, seconds):
+        _, times = run_child(FIRST_CALL_CHILD, [model_dir, os.path.join(tmp, "first_call"),
+                                                wavs[0], warm])
+        first_call[f"warmup {warm:.0f} s"] = times
+        warm_msg = "not called" if not warm else f"{times['warmup_s']:.3f} s"
+        log(f"[first call] fresh process, default float32 RoFormer, {seconds:.0f} s WAV, "
+            f"warmup({warm:.0f}) {warm_msg}: first separate {times['first_s']:.3f} s, "
+            f"second {times['second_s']:.3f} s")
+    return {"batch_wall_s": batch_wall, "solo_walls_s": solo_walls, "worst_sdr_db": worst,
+            "warmup_s": warm_s, "cli": cli_runs, "launches": batch_launches,
+            "first_call": first_call}
+
+
 def write_synthetic_demucs_bag(model_dir: str, seed: int) -> None:
     """A full-width HTDemucs package ``<signature>-<sha256 prefix>.th`` (seeded
     weights, the loader's stub class as ``klass``, as a genuine package
@@ -500,12 +830,12 @@ def write_synthetic_demucs_bag(model_dir: str, seed: int) -> None:
         f.write("{}")
 
 
-def _oracle_class():
-    path = os.path.join(REPO, "tests", "torch_oracles", "roformer_oracle.py")
-    spec = importlib.util.spec_from_file_location("roformer_oracle", path)
+def _oracle_class(module_name="roformer_oracle", class_name="RoformerOracle"):
+    path = os.path.join(REPO, "tests", "torch_oracles", f"{module_name}.py")
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.RoformerOracle
+    return getattr(module, class_name)
 
 
 def write_synthetic_model(model_dir: str, seed: int) -> None:
@@ -547,11 +877,33 @@ def write_synthetic_model(model_dir: str, seed: int) -> None:
         f.write("{}")
 
 
-def profile_separate(sep, wav, tag="separator") -> None:
+# Device kernels by what they compute, matched on the kernel name in this
+# order (cuDNN convolutions run implicit-GEMM kernels; norm statistics and
+# other reductions run reduce kernels).
+OP_CATEGORIES = (("fft", ("fft",)),
+                 ("attention", ("flash",)),
+                 ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
+                 ("matmul", ("gemm", "cutlass", "xmma")),
+                 ("norm/reduce", ("reduce", "welford", "norm", "moments")),
+                 ("copy", ("memcpy", "memset", "copy", "cat")),
+                 ("gather/scatter", ("index", "scatter", "gather")),
+                 ("elementwise", ("elementwise",)))
+
+
+def op_category(name: str) -> str:
+    low = name.lower()
+    for category, keys in OP_CATEGORIES:
+        if any(k in low for k in keys):
+            return category
+    return "other"
+
+
+def profile_separate(sep, wav, tag="separator") -> dict:
     """One more warm ``separate`` under torch.profiler: the card's busy time
     (every kernel and copy on the device) against the host wall time of the
-    same call, and the device time by kernel name. The profiler's own cost
-    lengthens this call, so its wall time is not an RTF."""
+    same call, the device time by category (``OP_CATEGORIES``) and by kernel
+    name. The profiler's own cost lengthens this call, so its wall time is not
+    an RTF."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -565,13 +917,21 @@ def profile_separate(sep, wav, tag="separator") -> None:
     busy = sum(e.self_device_time_total for e in device) / 1e3
     log(f"[{tag}] profiled warm call: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms wall "
         f"(idle share {1 - busy / (wall * 1e3):.3f})")
+    categories = {}
+    for e in device:
+        cat = op_category(e.key)
+        categories[cat] = categories.get(cat, 0.0) + e.self_device_time_total / 1e3
+    log(f"[{tag}]   device ms by category: " + ", ".join(
+        f"{k} {v:.1f} ({v / busy:.3f})" for k, v in sorted(categories.items(),
+                                                          key=lambda kv: -kv[1])))
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:16]:
         name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
         log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{name.replace('void ', '')[:80]}")
+    return {"busy_ms": busy, "wall_ms": wall * 1e3, "categories": categories}
 
 
-def write_seeded_wav(path: str, seed: int, seconds: float, sr: int = 44100):
+def write_seeded_wav(path: str, seed: int, seconds: float, sr: int = 44100, bit_depth: int = 16):
     import numpy as np
 
     from audio_separator_tpu_torch.io import audio as audio_io
@@ -581,7 +941,7 @@ def write_seeded_wav(path: str, seed: int, seconds: float, sr: int = 44100):
     t = np.arange(n) / sr
     mix = (0.25 * np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 277 * t)])
            + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
-    audio_io.save_audio(path, mix, sr)
+    audio_io.save_audio(path, mix, sr, bit_depth=bit_depth)
     return mix
 
 
@@ -717,7 +1077,8 @@ def phase_separator(ab, seed, seconds, device_label):
             f"{wall32:.3f} s ({seconds / wall32:.2f}x realtime), second {wall32_2:.3f} s "
             f"({seconds / wall32_2:.2f}x realtime)")
         profile_separate(sep32, wav, tag="separator float32")
-        return {"launches": launches, "wall_s": wall, "wall2_s": wall2}
+        surface = phase_user_surface(ab, sep32, model_dir, tmp, seed, seconds, device_label)
+        return {"launches": launches, "wall_s": wall, "wall2_s": wall2, "surface": surface}
 
 
 def main(argv=None) -> int:
@@ -760,8 +1121,10 @@ def main(argv=None) -> int:
     records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
     model = phase_model(ab, args.seed)
     htdemucs = phase_htdemucs_model(att, args.seed)
+    phase_mdx23c_model(args.seed)
     sep = phase_separator(ab, args.seed, args.seconds, f"{kind} ({smi})")
     demucs = phase_demucs_separator(att, args.seed, args.seconds, f"{kind} ({smi})")
+    phase_mdx23c_separator(args.seed, args.seconds, f"{kind} ({smi})")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)
