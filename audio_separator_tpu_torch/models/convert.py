@@ -242,3 +242,12 @@ def load_jax_tfc_tdf_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the JAX package's TFC-TDF parameter tree (``convert_tfc_tdf``'s
     layout) into a ``TFCTDFNet``, strictly."""
     return _load_path_tree(module, tree)
+
+
+def convert_onnx_params(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+    """An ONNX graph's initializers (``onnx_to_jax``'s params, or
+    ``OnnxToTorch.params``: name → numpy array) → the same names as tensors
+    on ``device``, for ``onnx_torch``'s ``fn(params, *inputs)``. Dtypes are
+    kept; the executor casts each weight to its activation's dtype."""
+    return {name: torch.as_tensor(np.array(value), device=device)
+            for name, value in params.items()}

@@ -154,3 +154,54 @@ def demix_jobs(
         batch_size=batch_size, positions=np.concatenate(pos_parts),
         fetch_stems=fetch_stems, device=device)
     return [out[..., off : off + t] for off, t in zip(offs, lens)]
+
+
+def demix_jobs_layout(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],
+    jobs: list,
+    chunk: int,
+    step: int,
+    num_stems: int,
+    batch_size: int,
+    fetch_stems: Optional[tuple] = None,
+    device="cuda",
+) -> list:
+    """Cross-job window batching for architectures whose demix uses an
+    explicit per-job layout: ``jobs`` is a list of ``(mixture (C, total_i),
+    positions_i (N_i,), windows_i (N_i, chunk), divider_i (total_i,))``
+    tuples, e.g. MDX's trim-padded mixtures with per-position
+    ``np.hanning(actual)`` tail windows and a host divider
+    (``architectures/mdx.py``). Returns each job's full accumulator
+    ``(num_stems, C, total_i)``; callers crop their own trim.
+
+    Each job spans at least its widest window, so a gather never reads a
+    neighbour's samples, and its divider normalises only its own span (ones
+    past its end), so each job's slice is its solo
+    :func:`overlap_add_demix` result."""
+    if not jobs:
+        return []
+    c = jobs[0][0].shape[0]
+    offs, lens, pos_parts, win_parts, div_parts = [], [], [], [], []
+    cur = 0
+    for mixture, positions, windows, divider in jobs:
+        if mixture.shape[0] != c:
+            raise ValueError("demix_jobs_layout: jobs must share channel count")
+        t = int(mixture.shape[1])
+        positions = np.asarray(positions, dtype=np.int64)
+        span = max(t, int(positions.max()) + chunk)
+        offs.append(cur)
+        lens.append(t)
+        pos_parts.append(positions + cur)
+        win_parts.append(np.asarray(windows, dtype=np.float32))
+        div = np.ones(span, dtype=np.float32)
+        div[: len(divider)] = divider
+        div_parts.append(div)
+        cur += span
+    mix_cat = np.zeros((c, cur), dtype=np.float32)
+    for (mixture, *_), off, t in zip(jobs, offs, lens):
+        mix_cat[:, off : off + t] = mixture
+    out = overlap_add_demix(
+        model_fn, mix_cat, chunk, step, np.concatenate(win_parts, axis=0),
+        num_stems=num_stems, batch_size=batch_size, positions=np.concatenate(pos_parts),
+        divider=np.concatenate(div_parts), fetch_stems=fetch_stems, device=device)
+    return [out[..., off : off + t] for off, t in zip(offs, lens)]

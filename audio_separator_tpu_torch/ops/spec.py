@@ -1,8 +1,19 @@
-"""Host-side waveform helpers used by the separators (numpy)."""
+"""Host-side waveform helpers used by the separators (numpy in and out).
+
+Port of the JAX package's ``ops/spec.py``: peak normalisation, shape
+matching, and the spectral inversion of a stem against its mixture
+(``invert_stem``, the MDX secondary under ``invert_using_spec``), whose STFT
+runs in torch on the device given.
+"""
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
+import torch
+
+from .stft import hann_window, istft, stft
 
 
 def normalize(wave: np.ndarray, max_peak: float = 1.0,
@@ -17,6 +28,57 @@ def normalize(wave: np.ndarray, max_peak: float = 1.0,
     return wave
 
 
+_INV_N_FFT = 2048
+_INV_HOP = 1024
+
+
+def _stft2048(wave: np.ndarray, device="cpu") -> np.ndarray:
+    spec = stft(torch.as_tensor(wave.astype(np.float32), device=device), _INV_N_FFT,
+                _INV_HOP, hann_window(_INV_N_FFT, device=device), pad_mode="constant")
+    return spec.cpu().numpy()
+
+
+def _istft2048(spec: np.ndarray, device="cpu") -> np.ndarray:
+    wave = istft(torch.as_tensor(spec, device=device), _INV_N_FFT, _INV_HOP,
+                 hann_window(_INV_N_FFT, device=device))
+    out = wave.cpu().numpy()
+    if out.ndim == 1:
+        out = np.stack([out, out])
+    return out
+
+
+def invert_audio(specs: List[np.ndarray], invert_p: bool = True) -> np.ndarray:
+    """Spectral inversion of a stem against the mixture
+    (ref: spec_utils.invert_audio:557-573)."""
+    ln = min(specs[0].shape[2], specs[1].shape[2])
+    a, b = specs[0][:, :, :ln], specs[1][:, :, :ln]
+    if invert_p:
+        max_mag = np.maximum(np.abs(a), np.abs(b))
+        return b - max_mag * np.exp(1.0j * np.angle(a))
+    # ref else-branch (spec_utils.py:568-570): soften the stem first, then
+    # subtract it from the mixture.
+    b = reduce_vocal_aggressively(a, b, 0.2)
+    return a - b
+
+
+def invert_stem(mixture: np.ndarray, stem: np.ndarray, device="cpu") -> np.ndarray:
+    """Derive the secondary stem by spectral subtraction
+    (ref: spec_utils.invert_stem:575-580). Input/output are (samples, channels)
+    transposed arrays as in the reference call sites; the STFTs run on
+    ``device``."""
+    mix_spec = _stft2048(mixture.T if mixture.shape[0] != 2 else mixture, device)
+    stem_spec = _stft2048(stem.T if stem.shape[0] != 2 else stem, device)
+    out = _istft2048(invert_audio([mix_spec, stem_spec]), device)
+    return -out.T
+
+
+def to_shape(x: np.ndarray, target_shape) -> np.ndarray:
+    """Zero-pad trailing edges so ``x`` matches ``target_shape``
+    (ref: spec_utils.to_shape)."""
+    pads = [(0, t - s) for s, t in zip(x.shape, target_shape)]
+    return np.pad(x, pads, mode="constant")
+
+
 def match_array_shapes(a: np.ndarray, b: np.ndarray, is_swap: bool = False) -> np.ndarray:
     """Crop or zero-pad ``a``'s time axis (axis 1) to ``b``'s."""
     if is_swap:
@@ -28,3 +90,14 @@ def match_array_shapes(a: np.ndarray, b: np.ndarray, is_swap: bool = False) -> n
     if is_swap:
         a = a.T
     return a
+
+
+def reduce_vocal_aggressively(x_spec: np.ndarray, y_spec: np.ndarray,
+                              softmask: float) -> np.ndarray:
+    """(ref: spec_utils.reduce_vocal_aggressively)."""
+    v_spec = x_spec - y_spec
+    y_mag_tmp = np.abs(y_spec)
+    v_mag_tmp = np.abs(v_spec)
+    v_mask = v_mag_tmp > y_mag_tmp
+    y_mag = np.clip(y_mag_tmp - v_mag_tmp * v_mask * softmask, 0, np.inf)
+    return y_mag * np.exp(1.0j * np.angle(y_spec))

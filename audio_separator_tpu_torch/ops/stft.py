@@ -88,3 +88,29 @@ def istft_real_packed(packed: torch.Tensor, n_fft: int, hop: int,
     packed = packed.float().reshape(*batch, c2 // 2, 2, n_bins, t)
     spec = torch.complex(packed[..., 0, :, :], packed[..., 1, :, :])
     return istft(spec, n_fft, hop, window)
+
+
+def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
+    """Slice ``x (..., L)`` into overlapping frames ``(..., T, frame_len)``.
+
+    ``T = 1 + (L - frame_len) // hop``; requires ``L >= frame_len``."""
+    return x.unfold(-1, frame_len, hop)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add ``frames (..., T, N)`` with hop ``hop`` → ``(..., N + hop*(T-1))``.
+
+    Pads N up to ``k*hop`` (k = ceil(N/hop)), views each frame as ``k``
+    hop-sized lanes and accumulates ``k`` shifted adds, as the JAX package
+    does."""
+    *batch, num_frames, frame_len = frames.shape
+    k = -(-frame_len // hop)
+    pad = k * hop - frame_len
+    if pad:
+        frames = torch.nn.functional.pad(frames, (0, pad))
+    lanes = frames.reshape(*batch, num_frames, k, hop)
+    out = frames.new_zeros((*batch, num_frames + k - 1, hop))
+    for j in range(k):
+        out[..., j : j + num_frames, :] += lanes[..., j, :]
+    out = out.reshape(*batch, (num_frames + k - 1) * hop)
+    return out[..., : frame_len + hop * (num_frames - 1)]

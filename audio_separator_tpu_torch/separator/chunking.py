@@ -1,6 +1,6 @@
 """Long-file chunked processing.
 
-Port of ``audio_separator_tpu/separator/chunking.py`` over this package's WAV
+Port of ``audio_separator_tpu/separator/chunking.py`` over this package's audio
 I/O: split an input into fixed-duration chunk files, let the separator
 process each, and concatenate the per-stem outputs.
 """

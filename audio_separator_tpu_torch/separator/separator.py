@@ -4,10 +4,10 @@ Port of ``audio_separator_tpu/separator/separator.py``: the constructor,
 device setup, the registry's listing and download methods, ``load_model``
 (registry lookup, model data resolution, architecture instantiation),
 ``separate``, ``separate_batch``, ``warmup`` and chunked processing
-(``chunk_duration``). The MDXC family (BS/Mel RoFormer and TFC-TDF, MDX23C)
-and Demucs v4 (HTDemucs bags) are ported; MDX, VR, Demucs v3, ensembles and
-the device mesh are not yet (ROADMAP, Queue A), and loading or asking for
-them raises ``NotImplementedError``.
+(``chunk_duration``). The MDX family (ONNX Conv-TDF), the MDXC family
+(BS/Mel RoFormer and TFC-TDF, MDX23C) and Demucs v4 (HTDemucs bags) are
+ported; VR, Demucs v3, ensembles and the device mesh are not yet (ROADMAP,
+Queue A), and loading or asking for them raises ``NotImplementedError``.
 
 Computation runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, ``device=None`` raises.
@@ -38,7 +38,7 @@ DEFAULT_MODEL = "model_bs_roformer_ep_317_sdr_12.9755.ckpt"
 
 _AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".opus", ".m4a", ".aiff", ".ac3")
 
-_PORTED_TYPES = ("MDXC", "Demucs")
+_PORTED_TYPES = ("MDX", "MDXC", "Demucs")
 
 
 class Separator:
@@ -277,9 +277,11 @@ class Separator:
         if model_type not in _PORTED_TYPES:
             raise NotImplementedError(
                 f"model type {model_type} is not ported to PyTorch yet "
-                f"(ROADMAP, Queue A); MDXC (RoFormer, MDX23C) and Demucs v4 models are")
+                f"(ROADMAP, Queue A); MDX, MDXC (RoFormer, MDX23C) and Demucs v4 models are")
         if model_type == "Demucs":
             from ..architectures.demucs import DemucsSeparator as separator_class
+        elif model_type == "MDX":
+            from ..architectures.mdx import MDXSeparator as separator_class
         else:
             from ..architectures.mdxc import MDXCSeparator as separator_class
 

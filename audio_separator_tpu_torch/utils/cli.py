@@ -8,8 +8,9 @@ Differences from the JAX package's CLI:
 
 * ``--device`` (default: the CUDA device) is passed to ``Separator``; without a
   card the default raises, and ``--device cpu`` runs the plain PyTorch path;
-* ``--output_format`` defaults to WAV, the only format the port writes until
-  the codec is ported (ROADMAP, Queue A item 10);
+* ``--output_format`` defaults to FLAC, as in the JAX package; FLAC and the
+  other non-WAV formats need the native codec (``io/audio.py``), so where
+  libav is missing pass ``--output_format WAV``;
 * ``--env_info`` prints the torch, CUDA and card facts;
 * flags of features not ported yet (``--extra_models``, ``--ensemble_*``,
   ``--list_presets``: Queue A item 14; ``--use_mesh``: item 16) exit with
@@ -41,7 +42,7 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
         formatter_class=lambda prog: argparse.RawTextHelpFormatter(prog, max_help_position=60),
     )
     parser.add_argument("audio_files", nargs="*", default=argparse.SUPPRESS,
-                        help="The audio file paths or directory to separate (WAV).")
+                        help="The audio file paths or directory to separate.")
 
     info = parser.add_argument_group("Info and Debugging")
     info.add_argument("-v", "--version", action="version", version=f"%(prog)s {version}")
@@ -65,8 +66,9 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
                     help="Model to use for separation.")
     io.add_argument("--extra_models", nargs="+", default=None,
                     help="Additional models for ensembling (not ported yet).")
-    io.add_argument("--output_format", default="WAV",
-                    help="Output format for separated files (WAV only in this port).")
+    io.add_argument("--output_format", default="FLAC",
+                    help="Output format for separated files (non-WAV formats need the "
+                         "native codec).")
     io.add_argument("--output_bitrate", default=None, help="Output bitrate, e.g. 320k.")
     io.add_argument("--output_dir", default=None, help="Directory to write output files.")
     io.add_argument("--model_file_dir", default=None,

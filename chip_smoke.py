@@ -35,7 +35,14 @@ result lines are printed):
    ``full_float32`` scope is what keeps it float32, against the same module on
    the CPU at a batch of 1: SDR floor 40 dB per stem, with its warm time,
    TFLOP/s (FLOP counted by ``torch.utils.flop_counter``), peak device
-   memory, and the bf16 forward beside it;
+   memory, and the bf16 forward beside it; the full-width MDX-Net
+   ``ConvTDFNet`` (kuielab/mdx-net TFC-TDF v1 at UVR's MDX-Net width and the
+   UVR-MDX-NET-Inst_HQ_3 STFT geometry, seeded weights,
+   ``tests/torch_oracles/convtdf_oracle.py``), exported once to ONNX (traced
+   on the card) and run through ``models/onnx_torch`` on the packed STFT of
+   4 windows, float32 under ``full_float32`` with the cuDNN TF32 switch on,
+   against the CPU at a batch of 1 (floor 100 dB), with the same numbers and
+   the bf16 forward's SDR against float32;
 5. the main paths, each with the launch counts set to 0 just before and read
    just after: a full-width synthetic BS-RoFormer checkpoint in the upstream
    key layout, ``Separator(use_autocast=True).load_model()`` then
@@ -53,7 +60,17 @@ result lines are printed):
    ``Separator().load_model("MDX23C-8KFFT-InstVoc_HQ_2.ckpt")`` then
    ``.separate()`` in float32 and under ``use_autocast=True`` (two finite
    stems each; the device time split into convolution, norm, elementwise and
-   the rest; bf16's SDR against float32 reported without a floor);
+   the rest; bf16's SDR against float32 reported without a floor); the
+   audio I/O route ``io/audio.py`` takes on this machine (the native codec
+   where libav builds, else WAV only) and a WAV round trip at 16 and 24 bits;
+   the full-width MDX graph under its registry name
+   (``UVR-MDX-NET-Inst_HQ_3.onnx``, model data keyed by its hash),
+   ``Separator().load_model()`` then ``.separate()`` in float32 and under
+   ``use_autocast=True`` (profiled as above), one call with
+   ``enable_denoise`` and one with ``invert_using_spec``, and
+   ``separate_batch`` of a 16-bit and a 24-bit WAV against their solo outputs
+   (>= 100 dB, each at its own depth); the path launches none of the three
+   kernels, and the counts, set to 0 before it, must read 0 after it;
 6. one JSON line describing each kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -657,6 +674,299 @@ def phase_mdx23c_separator(seed, seconds, device_label):
         return result
 
 
+def phase_codec(seed):
+    """Phase 5, audio I/O: the route ``io/audio.py`` takes on this machine
+    (the native codec where it builds against libav, else WAV only) and a WAV
+    round trip at 16 and 24 bits."""
+    import shutil
+
+    import numpy as np
+
+    from audio_separator_tpu_torch.io import audio as audio_io
+
+    route = audio_io._route()
+    detail = (audio_io._cli if route == "subprocess" else audio_io.codec_path("library")
+              if route == "library" else audio_io._lib_error)
+    log(f"[codec] audio I/O route on this machine: {route} ({detail}); g++ "
+        f"{shutil.which('g++') or 'absent'}; AUDSEP_CODEC_SUBPROCESS "
+        f"{os.environ.get('AUDSEP_CODEC_SUBPROCESS') or 'unset'}")
+    rng = np.random.default_rng(seed)
+    pcm = np.clip(0.3 * rng.standard_normal((2, 44100)), -1, 1).astype(np.float32)
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    errors = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        for bits in (16, 24):
+            path = os.path.join(tmp, f"rt{bits}.wav")
+            audio_io.save_audio(path, pcm, 44100, bit_depth=bits)
+            got, sr = audio_io.load_audio(path)
+            info = audio_io.probe(path)
+            err = float(np.abs(got - pcm).max())
+            errors[bits] = err
+            log(f"[codec] WAV {bits}-bit round trip of {pcm.shape}: max |error| {err:.3e} "
+                f"(bound {2.0 ** -(bits - 2):.3e}: the writer scales by 2^(b-1) - 1, the reader by 2^(b-1)), probe {info}")
+            if (got.shape != pcm.shape or sr != 44100 or info.bits_per_sample != bits
+                    or err > 2.0 ** -(bits - 2)):
+                raise AssertionError(f"WAV {bits}-bit round trip failed: {got.shape}, {sr} Hz, "
+                                     f"{info}, error {err}")
+    return {"route": route, "round_trip_max_err": errors}
+
+
+# The MDX-Net network class (kuielab/mdx-net ConvTDFNet, TFC-TDF v1) at UVR's
+# MDX-Net width and the STFT geometry recorded for UVR-MDX-NET-Inst_HQ_3.
+MDX_MODEL = "UVR-MDX-NET-Inst_HQ_3.onnx"
+MDX_FLOP_PER_WINDOW = 0.611e12  # counted from the shapes (PERF.md); the phase measures it
+
+
+def export_mdx_model(model_dir: str, seed: int):
+    """The full-width ConvTDFNet (seeded weights) exported to ONNX under the
+    registry's file name, traced on the card, with its UVR model data keyed
+    by the file's hash and empty remote listings, so the registry resolves
+    it without a download. Returns the export's wall seconds."""
+    import torch
+
+    from audio_separator_tpu_torch.separator.registry import get_model_hash
+
+    try:  # the onnx package is absent: skip the exporter's onnxscript pass
+        from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+        onnx_proto_utils._add_onnxscript_fn = lambda model_bytes, custom_opsets: model_bytes
+    except ImportError:
+        pass
+    full_width = _oracle_class("convtdf_oracle", "FULL_WIDTH")
+    net = _oracle_class("convtdf_oracle", "seeded_convtdf")(seed, **full_width).cuda()
+    path = os.path.join(model_dir, MDX_MODEL)
+    t0 = time.perf_counter()
+    torch.onnx.export(net, torch.zeros(1, 4, full_width["dim_f"], 256, device="cuda"), path,
+                      input_names=["input"], output_names=["output"], dynamo=False)
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(model_dir, "mdx_model_data.json"), "w") as f:
+        json.dump({get_model_hash(path): _oracle_class("convtdf_oracle",
+                                                       "INST_HQ_3_MODEL_DATA")}, f)
+    for name in ("vr_model_data.json", "download_checks.json"):
+        with open(os.path.join(model_dir, name), "w") as f:
+            f.write("{}")
+    del net
+    torch.cuda.empty_cache()
+    return export_s
+
+
+def phase_mdx_model(seed, model_dir):
+    """Phase 4, MDX: the full-width ConvTDFNet graph through
+    ``models/onnx_torch`` on one batch of 4 windows (the packed STFT of a
+    seeded track, the lowest three bins zeroed, as the separator feeds it),
+    float32 under ``full_float32`` with the process-wide cuDNN TF32 switch
+    on, against the same graph on the CPU at a batch of 1; then bf16."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audio_separator_tpu_torch.models.onnx_torch import onnx_to_torch
+    from audio_separator_tpu_torch.ops.precision import full_float32
+    from audio_separator_tpu_torch.ops.stft import hann_window, stft_real_packed
+
+    export_s = export_mdx_model(model_dir, seed)
+    path = os.path.join(model_dir, MDX_MODEL)
+    data = _oracle_class("convtdf_oracle", "INST_HQ_3_MODEL_DATA")
+    n_fft, dim_f = data["mdx_n_fft_scale_set"], data["mdx_dim_f_set"]
+    chunk = 1024 * (2 ** data["mdx_dim_t_set"] - 1)
+    rng = np.random.default_rng(seed)
+    t = np.arange(chunk) / 44100
+    audio = torch.from_numpy((0.2 * np.sin(2 * np.pi * 220 * t)
+                              + 0.05 * rng.standard_normal((4, 2, chunk))).astype(np.float32))
+    spek = stft_real_packed(audio.cuda(), n_fft, 1024, hann_window(n_fft, device="cuda"), dim_f)
+    spek[:, :, :3, :] = 0.0
+
+    fn, params, _, _ = onnx_to_torch(path, device="cuda")
+    n_params = sum(p.numel() for p in params.values() if p.is_floating_point())
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        with torch.no_grad(), full_float32():
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out_gpu = fn(params, spek)[0]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            forward_ms = cuda_time_ms(lambda: fn(params, spek), iters=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    with torch.no_grad():
+        half = spek.to(torch.bfloat16)
+        forward_bf16_ms = cuda_time_ms(lambda: fn(params, half), iters=3)
+        out_bf16 = fn(params, half)[0].float().cpu()
+    out_gpu = out_gpu.cpu()
+    del params, half
+    torch.cuda.empty_cache()
+
+    cpu_fn, cpu_params, _, _ = onnx_to_torch(path, device="cpu")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        t0 = time.perf_counter()
+        out_cpu = cpu_fn(cpu_params, spek[:1].cpu())[0]
+        cpu_s = time.perf_counter() - t0
+    flop = counter.get_total_flops()
+    sdr = sdr_db(out_cpu[0], out_gpu[0])
+    sdr_bf16 = sdr_db(out_gpu, out_bf16)
+    tflops = 4 * flop / (forward_ms * 1e-3) / 1e12
+    log(f"[mdx] model: full-width ConvTDFNet (kuielab/mdx-net TFC-TDF v1, {n_params / 1e6:.2f} M "
+        f"parameters) as ONNX (export traced on the card {export_s:.1f} s) through "
+        f"onnx_torch, fp32 under full_float32 (process-wide cuDNN TF32 on), "
+        f"{tuple(spek.shape)} -> {tuple(out_gpu.shape)}: SDR vs CPU (batch row 0) "
+        f"{sdr:.2f} dB (floor 100); card first call {first_s:.3f} s, warm forward "
+        f"{forward_ms:.1f} ms for 4 windows ({flop / 1e12:.3f} TFLOP a window by "
+        f"torch.utils.flop_counter, expected {MDX_FLOP_PER_WINDOW / 1e12:.3f}; {tflops:.1f} "
+        f"TFLOP/s; FMA bound {4 * flop / PEAK_FLOPS['float32'] * 1e3:.1f} ms), peak device "
+        f"memory {peak_gb:.2f} GiB; bf16 forward {forward_bf16_ms:.1f} ms "
+        f"({4 * flop / (forward_bf16_ms * 1e-3) / 1e12:.1f} TFLOP/s, bound "
+        f"{4 * flop / PEAK_FLOPS['bfloat16'] * 1e3:.1f} ms), bf16 vs fp32 card SDR "
+        f"{sdr_bf16:.2f} dB; CPU {cpu_s:.1f} s a window; output peak "
+        f"{float(out_cpu.abs().max()):.3f}")
+    if tuple(out_gpu.shape) != tuple(spek.shape):
+        raise AssertionError(f"ConvTDFNet output shape {tuple(out_gpu.shape)}")
+    if not bool(torch.isfinite(out_gpu).all()) or not bool(torch.isfinite(out_bf16).all()):
+        raise AssertionError("ConvTDFNet output is not finite")
+    if sdr < 100.0:
+        raise AssertionError(f"ConvTDFNet float32 card forward at {sdr:.2f} dB, floor 100")
+    return {"sdr_db": sdr, "sdr_bf16_db": sdr_bf16, "forward_ms": forward_ms,
+            "forward_bf16_ms": forward_bf16_ms, "flop_per_window": flop, "peak_gb": peak_gb,
+            "params": n_params}
+
+
+def phase_mdx_separator(ab, att, seed, seconds, model_dir, device_label):
+    """Phase 5, MDX: ``Separator().load_model(MDX_MODEL)`` through the
+    registry, a warm ``separate`` in float32 and bf16 (profiled), one call
+    with ``enable_denoise``, one with ``invert_using_spec``, and
+    ``separate_batch`` of a 16-bit and a 24-bit WAV against their solo
+    outputs. The path launches none of the three kernels: the counts are set
+    to 0 before it and must read 0 after it."""
+    import numpy as np
+
+    from audio_separator_tpu_torch.architectures.mdx import MDXSeparator
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.separator import Separator
+
+    sr = 44100
+    tmp = os.path.dirname(model_dir)
+    wav = os.path.join(tmp, "mix.wav")
+    mix = write_seeded_wav(wav, seed, seconds, sr)
+    ab.reset_launch_counts()
+    att.reset_launch_counts()
+
+    def stems_of(out_dir, files):
+        return {f.split("_(")[1].split(")")[0]: audio_io.load_audio(os.path.join(out_dir, f))[0]
+                for f in files}
+
+    result, stems = {}, {}
+    for label, autocast in (("float32", False), ("bf16", True)):
+        out_dir = os.path.join(tmp, f"out_{label}")
+        t0 = time.perf_counter()
+        sep = Separator(model_file_dir=model_dir, output_dir=out_dir, use_autocast=autocast,
+                        log_level=logging.WARNING)
+        sep.load_model(MDX_MODEL)
+        load_s = time.perf_counter() - t0
+        inst = sep.model_instance
+        if not isinstance(inst, MDXSeparator) or (inst.n_fft, inst.dim_f, inst.dim_t) != \
+                (6144, 2560, 256):
+            raise AssertionError(f"{MDX_MODEL} loaded as {type(inst).__name__} "
+                                 f"({getattr(inst, 'n_fft', None)}, {getattr(inst, 'dim_f', None)})")
+        t0 = time.perf_counter()
+        files = sep.separate(wav)
+        wall = time.perf_counter() - t0
+        check_stems(out_dir, files, 2, mix, sr)
+        t0 = time.perf_counter()
+        sep.separate(wav)
+        wall2 = time.perf_counter() - t0
+        prof = profile_separate(sep, wav, tag=f"mdx {label}")
+        stems[label] = stems_of(out_dir, files)
+        log(f"[mdx] separator {device_label}: {seconds:.0f} s stereo WAV, full-width "
+            f"ConvTDFNet ({label}), batch {inst.batch_size}, overlap {inst.overlap}, chunk "
+            f"{inst.chunk_size}, stems {sorted(files)}: first separate {wall:.3f} s "
+            f"({seconds / wall:.2f}x realtime), second {wall2:.3f} s ({seconds / wall2:.2f}x "
+            f"realtime); load_model {load_s:.2f} s")
+        result[label] = {"wall_s": wall, "wall2_s": wall2, **prof}
+        if label == "float32":
+            sep32 = sep
+    sdr = {k: sdr_db(stems["float32"][k], stems["bf16"][k]) for k in stems["float32"]}
+    log(f"[mdx] bf16 stems vs float32 card stems: SDR "
+        f"{ {k: round(v, 2) for k, v in sdr.items()} } dB (no floor)")
+    result["bf16_vs_float32_sdr_db"] = sdr
+    if sorted(stems["float32"]) != ["Instrumental", "Vocals"]:
+        raise AssertionError(f"MDX stems {sorted(stems['float32'])}")
+
+    # enable_denoise and invert_using_spec, each on a separator of its own
+    for label, kw in (("enable_denoise", {"mdx_params": dict(
+            sep32.arch_specific_params["MDX"], enable_denoise=True)}),
+            ("invert_using_spec", {"invert_using_spec": True})):
+        out_dir = os.path.join(tmp, f"out_{label}")
+        sep = Separator(model_file_dir=model_dir, output_dir=out_dir, log_level=logging.WARNING,
+                        **kw)
+        sep.load_model(MDX_MODEL)
+        t0 = time.perf_counter()
+        files = sep.separate(wav)
+        wall = time.perf_counter() - t0
+        got = stems_of(out_dir, files)
+        for name, pcm in got.items():
+            # the spectral inversion's iSTFT returns whole hops of 1024
+            n = mix.shape[1] - (mix.shape[1] % 1024 if label == "invert_using_spec"
+                                and name == "Vocals" else 0)
+            # Random weights: the denoise pass (f(x) - f(-x)) / 2 may leave
+            # little of a primary stem, so only silence itself fails.
+            if pcm.shape != (2, n) or not np.isfinite(pcm).all() or not np.abs(pcm).max() > 0:
+                raise AssertionError(f"{label} {name}: shape {pcm.shape}, expected (2, {n}), "
+                                     f"or not finite, or all zero")
+        log(f"[mdx] separator with {label}: {wall:.3f} s, stems "
+            f"{ {k: v.shape for k, v in got.items()} }, peaks "
+            f"{ {k: round(float(np.abs(v).max()), 6) for k, v in got.items()} }; Vocals vs the "
+            f"plain float32 call "
+            f"{sdr_db(stems['float32']['Vocals'][:, :got['Vocals'].shape[1]], got['Vocals']):.2f}"
+            f" dB, Instrumental {sdr_db(stems['float32']['Instrumental'], got['Instrumental']):.2f}"
+            f" dB")
+        result[label] = {"wall_s": wall}
+        del sep
+
+    # separate_batch of a 16-bit and a 24-bit WAV against their solo outputs
+    durations = {"a16.wav": (seconds, 16), "b24.wav": (2 * seconds / 3, 24)}
+    wavs, mixes = [], []
+    for i, (name, (secs, depth)) in enumerate(durations.items()):
+        path = os.path.join(tmp, name)
+        mixes.append(write_seeded_wav(path, seed + 1 + i, secs, sr, bit_depth=depth))
+        wavs.append(path)
+    solo_dir, batch_dir = os.path.join(tmp, "solo"), os.path.join(tmp, "batch")
+    sep32.output_dir = sep32.model_instance.output_dir = solo_dir
+    solo, solo_walls = [], []
+    for path in wavs:
+        t0 = time.perf_counter()
+        solo.append(stems_of(solo_dir, sep32.separate(path)))
+        solo_walls.append(time.perf_counter() - t0)
+    sep32.output_dir = sep32.model_instance.output_dir = batch_dir
+    t0 = time.perf_counter()
+    batch_files = sep32.separate_batch(wavs)
+    batch_wall = time.perf_counter() - t0
+    worst = math.inf
+    for mix_i, files, want, (_, depth) in zip(mixes, batch_files, solo, durations.values()):
+        check_stems(batch_dir, files, 2, mix_i, sr)
+        got = stems_of(batch_dir, files)
+        for f in files:
+            bits = audio_io.probe(os.path.join(batch_dir, f)).bits_per_sample
+            if bits != depth:
+                raise AssertionError(f"{f}: written at {bits} bits, input had {depth}")
+        worst = min([worst] + [sdr_db(want[k], got[k]) for k in want])
+    launches = {**ab.LAUNCHES, **att.LAUNCHES}
+    log(f"[mdx] separate_batch of a {durations['a16.wav'][0]:.0f} s 16-bit and a "
+        f"{durations['b24.wav'][0]:.0f} s 24-bit WAV (float32): {batch_wall:.3f} s against solo "
+        f"{solo_walls[0]:.3f} s + {solo_walls[1]:.3f} s = {sum(solo_walls):.3f} s; worst stem "
+        f"SDR against its solo output {worst:.2f} dB (floor 100); bit depths kept per file; "
+        f"kernel launches on the whole MDX path {launches} (the path runs none)")
+    if worst < 100.0:
+        raise AssertionError(f"MDX separate_batch differs from solo separate: {worst:.2f} dB")
+    if any(launches.values()):
+        raise AssertionError(f"the MDX path launched a kernel: {launches}")
+    result.update({"batch_wall_s": batch_wall, "solo_walls_s": solo_walls,
+                   "batch_worst_sdr_db": worst, "launches": launches})
+    return result
+
+
 CLI_CHILD = (
     "import json, sys\n"
     "from audio_separator_tpu_torch.ops import attention_block as ab\n"
@@ -762,9 +1072,10 @@ def phase_user_surface(ab, sep, model_dir, tmp, seed, seconds, device_label):
     cli_runs = {}
     for label, extra in (("whole", []), ("chunk_duration 10", ["--chunk_duration", "10"])):
         out_dir = os.path.join(tmp, "cli_" + label.split()[0])
+        # WAV explicitly: the CLI's default is FLAC, which needs the codec.
         wall, launches = run_child(CLI_CHILD, [wavs[0], "--model_file_dir", model_dir,
-                                               "--output_dir", out_dir, "--log_level",
-                                               "warning"] + extra)
+                                               "--output_dir", out_dir, "--output_format",
+                                               "WAV", "--log_level", "warning"] + extra)
         files = sorted(os.listdir(out_dir))
         check_stems(out_dir, files, 2, mixes[0], sr)
         log(f"[cli] {device_label}: python -c 'cli.main(argv)' child, default model on the "
@@ -1122,9 +1433,17 @@ def main(argv=None) -> int:
     model = phase_model(ab, args.seed)
     htdemucs = phase_htdemucs_model(att, args.seed)
     phase_mdx23c_model(args.seed)
+    phase_codec(args.seed)
     sep = phase_separator(ab, args.seed, args.seconds, f"{kind} ({smi})")
     demucs = phase_demucs_separator(att, args.seed, args.seconds, f"{kind} ({smi})")
     phase_mdx23c_separator(args.seed, args.seconds, f"{kind} ({smi})")
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        mdx_dir = os.path.join(tmp, "models")
+        os.makedirs(mdx_dir)
+        phase_mdx_model(args.seed, mdx_dir)
+        phase_mdx_separator(ab, att, args.seed, args.seconds, mdx_dir, f"{kind} ({smi})")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)

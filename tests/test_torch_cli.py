@@ -78,8 +78,9 @@ def test_separation_writes_the_same_stems_as_separator(model_dir, wav, tmp_path)
     cli_dir, api_dir = str(tmp_path / "cli"), str(tmp_path / "api")
     cli.main([wav, "--device", "cpu", "--model_file_dir", model_dir,
               "--output_dir", cli_dir, "--log_level", "warning"])
+    # The CLI writes FLAC by default (the JAX CLI's default).
     sep = Separator(model_file_dir=model_dir, output_dir=api_dir, device="cpu",
-                    log_level=logging.WARNING)
+                    output_format="FLAC", log_level=logging.WARNING)
     sep.load_model()
     files = sep.separate(wav)
     assert sorted(os.listdir(cli_dir)) == sorted(files) and len(files) == 2
@@ -94,7 +95,7 @@ def test_chunk_duration(model_dir, wav, tmp_path):
               "--chunk_duration", "1", "--log_level", "warning"])
     mix, _ = audio_io.load_audio(wav)
     names = sorted(os.listdir(out_dir))
-    assert names == ["song_(other).wav", "song_(vocals).wav"]
+    assert names == ["song_(other).flac", "song_(vocals).flac"]
     for name in names:
         pcm, _ = audio_io.load_audio(os.path.join(out_dir, name))
         assert pcm.shape == mix.shape and np.isfinite(pcm).all()

@@ -375,3 +375,42 @@ def test_htdemucs_forward_on_card_matches_cpu(cuda):
     assert att.LAUNCHES["fused_attention"] == 4  # layers 0 and 2, both branches
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
+
+
+def test_mdx_model_fn_on_card_matches_cpu(cuda, tmp_path):
+    """The MDX model function (packed STFT, the ONNX Conv-TDF graph through
+    ``models/onnx_torch``, iSTFT) at tests/test_mdx_integration.py's small
+    geometry, on the card against the CPU: float32 at this file's float32
+    tolerance, and no kernel launch (the MDX path runs none)."""
+    import logging
+
+    from audio_separator_tpu_torch.architectures.mdx import MDXSeparator
+
+    from torch_oracles.convtdf_oracle import seeded_convtdf
+
+    try:  # the onnx package is absent: skip the exporter's onnxscript pass
+        from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+        onnx_proto_utils._add_onnxscript_fn = lambda model_bytes, custom_opsets: model_bytes
+    except ImportError:
+        pass
+    path = str(tmp_path / "convtdf.onnx")
+    torch.onnx.export(seeded_convtdf(0, dim_f=128, num_blocks=5, g=8), torch.randn(1, 4, 128, 32),
+                      path, input_names=["input"], output_names=["output"], dynamo=False)
+
+    def separator(device):
+        common = {"logger": logging.getLogger("test"), "model_name": "m", "model_path": path,
+                  "model_data": {"compensate": 1.035, "mdx_dim_f_set": 128,
+                                 "mdx_dim_t_set": 5, "mdx_n_fft_scale_set": 512},
+                  "device": device}
+        return MDXSeparator(common, {"hop_length": 128, "segment_size": 32})
+
+    chunks = torch.from_numpy(
+        (np.random.default_rng(5).standard_normal((4, 2, 128 * 31)) * 0.2).astype(np.float32))
+    want = separator(torch.device("cpu"))._model_fn(False)(chunks)
+    ab.reset_launch_counts()
+    att.reset_launch_counts()
+    got = separator(cuda)._model_fn(False)(chunks.to(cuda)).cpu()
+    assert got.shape == want.shape == (4, 1, 2, 128 * 31)
+    assert not any({**ab.LAUNCHES, **att.LAUNCHES}.values())
+    _close(got, want, torch.float32)

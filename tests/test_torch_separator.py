@@ -128,13 +128,13 @@ def test_separator_without_cuda_raises(model_dir):
 
 
 def test_separator_rejects_unported_model_types(model_dir, tmp_path):
-    onnx = tmp_path / "custom.onnx"
-    onnx.write_bytes(b"\0")
+    vr = tmp_path / "custom.pth"  # VR, ROADMAP Queue A item 13
+    vr.write_bytes(b"\0")
     (tmp_path / "download_checks.json").write_text("{}")
     (tmp_path / "custom.json").write_text("{}")
     sep = Separator(model_file_dir=str(tmp_path), device="cpu", log_level=logging.WARNING)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sep.load_model("custom.onnx")
+        sep.load_model("custom.pth")
 
 
 def test_importing_the_port_leaves_jax_out():
