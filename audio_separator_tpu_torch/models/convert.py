@@ -1,6 +1,6 @@
 """Checkpoint conversion: upstream torch state dicts → the parameter tree of
 ``models/roformer.Roformer``, and that tree → the module; the JAX package's
-HTDemucs tree → ``models/htdemucs.HTDemucs``.
+HTDemucs, TFC-TDF and VR trees → their modules.
 
 The tree is the JAX package's parameter pytree (numpy leaves: per-depth
 transformer layers stacked along a leading axis, ``nn.Linear`` weights as
@@ -241,6 +241,14 @@ def convert_tfc_tdf(sd: Dict[str, np.ndarray], cfg=None) -> Dict[str, Any]:
 def load_jax_tfc_tdf_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the JAX package's TFC-TDF parameter tree (``convert_tfc_tdf``'s
     layout) into a ``TFCTDFNet``, strictly."""
+    return _load_path_tree(module, tree)
+
+
+def load_jax_vr_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX package's VR parameter tree (``models/vr_nets.
+    state_dict_to_tree``: the upstream state-dict path split on ``.``, less
+    ``num_batches_tracked``) into a ``CascadedASPPNet`` or ``CascadedNet``,
+    strictly."""
     return _load_path_tree(module, tree)
 
 

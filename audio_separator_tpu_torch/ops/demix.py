@@ -205,3 +205,36 @@ def demix_jobs_layout(
         num_stems=num_stems, batch_size=batch_size, positions=np.concatenate(pos_parts),
         divider=np.concatenate(div_parts), fetch_stems=fetch_stems, device=device)
     return [out[..., off : off + t] for off, t in zip(offs, lens)]
+
+
+@torch.no_grad()
+def tiled_mask_predict(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],
+    spec: torch.Tensor,
+    window: int,
+    offset: int,
+    batch_size: int,
+    n_tiles: int,
+) -> torch.Tensor:
+    """The VR mask engine, device in and device out: ``spec (C, F, T)``
+    padded magnitudes → mask ``(C', F', n_tiles · roi)``, ``roi = window −
+    2 · offset``.
+
+    Tile ``i`` reads frames ``[i · roi, i · roi + window)`` (zeros past the
+    end) and ``model_fn`` maps ``(B, C, F, window)`` to the centre ``roi``
+    frames of its mask, ``(B, C', F', roi)``. ``batch_size`` tiles go through
+    a forward, the last batch holds what is left: only the ``n_tiles`` tiles
+    the track needs are computed (the JAX package's
+    ``tiled_mask_predict_dev`` without its length buckets and device mesh)."""
+    roi = window - 2 * offset
+    need = (n_tiles - 1) * roi + window
+    if spec.shape[-1] >= need:
+        spec = spec[..., :need]
+    else:
+        spec = torch.nn.functional.pad(spec, (0, need - spec.shape[-1]))
+    tiles = spec.unfold(-1, window, roi)  # (C, F, n_tiles, window)
+    outs = [model_fn(tiles[:, :, i : i + batch_size].permute(2, 0, 1, 3).contiguous())
+            for i in range(0, n_tiles, batch_size)]
+    mask = torch.cat(outs, dim=0)  # (n_tiles, C', F', roi)
+    b, oc, of, _ = mask.shape
+    return mask.permute(1, 2, 0, 3).reshape(oc, of, b * roi)

@@ -1,7 +1,8 @@
 """Host-side waveform helpers used by the separators (numpy in and out).
 
 Port of the JAX package's ``ops/spec.py``: peak normalisation, shape
-matching, and the spectral inversion of a stem against its mixture
+matching, the VR helpers (magnitude and phase, window padding), and the
+spectral inversion of a stem against its mixture
 (``invert_stem``, the MDX secondary under ``invert_using_spec``), whose STFT
 runs in torch on the device given.
 """
@@ -26,6 +27,23 @@ def normalize(wave: np.ndarray, max_peak: float = 1.0,
     if min_peak is not None and 0 < maxv < min_peak:
         return wave * (min_peak / maxv)
     return wave
+
+
+def preprocess(spec: np.ndarray):
+    """Complex spectrogram → (magnitude, phase) (ref: spec_utils.preprocess:74)."""
+    return np.abs(spec), np.angle(spec)
+
+
+def make_padding(width: int, cropsize: int, offset: int):
+    """Left and right padding so ``width`` frames tile into windows of
+    ``cropsize`` with ``offset`` borders, and the tile stride
+    (ref: spec_utils.make_padding:85)."""
+    left = offset
+    roi_size = cropsize - offset * 2
+    if roi_size == 0:
+        roi_size = cropsize
+    right = roi_size - (width % roi_size) + left
+    return left, right, roi_size
 
 
 _INV_N_FFT = 2048
@@ -89,6 +107,15 @@ def match_array_shapes(a: np.ndarray, b: np.ndarray, is_swap: bool = False) -> n
         a = np.pad(a, ((0, 0), (0, b.shape[1] - a.shape[1])), mode="constant")
     if is_swap:
         a = a.T
+    return a
+
+
+def match_mono_array_shapes(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Crop or zero-pad the 1-D ``a`` to ``len(b)``."""
+    if len(a) > len(b):
+        return a[: len(b)]
+    if len(a) < len(b):
+        return np.pad(a, (0, len(b) - len(a)), mode="constant")
     return a
 
 

@@ -4,10 +4,11 @@ Port of ``audio_separator_tpu/separator/separator.py``: the constructor,
 device setup, the registry's listing and download methods, ``load_model``
 (registry lookup, model data resolution, architecture instantiation),
 ``separate``, ``separate_batch``, ``warmup`` and chunked processing
-(``chunk_duration``). The MDX family (ONNX Conv-TDF), the MDXC family
-(BS/Mel RoFormer and TFC-TDF, MDX23C) and Demucs v4 (HTDemucs bags) are
-ported; VR, Demucs v3, ensembles and the device mesh are not yet (ROADMAP,
-Queue A), and loading or asking for them raises ``NotImplementedError``.
+(``chunk_duration``). The four families are ported: MDX (ONNX Conv-TDF),
+VR (CascadedASPPNet v5 and CascadedNet v5.1 over the multiband chain), MDXC
+(BS/Mel RoFormer and TFC-TDF, MDX23C) and Demucs v4 (HTDemucs bags); Demucs
+v3, ensembles and the device mesh are not yet (ROADMAP, Queue A), and loading
+or asking for them raises ``NotImplementedError``.
 
 Computation runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, ``device=None`` raises.
@@ -37,8 +38,6 @@ from .registry import ModelRegistry, get_model_hash
 DEFAULT_MODEL = "model_bs_roformer_ep_317_sdr_12.9755.ckpt"
 
 _AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".opus", ".m4a", ".aiff", ".ac3")
-
-_PORTED_TYPES = ("MDX", "MDXC", "Demucs")
 
 
 class Separator:
@@ -274,14 +273,12 @@ class Separator:
             yaml_config_filename = model_path
         model_data = self._resolve_model_data(model_path, yaml_config_filename)
 
-        if model_type not in _PORTED_TYPES:
-            raise NotImplementedError(
-                f"model type {model_type} is not ported to PyTorch yet "
-                f"(ROADMAP, Queue A); MDX, MDXC (RoFormer, MDX23C) and Demucs v4 models are")
         if model_type == "Demucs":
             from ..architectures.demucs import DemucsSeparator as separator_class
         elif model_type == "MDX":
             from ..architectures.mdx import MDXSeparator as separator_class
+        elif model_type == "VR":
+            from ..architectures.vr import VRSeparator as separator_class
         else:
             from ..architectures.mdxc import MDXCSeparator as separator_class
 

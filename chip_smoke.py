@@ -71,6 +71,17 @@ result lines are printed):
    ``separate_batch`` of a 16-bit and a 24-bit WAV against their solo outputs
    (>= 100 dB, each at its own depth); the path launches none of the three
    kernels, and the counts, set to 0 before it, must read 0 after it;
+   then VR (``[vr]``): the full-width v5.1 ``CascadedNet`` (nout 64,
+   nout_lstm 128 over ``4band_v4_ms_fullband``, seeded weights, a ≈ 219 MB
+   ``.pth`` that its size keys to 218409) forward of 4 windows on the card
+   against the CPU (floor 100 dB), float32 and bf16, with TFLOP/s, peak
+   memory and the device time by category; ``Separator().load_model()`` then
+   ``.separate()`` of the WAV in float32 and bf16 (profiled), once each with
+   TTA, post-process and high end, and card against CPU on a 3 s excerpt
+   (floor 100 dB); the full-width v5 sp ``CascadedASPPNet`` (arch 33966 by
+   its size) over ``4band_44100`` and ``4band_44100_reverse``; and
+   ``separate_batch`` of a 16-bit and a 24-bit WAV against their solo
+   outputs; the path launches none of the three kernels either;
 6. one JSON line describing each kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -967,6 +978,363 @@ def phase_mdx_separator(ab, att, seed, seconds, model_dir, device_label):
     return result
 
 
+# The VR family. v5.1: UVR's CascadedNet at its two published widths over
+# 4band_v4_ms_fullband (model-data-overrides.json); the wider one here, whose
+# state dict keys to 218409 by its size in KB. v5: the sp capacity row of
+# CascadedASPPNet (uvr_lib_v5/vr_network/nets.py:79, tests/test_vr.py SP_CAPS)
+# at arch 33966, the seven-branch ASPP.
+VR51_MODEL = "vr51_fullband_seeded.pth"
+VR51_DATA = {"is_bv_model": True, "is_bv_model_rebalanced": 0.9, "is_karaoke": False,
+             "nout": 64, "nout_lstm": 128, "primary_stem": "Vocals",
+             "vr_model_param": "4band_v4_ms_fullband"}
+VR5_MODELS = {"vr5_sp_4band.pth": "4band_44100", "vr5_sp_4band_reverse.pth": "4band_44100_reverse"}
+VR_SP_CAPS = [(2, 16), (2, 16), (18, 8, 1, 1, 0), (8, 16), (34, 16, 1, 1, 0), (16, 32),
+              (32, 2, 1), (16, 2, 1), (16, 2, 1)]
+VR_FLOOR_DB = 100.0  # float32 card against CPU: the MDX bar (PERF.md §2)
+
+
+def vr_state_dict(seed: int, v51: bool) -> dict:
+    """Seeded VR weights in the upstream key layout: the oracle's default
+    initialisation under ``torch.manual_seed(seed)``, BatchNorm near unit
+    scale (weight 1 ± 0.1, bias and running mean ± 0.1, running variance in
+    [0.5, 1.5)) so that activations keep their scale through the cascade."""
+    import torch
+
+    torch.manual_seed(seed)
+    if v51:
+        net = _oracle_class("vr_oracle", "CascadedNetOracle")(
+            2 * 896, VR51_DATA["nout"], VR51_DATA["nout_lstm"])
+    else:
+        net = _oracle_class("vr_oracle", "CascadedASPPNetOracle")(2 * 768, VR_SP_CAPS, 33966)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+    return net.state_dict()
+
+
+def write_vr_models(model_dir: str, seed: int) -> dict:
+    """The v5.1 and v5 checkpoints with sidecar JSONs (the model data) and an
+    empty remote listing; returns each file's size in KB."""
+    import torch
+
+    files = {VR51_MODEL: (vr_state_dict(seed, True), VR51_DATA)}
+    sd5 = vr_state_dict(seed + 1, False)
+    for name, params in VR5_MODELS.items():
+        files[name] = (sd5, {"vr_model_param": params, "primary_stem": "Instrumental"})
+    sizes = {}
+    for name, (sd, data) in files.items():
+        path = os.path.join(model_dir, name)
+        torch.save(sd, path)
+        with open(os.path.splitext(path)[0] + ".json", "w") as f:
+            json.dump(data, f)
+        sizes[name] = math.ceil(os.path.getsize(path) / 1024)
+    with open(os.path.join(model_dir, "download_checks.json"), "w") as f:
+        f.write("{}")
+    return sizes
+
+
+def category_split(fn) -> dict:
+    """Device ms by ``OP_CATEGORIES`` for one call of ``fn`` (torch.profiler)."""
+    cats = {}
+    for name, ms in device_split(fn).items():
+        cats[op_category(name)] = cats.get(op_category(name), 0.0) + ms
+    return cats
+
+
+def vr_separator(model_dir, out_dir, device="cuda", autocast=False, **vr):
+    from audio_separator_tpu_torch.separator import Separator
+
+    params = {"batch_size": 4, "window_size": 512, "aggression": 5, "enable_tta": False,
+              "enable_post_process": False, "post_process_threshold": 0.2,
+              "high_end_process": False, **vr}
+    sep = Separator(model_file_dir=model_dir, output_dir=out_dir, use_autocast=autocast,
+                    log_level=logging.WARNING, vr_params=params, device=device)
+    return sep
+
+
+def check_vr_stems(out_dir, files, mix, sr, expect_len):
+    """Two finite, non-silent stems of the chain's output length (whole hops
+    of the top band: a little short of the mix)."""
+    import numpy as np
+
+    from audio_separator_tpu_torch.io import audio as audio_io
+
+    if len(files) != 2 or len(set(files)) != 2:
+        raise AssertionError(f"expected 2 stems, got {files}")
+    stems = {}
+    for name in files:
+        pcm, file_sr = audio_io.load_audio(os.path.join(out_dir, name))
+        if pcm.shape != (2, expect_len) or file_sr != sr or expect_len > mix.shape[1]:
+            raise AssertionError(f"{name}: shape {pcm.shape} at {file_sr} Hz, expected "
+                                 f"(2, {expect_len}) at {sr} (mix {mix.shape})")
+        if not np.isfinite(pcm).all() or not np.abs(pcm).max() > 1e-4:
+            raise AssertionError(f"{name}: stem is not finite or is silent")
+        stems[name.split("_(")[1].split(")")[0]] = pcm
+    return stems
+
+
+def vr_card_vs_cpu(model_dir, model, wav):
+    """``VRSeparator.separate`` of ``wav`` on the card and on the CPU (float32):
+    SDR of the card's float stems against the CPU's, before any file is
+    written."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        sep = vr_separator(model_dir, None, device=device)
+        sep.load_model(model)
+        inst = sep.model_instance
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(wav)) as td:
+            inst.output_dir = td
+            inst.separate(wav)
+        out[device] = (inst.primary_source, inst.secondary_source)
+        del sep, inst
+    return [sdr_db(c, g) for c, g in zip(out["cpu"], out["cuda"])]
+
+
+def phase_vr(ab, att, seed, seconds, device_label):
+    """Phase 5, VR: (a) the full-width v5.1 net's forward of 4 windows on the
+    card against the CPU, float32 and bf16; (b) ``Separator.separate`` of the
+    seeded WAV with the v5.1 model in float32 and bf16 (warm, profiled), with
+    TTA, post-process and high end once each, and card against CPU on a 3 s
+    excerpt; (c) the full-width v5 sp model (arch 33966) over ``4band_44100``
+    and ``4band_44100_reverse``; (d) ``separate_batch`` of a 16-bit and a
+    24-bit WAV against their solo outputs. The path launches none of the three
+    kernels: the counts are set to 0 before it and must read 0 after it."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audio_separator_tpu_torch.architectures.vr import VRSeparator, load_vr_model_params
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.models.convert import load_torch_state_dict
+    from audio_separator_tpu_torch.models.vr_nets import load_vr_net
+    from audio_separator_tpu_torch.ops import vr_chain
+
+    sr = 44100
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        sizes = write_vr_models(model_dir, seed)
+        write_s = time.perf_counter() - t0
+        wav = os.path.join(tmp, "mix.wav")
+        mix = write_seeded_wav(wav, seed, seconds, sr)
+        excerpt = os.path.join(tmp, "excerpt.wav")
+        write_seeded_wav(excerpt, seed + 7, 3.0, sr)
+        ab.reset_launch_counts()
+        att.reset_launch_counts()
+
+        # (a) the v5.1 forward of 4 windows: the first tiles of the track's
+        # normalised magnitudes, as the separator feeds them
+        mp = load_vr_model_params(VR51_DATA["vr_model_param"])
+        geom = vr_chain.band_geometry(mp, True)
+        sd = load_torch_state_dict(os.path.join(model_dir, VR51_MODEL))
+        with torch.no_grad():
+            spec_c, _ = vr_chain.analyze(geom, torch.from_numpy(mix).cuda())
+            mag = spec_c.abs()
+            padded = torch.nn.functional.pad(mag, (64, max(0, 3 * 384 + 448 - mag.shape[-1])))
+            x = torch.stack([padded[..., i * 384: i * 384 + 512] for i in range(4)]) / mag.max()
+            net = load_vr_net(sd, 2 * mp["bins"], 218409, True, 64, device="cuda")
+            n_params = sum(p.numel() for p in net.parameters())
+            n_values = sum(v.size for k, v in sd.items() if "num_batches" not in k)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out_gpu = net(x)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            forward_ms = cuda_time_ms(lambda: net(x), iters=3)
+            cats = category_split(lambda: net(x))
+            bf16 = net.to_compute_dtype(torch.bfloat16)
+            xb = x.to(torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            out_bf16 = bf16(xb).float()
+            peak_bf16_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            forward_bf16_ms = cuda_time_ms(lambda: bf16(xb), iters=3)
+            cats_bf16 = category_split(lambda: bf16(xb))
+            out_gpu, out_bf16 = out_gpu.cpu(), out_bf16.cpu()
+            del net, bf16, xb
+            torch.cuda.empty_cache()
+            cpu_net = load_vr_net(sd, 2 * mp["bins"], 218409, True, 64)
+            with FlopCounterMode(display=False) as counter:
+                t0 = time.perf_counter()
+                out_cpu = cpu_net(x[:1].cpu())
+                cpu_s = time.perf_counter() - t0
+            flop = counter.get_total_flops()
+            del cpu_net
+        sdr = sdr_db(out_cpu[0], out_gpu[0])
+        sdr_bf16 = sdr_db(out_gpu, out_bf16)
+
+        def split(c):
+            busy = sum(c.values())
+            return ", ".join(f"{k} {v:.1f} ({v / busy:.3f})"
+                             for k, v in sorted(c.items(), key=lambda kv: -kv[1]))
+
+        log(f"[vr] model: full-width CascadedNet v5.1 (nout 64, nout_lstm 128, "
+            f"{n_params / 1e6:.2f} M parameters, {n_values / 1e6:.2f} M state-dict values, "
+            f"{sizes[VR51_MODEL]} KB file) over 4band_v4_ms_fullband, fp32, "
+            f"{tuple(x.shape)} -> {tuple(out_gpu.shape)}: SDR vs CPU (window 0) {sdr:.2f} dB "
+            f"(floor {VR_FLOOR_DB}); card first call {first_s:.3f} s, warm forward "
+            f"{forward_ms:.1f} ms for 4 windows ({flop / 1e12:.3f} TFLOP a window by "
+            f"torch.utils.flop_counter, LSTM not counted; "
+            f"{4 * flop / (forward_ms * 1e-3) / 1e12:.1f} TFLOP/s; FMA bound "
+            f"{4 * flop / PEAK_FLOPS['float32'] * 1e3:.1f} ms), peak device memory "
+            f"{peak_gb:.2f} GiB; bf16 forward {forward_bf16_ms:.1f} ms "
+            f"({4 * flop / (forward_bf16_ms * 1e-3) / 1e12:.1f} TFLOP/s, bound "
+            f"{4 * flop / PEAK_FLOPS['bfloat16'] * 1e3:.1f} ms, peak {peak_bf16_gb:.2f} GiB), "
+            f"bf16 vs fp32 card SDR {sdr_bf16:.2f} dB; CPU {cpu_s:.1f} s a window; mask mean "
+            f"{float(out_cpu.mean()):.3f}, std {float(out_cpu.std()):.3f}")
+        log(f"[vr]   forward device ms by category, fp32: {split(cats)}")
+        log(f"[vr]   forward device ms by category, bf16: {split(cats_bf16)}")
+        if not bool(torch.isfinite(out_gpu).all()) or not bool(torch.isfinite(out_bf16).all()):
+            raise AssertionError("v5.1 mask is not finite")
+        if tuple(out_gpu.shape) != (4, 2, mp["bins"] + 1, 384):
+            raise AssertionError(f"v5.1 mask shape {tuple(out_gpu.shape)}")
+        if sdr < VR_FLOOR_DB:
+            raise AssertionError(f"v5.1 float32 card forward at {sdr:.2f} dB, floor {VR_FLOOR_DB}")
+        result = {"forward_ms": forward_ms, "forward_bf16_ms": forward_bf16_ms, "sdr_db": sdr,
+                  "flop_per_window": flop, "peak_gb": peak_gb}
+
+        # (b) separate with the v5.1 model, float32 and bf16
+        n_frame = vr_chain.chain_frames(geom, mix.shape[1])
+        out_len = vr_chain.synth_out_len(geom, n_frame)
+        stems = {}
+        for label, autocast in (("float32", False), ("bf16", True)):
+            out_dir = os.path.join(tmp, f"vr_{label}")
+            t0 = time.perf_counter()
+            sep = vr_separator(model_dir, out_dir, autocast=autocast)
+            sep.load_model(VR51_MODEL)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            files = sep.separate(wav)
+            wall = time.perf_counter() - t0
+            stems[label] = check_vr_stems(out_dir, files, mix, sr, out_len)
+            t0 = time.perf_counter()
+            sep.separate(wav)
+            wall2 = time.perf_counter() - t0
+            prof = profile_separate(sep, wav, tag=f"vr {label}")
+            inst = sep.model_instance
+            if not isinstance(inst, VRSeparator) or (inst._arch_size, inst.is_vr_51_model) != \
+                    (218409, True):
+                raise AssertionError(f"{VR51_MODEL} loaded as {type(inst).__name__} "
+                                     f"({getattr(inst, '_arch_size', None)})")
+            log(f"[vr] separator {device_label}: {seconds:.0f} s stereo WAV, full-width v5.1 "
+                f"({label}), arch {inst._arch_size} by file size, window {inst.window_size}, "
+                f"batch {inst.batch_size}, aggression {inst.aggression}, {n_frame} frames -> "
+                f"{n_frame // 384 + 1} tiles, stems {sorted(files)}: first separate "
+                f"{wall:.3f} s ({seconds / wall:.2f}x realtime), second {wall2:.3f} s "
+                f"({seconds / wall2:.2f}x realtime); load_model {load_s:.2f} s")
+            result[label] = {"wall_s": wall, "wall2_s": wall2, **prof}
+            del sep, inst
+        sdr_stems = {k: sdr_db(stems["float32"][k], stems["bf16"][k]) for k in stems["float32"]}
+        log(f"[vr] bf16 stems vs float32 card stems: SDR "
+            f"{ {k: round(v, 2) for k, v in sdr_stems.items()} } dB (no floor); model files "
+            f"written in {write_s:.1f} s")
+        for label, vr in (("enable_tta", {"enable_tta": True}),
+                          ("enable_post_process", {"enable_post_process": True}),
+                          ("high_end_process", {"high_end_process": True})):
+            out_dir = os.path.join(tmp, f"vr_{label}")
+            sep = vr_separator(model_dir, out_dir, **vr)
+            sep.load_model(VR51_MODEL)
+            t0 = time.perf_counter()
+            files = sep.separate(wav)
+            wall = time.perf_counter() - t0
+            got = check_vr_stems(out_dir, files, mix, sr, out_len)
+            log(f"[vr] separator with {label}: {wall:.3f} s (first call of its instance); "
+                f"stems vs the plain float32 call "
+                f"{ {k: round(sdr_db(stems['float32'][k], v), 2) for k, v in got.items()} } dB")
+            result[label] = {"wall_s": wall}
+            del sep
+        sdrs = vr_card_vs_cpu(model_dir, VR51_MODEL, excerpt)
+        log(f"[vr] separate of a 3 s excerpt, float32 card vs CPU: primary {sdrs[0]:.2f} dB, "
+            f"secondary {sdrs[1]:.2f} dB (floor {VR_FLOOR_DB})")
+        if min(sdrs) < VR_FLOOR_DB:
+            raise AssertionError(f"v5.1 separate card vs CPU {sdrs} dB, floor {VR_FLOOR_DB}")
+        result["separate_card_vs_cpu_db"] = sdrs
+
+        # (c) the full-width v5 sp model, arch 33966, two geometries
+        for name, params in VR5_MODELS.items():
+            out_dir = os.path.join(tmp, f"vr5_{params}")
+            sep = vr_separator(model_dir, out_dir)
+            sep.load_model(name)
+            t0 = time.perf_counter()
+            files = sep.separate(wav)
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sep.separate(wav)
+            wall2 = time.perf_counter() - t0
+            inst = sep.model_instance
+            g5 = vr_chain.band_geometry(inst.mp, False)
+            n5 = vr_chain.chain_frames(g5, mix.shape[1])
+            check_vr_stems(out_dir, files, mix, sr, vr_chain.synth_out_len(g5, n5))
+            n5_params = sum(p.numel() for p in inst.net.parameters())
+            if (inst._arch_size, inst.is_vr_51_model) != (33966, False):
+                raise AssertionError(f"{name} keyed to {inst._arch_size}")
+            log(f"[vr] v5 sp CascadedASPPNet ({n5_params / 1e6:.2f} M parameters, "
+                f"{sizes[name]} KB file -> arch {inst._arch_size}, seven-branch ASPP) over "
+                f"{params}, float32: first separate {wall:.3f} s, second {wall2:.3f} s "
+                f"({seconds / wall2:.2f}x realtime)")
+            result[params] = {"wall_s": wall, "wall2_s": wall2}
+            del sep, inst
+        sdrs5 = vr_card_vs_cpu(model_dir, "vr5_sp_4band.pth", excerpt)
+        log(f"[vr] v5 separate of the 3 s excerpt, float32 card vs CPU: {sdrs5[0]:.2f} / "
+            f"{sdrs5[1]:.2f} dB (floor {VR_FLOOR_DB})")
+        if min(sdrs5) < VR_FLOOR_DB:
+            raise AssertionError(f"v5 separate card vs CPU {sdrs5} dB, floor {VR_FLOOR_DB}")
+
+        # (d) separate_batch of a 16-bit and a 24-bit WAV against solo calls
+        durations = {"a16.wav": (seconds, 16), "b24.wav": (2 * seconds / 3, 24)}
+        wavs = []
+        for i, (name, (secs, depth)) in enumerate(durations.items()):
+            path = os.path.join(tmp, name)
+            write_seeded_wav(path, seed + 1 + i, secs, sr, bit_depth=depth)
+            wavs.append(path)
+        solo_dir, batch_dir = os.path.join(tmp, "vr_solo"), os.path.join(tmp, "vr_batch")
+        sep = vr_separator(model_dir, solo_dir)
+        sep.load_model(VR51_MODEL)
+        sep.separate(wavs[0])  # warm
+        solo, solo_walls = [], []
+        for path in wavs:
+            t0 = time.perf_counter()
+            files = sep.separate(path)
+            solo_walls.append(time.perf_counter() - t0)
+            solo.append({f: audio_io.load_audio(os.path.join(solo_dir, f))[0] for f in files})
+        sep.output_dir = sep.model_instance.output_dir = batch_dir
+        t0 = time.perf_counter()
+        batch_files = sep.separate_batch(wavs)
+        batch_wall = time.perf_counter() - t0
+        worst = math.inf
+        for files, want, (_, depth) in zip(batch_files, solo, durations.values()):
+            if sorted(files) != sorted(want):
+                raise AssertionError(f"separate_batch wrote {files}, solo {sorted(want)}")
+            for f in files:
+                bits = audio_io.probe(os.path.join(batch_dir, f)).bits_per_sample
+                if bits != depth:
+                    raise AssertionError(f"{f}: written at {bits} bits, input had {depth}")
+                got = audio_io.load_audio(os.path.join(batch_dir, f))[0]
+                worst = min(worst, sdr_db(want[f], got))
+        launches = {**ab.LAUNCHES, **att.LAUNCHES}
+        log(f"[vr] separate_batch of a {durations['a16.wav'][0]:.0f} s 16-bit and a "
+            f"{durations['b24.wav'][0]:.0f} s 24-bit WAV (v5.1, float32): {batch_wall:.3f} s "
+            f"against solo {solo_walls[0]:.3f} s + {solo_walls[1]:.3f} s = "
+            f"{sum(solo_walls):.3f} s; worst stem SDR against its solo output {worst:.2f} dB "
+            f"(floor 100); bit depths kept per file; kernel launches on the whole VR path "
+            f"{launches} (the path runs none)")
+        if worst < 100.0:
+            raise AssertionError(f"VR separate_batch differs from solo separate: {worst:.2f} dB")
+        if any(launches.values()):
+            raise AssertionError(f"the VR path launched a kernel: {launches}")
+        result.update({"batch_wall_s": batch_wall, "solo_walls_s": solo_walls,
+                       "launches": launches})
+        return result
+
+
 CLI_CHILD = (
     "import json, sys\n"
     "from audio_separator_tpu_torch.ops import attention_block as ab\n"
@@ -1189,11 +1557,14 @@ def write_synthetic_model(model_dir: str, seed: int) -> None:
 
 
 # Device kernels by what they compute, matched on the kernel name in this
-# order (cuDNN convolutions run implicit-GEMM kernels; norm statistics and
-# other reductions run reduce kernels).
+# order (cuDNN convolutions run implicit-GEMM kernels, PyTorch's own an
+# im2col and a GEMM counted under matmul; norm statistics and other
+# reductions run reduce kernels).
 OP_CATEGORIES = (("fft", ("fft",)),
                  ("attention", ("flash",)),
-                 ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
+                 ("lstm", ("rnn", "lstm")),
+                 ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn",
+                                  "im2col")),
                  ("matmul", ("gemm", "cutlass", "xmma")),
                  ("norm/reduce", ("reduce", "welford", "norm", "moments")),
                  ("copy", ("memcpy", "memset", "copy", "cat")),
@@ -1444,6 +1815,7 @@ def main(argv=None) -> int:
         os.makedirs(mdx_dir)
         phase_mdx_model(args.seed, mdx_dir)
         phase_mdx_separator(ab, att, args.seed, args.seconds, mdx_dir, f"{kind} ({smi})")
+    phase_vr(ab, att, args.seed, args.seconds, f"{kind} ({smi})")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)

@@ -128,13 +128,19 @@ def test_separator_without_cuda_raises(model_dir):
 
 
 def test_separator_rejects_unported_model_types(model_dir, tmp_path):
-    vr = tmp_path / "custom.pth"  # VR, ROADMAP Queue A item 13
-    vr.write_bytes(b"\0")
+    """The four families load since VR (Queue A item 13); a Demucs v3 bag
+    (item 12b) still raises, naming the ROADMAP item."""
+    from test_torch_demucs_separator import _save_package
+
+    _save_package(str(tmp_path), "v3model", "HDemucs", {"sources": ["drums", "bass"]}, {})
+    (tmp_path / "v3bag.yaml").write_text(json.dumps({"models": ["v3model"]}))
     (tmp_path / "download_checks.json").write_text("{}")
-    (tmp_path / "custom.json").write_text("{}")
+    wav = str(tmp_path / "song.wav")
+    audio_io.save_audio(wav, np.zeros((2, 4410), np.float32) + 0.1, 44100)
     sep = Separator(model_file_dir=str(tmp_path), device="cpu", log_level=logging.WARNING)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sep.load_model("custom.pth")
+    sep.load_model("v3bag.yaml")  # the bag's models load at the first separation
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        sep.separate(wav)
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -170,6 +176,18 @@ def test_no_file_of_the_port_imports_jax():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "audio_separator_tpu"}, path
+
+
+def test_vr_band_params_are_read_from_the_ports_own_copies():
+    """The VR band JSONs load from the port's ``data/vr_modelparams``, which
+    holds all 26 of the JAX package's."""
+    from audio_separator_tpu_torch.architectures import vr
+
+    own = os.path.realpath(os.path.join(PORT, "data", "vr_modelparams"))
+    assert os.path.realpath(vr._PARAMS_DIR) == own
+    names = sorted(os.listdir(own))
+    assert len(names) == 26 and names == sorted(os.listdir(os.path.join(
+        REPO, "audio_separator_tpu", "data", "vr_modelparams")))
 
 
 def test_yaml_config_reader_without_pyyaml(monkeypatch, tmp_path):
