@@ -1,13 +1,18 @@
-"""Demucs v4 architecture separator.
+"""Demucs architecture separator (v4 ``HTDemucs`` and v3 ``HDemucs``).
 
 Port of ``audio_separator_tpu/architectures/demucs.py``: bag-of-models with
-per-source weights, shift-trick test-time augmentation (all shifts in one
-engine call), split mode with triangular-weight overlap-add and centred
-context for the tail segments — executed through the shared demix engine,
-with the bag's models as ``HTDemucs`` modules on the separator's device.
-Everything runs in float32: Demucs is precision-sensitive. Demucs v3
-(``HDemucs``) packages and the exact-length split they need are not ported
-yet.
+per-source weights, shift-trick test-time augmentation, and two splits, both
+with triangular transition weights and executed through the shared demix
+engine with the bag's models on the separator's device:
+
+* training-length (v4): every window runs at the training length, the tail
+  with centred context, and all shifts share one engine call;
+* exact-length (v3, ``use_train_segment=False``): full windows batch through
+  the engine, and each window that would run past the track's end (a tail)
+  gets one direct call at its exact length; the shifts are sequential
+  passes, since each sees a different length.
+
+Everything runs in float32: Demucs is precision-sensitive.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.demucs_load import load_demucs_model_or_bag
-from ..models.htdemucs import HTDemucs, HTDemucsConfig
+from ..models.htdemucs import HTDemucs, HTDemucsConfig, build_demucs
 from ..ops.demix import overlap_add_demix
 from ..separator.common import BaseSeparator
 
@@ -75,7 +80,7 @@ class DemucsSeparator(BaseSeparator):
         for cfg, state in loaded:
             if override is not None:
                 cfg = dataclasses.replace(cfg, segment=override)
-            model = HTDemucs(cfg)
+            model = build_demucs(cfg)
             model.load_state_dict(state, strict=True)
             models.append(model.to(self.device).eval())
         self._models = (models, weights)
@@ -179,6 +184,13 @@ class DemucsSeparator(BaseSeparator):
             out += shifted_out[..., max_shift - offset :][..., :length]
         return out / self.shifts
 
+    @staticmethod
+    def _triangle(segment: int) -> np.ndarray:
+        """The transition weight of a window: a triangle peaking at 1."""
+        tri = np.concatenate([np.arange(1, segment // 2 + 1),
+                              np.arange(segment - segment // 2, 0, -1)]).astype(np.float32)
+        return tri / tri.max()
+
     def _train_segment_plan(self, cfg: HTDemucsConfig, track_len: int):
         """Window plan of the training-length split: triangular transition
         weights, centred context for the tail chunks, per-position weight
@@ -186,9 +198,7 @@ class DemucsSeparator(BaseSeparator):
         ``pad_lead`` leading samples and room for the widest centred tail."""
         segment = cfg.training_length
         stride = int((1 - self.overlap) * segment)
-        tri = np.concatenate([np.arange(1, segment // 2 + 1),
-                              np.arange(segment - segment // 2, 0, -1)]).astype(np.float32)
-        tri = tri / tri.max()
+        tri = self._triangle(segment)
         pad_lead = segment  # room for the centred context of tail chunks
         span = pad_lead + track_len + pad_lead + segment
         positions, rows = [], []
@@ -263,9 +273,7 @@ class DemucsSeparator(BaseSeparator):
             return out[..., start : start + length]
 
         if not cfg.use_train_segment:
-            raise NotImplementedError(
-                "the exact-length split (use_train_segment=False, Demucs v3) is not "
-                "ported to PyTorch yet (ROADMAP, Queue A item 12b)")
+            return self._apply_exact_split(model, mix, fetch)
 
         (segment, stride, pad_lead, span, positions, rows,
          divider) = self._train_segment_plan(cfg, length)
@@ -276,3 +284,42 @@ class DemucsSeparator(BaseSeparator):
             batch_size=self.batch_size, positions=positions, divider=divider,
             fetch_stems=fetch if partial else None, device=self.device)
         return out[..., pad_lead : pad_lead + length]
+
+    def _apply_exact_split(self, model: HTDemucs, mix: np.ndarray,
+                           fetch: tuple) -> np.ndarray:
+        """The v3 split: each window at its exact length (no padding to the
+        training length). The full windows go through the engine in batches;
+        it is given a unit divider, so it returns their weighted sum, and the
+        weights' sum is kept here. Each tail (a window that would run past the
+        track's end) gets one direct call at its own length. All is divided
+        by the weights' sum at the end."""
+        cfg = model.cfg
+        length = mix.shape[-1]
+        n_sources = len(cfg.sources)
+        partial = len(fetch) < n_sources
+        segment = cfg.training_length
+        stride = int((1 - self.overlap) * segment)
+        tri = self._triangle(segment)
+        out = np.zeros((len(fetch), 2, length), np.float32)
+        sum_w = np.zeros(length, np.float32)
+        offsets = range(0, length, stride)
+        full = [o for o in offsets if o + segment <= length]
+        if full:
+            pad_len = full[-1] + segment
+            out[..., :pad_len] += overlap_add_demix(
+                model, mix[:, :pad_len], segment, stride, tri, num_stems=n_sources,
+                batch_size=self.batch_size, positions=np.asarray(full),
+                divider=np.ones(pad_len, np.float32),
+                fetch_stems=fetch if partial else None, device=self.device)
+            for o in full:
+                sum_w[o : o + segment] += tri
+        for o in offsets:
+            if o + segment <= length:
+                continue
+            chunk = torch.as_tensor(np.ascontiguousarray(mix[:, o:])[None]).to(self.device)
+            est = model(chunk)[0]
+            est = (est[list(fetch)] if partial else est).cpu().numpy()
+            chunk_len = length - o
+            out[..., o:] += tri[:chunk_len] * est
+            sum_w[o:] += tri[:chunk_len]
+        return out / np.maximum(sum_w, 1e-10)

@@ -1,6 +1,6 @@
 """Checkpoint conversion: upstream torch state dicts → the parameter tree of
 ``models/roformer.Roformer``, and that tree → the module; the JAX package's
-HTDemucs, TFC-TDF and VR trees → their modules.
+HTDemucs, HDemucs, TFC-TDF and VR trees → their modules.
 
 The tree is the JAX package's parameter pytree (numpy leaves: per-depth
 transformer layers stacked along a leading axis, ``nn.Linear`` weights as
@@ -216,6 +216,12 @@ def load_jax_htdemucs_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy the JAX package's HTDemucs parameter tree (nested dicts of numpy
     arrays keyed by the upstream state-dict path split on ``.``) into an
     ``HTDemucs`` module, strictly."""
+    return _load_path_tree(module, tree)
+
+
+def load_jax_hdemucs_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy the JAX package's HDemucs (Demucs v3) parameter tree, in the same
+    layout as HTDemucs's, into an ``HDemucs`` module, strictly."""
     return _load_path_tree(module, tree)
 
 

@@ -4,7 +4,8 @@ Port of ``audio_separator_tpu/models/demucs_load.py``. The pickled ``klass``
 global inside a ``.th`` file references ``demucs.*`` modules, so stub modules
 are registered for unpickling and only the class *name* is used to pick the
 implementation. A package yields a config and a state dict of float32 tensors
-under the upstream keys, which ``models/htdemucs.HTDemucs`` loads strictly.
+under the upstream keys, which ``models/htdemucs.HTDemucs`` (Demucs v4) or
+``HDemucs`` (Demucs v3, ``arch="hdemucs"`` in the config) loads strictly.
 """
 
 from __future__ import annotations
@@ -90,14 +91,10 @@ def load_demucs_checkpoint(path: str) -> Tuple[str, HTDemucsConfig, Dict[str, to
     args = tuple(package.get("args") or ())
     state = package["state"]
 
-    if klass_name == "HDemucs":
+    if klass_name not in ("HTDemucs", "HDemucs"):
         raise NotImplementedError(
-            f"Demucs v3 (HDemucs: BLSTM, LocalState, Wiener filtering) is not ported to "
-            f"PyTorch yet (ROADMAP, Queue A item 12b); file: {path}")
-    if klass_name != "HTDemucs":
-        raise NotImplementedError(
-            f"Demucs model class {klass_name} not supported (HTDemucs v4, and HDemucs v3 "
-            f"once ported; legacy v1/v2/TasNet are unreachable through the model list); "
+            f"Demucs model class {klass_name} not supported (HTDemucs v4 and HDemucs v3 "
+            f"only; legacy v1/v2/TasNet are unreachable through the model list); "
             f"file: {path}")
 
     if isinstance(state, dict) and state.get("__quantized"):
@@ -107,7 +104,7 @@ def load_demucs_checkpoint(path: str) -> Tuple[str, HTDemucsConfig, Dict[str, to
 
         state = restore_quantized_state(state, klass_name, kwargs, args)
 
-    cfg = config_from_kwargs(kwargs, args)
+    cfg = config_from_kwargs(kwargs, args, klass_name)
     tensors: Dict[str, torch.Tensor] = {}
     for key, value in state.items():
         if key.endswith("num_batches_tracked"):

@@ -1,14 +1,20 @@
-"""HTDemucs (Demucs v4 hybrid transformer) as a PyTorch module.
+"""HTDemucs (Demucs v4 hybrid transformer) and HDemucs (Demucs v3) as
+PyTorch modules.
 
-Port of ``audio_separator_tpu/models/htdemucs.py`` (``apply_htdemucs``). The
-module's ``state_dict`` keys are the upstream checkpoint's keys (the JAX
-package's parameter tree is that layout split on ``.``), so a checkpoint's
-state loads with ``load_state_dict(strict=True)`` and a JAX tree with
-``models/convert.load_jax_htdemucs_params``.
+Port of ``audio_separator_tpu/models/htdemucs.py`` (``apply_htdemucs`` and
+``apply_hdemucs``). The modules' ``state_dict`` keys are the upstream
+checkpoint's keys (the JAX package's parameter tree is that layout split on
+``.``), so a checkpoint's state loads with ``load_state_dict(strict=True)``
+and a JAX tree with ``models/convert.load_jax_htdemucs_params`` or
+``load_jax_hdemucs_params``.
 
 Scope: the Demucs v4 configuration family (complex-as-channels, dense
 attention, norm-first transformer with layer scale and output norm) —
-htdemucs / htdemucs_ft / htdemucs_6s. Everything runs in float32: Demucs is
+htdemucs / htdemucs_ft / htdemucs_6s — and the Demucs v3 hybrid (``HDemucs``:
+six levels, GroupNorm past ``norm_starts``, BLSTM and LocalState branches in
+the deep DConvs, no transformer, the decoder fed zeros, and either the
+complex-as-channels head or the magnitude head with the multichannel Wiener
+filter of ``models/filtering.py``). Everything runs in float32: Demucs is
 precision-sensitive.
 
 The self-attention layers of the cross-transformer go through
@@ -33,11 +39,14 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.precision import full_float32
 from ..ops.stft import hann_window, istft, stft
+from .filtering import wiener
+from .lstm import LSTM
 
 
 @dataclass(frozen=True)
 class HTDemucsConfig:
     sources: Tuple[str, ...]
+    arch: str = "htdemucs"  # "htdemucs" (v4) | "hdemucs" (v3)
     audio_channels: int = 2
     channels: int = 48
     growth: int = 2
@@ -64,6 +73,12 @@ class HTDemucsConfig:
     samplerate: int = 44100
     segment: float = 10.0
     use_train_segment: bool = True
+    # HDemucs (v3) only: the levels from which the DConvs hold a BLSTM and a
+    # LocalState, and the magnitude head's Wiener filter (cac=False).
+    dconv_lstm: int = 4
+    dconv_attn: int = 4
+    wiener_iters: int = 0
+    wiener_residual: bool = False
 
     @property
     def hop_length(self) -> int:
@@ -74,11 +89,23 @@ class HTDemucsConfig:
         return int(self.segment * self.samplerate)
 
 
-def config_from_kwargs(kwargs: Dict[str, Any], args: tuple = ()) -> HTDemucsConfig:
-    """Build the config from a demucs checkpoint's (args, kwargs) record."""
+# The HDemucs constructor's defaults where they differ from HTDemucs's.
+HDEMUCS_DEFAULTS = {"depth": 6, "segment": 40.0, "dconv_comp": 4}
+
+
+def config_from_kwargs(kwargs: Dict[str, Any], args: tuple = (),
+                       klass_name: str = "HTDemucs") -> HTDemucsConfig:
+    """Build the config from a demucs checkpoint's (args, kwargs) record.
+
+    An ``HDemucs`` record takes that constructor's defaults and evaluates
+    each chunk at its exact length (``use_train_segment=False``), as the JAX
+    loader does."""
     sources = tuple(kwargs.get("sources") or (args[0] if args else ()))
     known = {f.name for f in fields(HTDemucsConfig)}
     picked = {k: v for k, v in kwargs.items() if k in known and k != "sources"}
+    if klass_name == "HDemucs":
+        picked = {**HDEMUCS_DEFAULTS, **picked, "arch": "hdemucs",
+                  "use_train_segment": False}
     if "segment" in picked:
         picked["segment"] = float(picked["segment"])
     return HTDemucsConfig(sources=sources, **picked)
@@ -149,20 +176,99 @@ class LayerScale(nn.Module):
         return self.scale * x if self.channel_last else self.scale[:, None] * x
 
 
+class BLSTM(nn.Module):
+    """Two bidirectional LSTM layers over ``(B, C, T)``, a linear layer back
+    to ``C`` channels and the residual. A sequence longer than ``max_steps``
+    runs as frames of ``max_steps`` at a stride of half that, each frame's
+    outer quarter-strides trimmed at the seams (JAX ``_blstm``)."""
+
+    def __init__(self, dim: int, max_steps: int = 200):
+        super().__init__()
+        self.max_steps = max_steps
+        self.lstm = LSTM(dim, dim, num_layers=2, bidirectional=True)
+        self.linear = nn.Linear(2 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, t = x.shape
+        residual = x
+        framed = t > self.max_steps
+        if framed:
+            width, stride = self.max_steps, self.max_steps // 2
+            n_frames = -(-t // stride)
+            x = F.pad(x, (0, (n_frames - 1) * stride + width - t))
+            x = x.unfold(-1, width, stride)  # (B, C, n_frames, width)
+            x = x.permute(0, 2, 1, 3).reshape(-1, c, width)
+        y = self.linear(self.lstm(x.permute(2, 0, 1)))  # (T', B', C)
+        x = y.permute(1, 2, 0)
+        if framed:
+            frames = x.reshape(b, n_frames, c, width)
+            limit = stride // 2
+            pieces = [frames[:, 0, :, :-limit]]
+            pieces += [frames[:, k, :, limit:-limit] for k in range(1, n_frames - 1)]
+            pieces.append(frames[:, -1, :, limit:])
+            x = torch.cat(pieces, dim=-1)[..., :t]
+        return x + residual
+
+
+class LocalState(nn.Module):
+    """Attention over time with a learnt decay in the distance: per head,
+    the key·query products plus ``Σ_f −f·|t−s|·sigmoid(q_f(s))/2 / √ndecay``,
+    the diagonal set to −100, a softmax over the key axis, then the content
+    weighted and projected back, plus the residual (JAX ``_local_state``).
+    Plain products: the JAX package computes it in XLA, not in a kernel."""
+
+    def __init__(self, channels: int, heads: int = 4, ndecay: int = 4):
+        super().__init__()
+        self.heads, self.ndecay = heads, ndecay
+        self.content = nn.Conv1d(channels, channels, 1)
+        self.query = nn.Conv1d(channels, channels, 1)
+        self.key = nn.Conv1d(channels, channels, 1)
+        self.query_decay = nn.Conv1d(channels, heads * ndecay, 1)
+        self.proj = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, t = x.shape
+        h = self.heads
+        queries = self.query(x).reshape(b, h, -1, t)
+        keys = self.key(x).reshape(b, h, -1, t)
+        dots = torch.matmul(keys.transpose(-1, -2), queries)  # (B, H, T_key, T_query)
+        dots = dots / keys.shape[2] ** 0.5
+        # The decay kernel -f·|t−s|/√ndecay is separable: weigh each query's
+        # decays by f first, then scale the distance matrix once.
+        decays = torch.arange(1, self.ndecay + 1, dtype=x.dtype, device=x.device)
+        decay_q = torch.sigmoid(self.query_decay(x).reshape(b, h, self.ndecay, t)) / 2
+        rate = torch.einsum("f,bhfs->bhs", decays, decay_q) / self.ndecay ** 0.5
+        idx = torch.arange(t, device=x.device, dtype=x.dtype)
+        distance = (idx[:, None] - idx[None, :]).abs()
+        dots = dots - distance * rate[:, :, None, :]
+        dots = dots.masked_fill(torch.eye(t, dtype=torch.bool, device=x.device), -100.0)
+        weights = torch.softmax(dots, dim=2)
+        content = self.content(x).reshape(b, h, -1, t)
+        result = torch.matmul(content, weights).reshape(b, -1, t)
+        return x + self.proj(result)
+
+
 class DConv(nn.Module):
     """Residual branch of dilated convolutions over ``(B, C, T)``:
-    conv → GroupNorm → GELU → conv → GroupNorm → GLU → scale, per depth."""
+    conv → GroupNorm → GELU → [BLSTM] → [LocalState] → conv → GroupNorm →
+    GLU → scale, per depth (the bracketed modules in Demucs v3's deep levels,
+    at Sequential index 3 and on, as upstream inserts them)."""
 
-    def __init__(self, channels: int, compress: float, depth: int):
+    def __init__(self, channels: int, compress: float, depth: int,
+                 lstm: bool = False, attn: bool = False):
         super().__init__()
         hidden = int(channels / compress)
-        self.layers = nn.ModuleList(
-            nn.Sequential(
-                nn.Conv1d(channels, hidden, 3, dilation=2 ** d, padding=2 ** d),
-                nn.GroupNorm(1, hidden), nn.GELU(),
-                nn.Conv1d(hidden, 2 * channels, 1), nn.GroupNorm(1, 2 * channels),
-                nn.GLU(1), LayerScale(channels))
-            for d in range(depth))
+        self.layers = nn.ModuleList()
+        for d in range(depth):
+            mods = [nn.Conv1d(channels, hidden, 3, dilation=2 ** d, padding=2 ** d),
+                    nn.GroupNorm(1, hidden), nn.GELU(),
+                    nn.Conv1d(hidden, 2 * channels, 1), nn.GroupNorm(1, 2 * channels),
+                    nn.GLU(1), LayerScale(channels)]
+            if attn:
+                mods.insert(3, LocalState(hidden))
+            if lstm:
+                mods.insert(3, BLSTM(hidden))
+            self.layers.append(nn.Sequential(*mods))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
@@ -182,7 +288,8 @@ def _dconv_over_time(dconv: DConv, y: torch.Tensor) -> torch.Tensor:
 
 class HEncLayer(nn.Module):
     def __init__(self, chin: int, chout: int, kernel: int, stride: int, pad: int,
-                 freq: bool, empty: bool, norm: bool, cfg: HTDemucsConfig):
+                 freq: bool, empty: bool, norm: bool, cfg: HTDemucsConfig,
+                 lstm: bool = False, attn: bool = False):
         super().__init__()
         self.freq, self.stride, self.empty = freq, stride, empty
         conv = nn.Conv2d if freq else nn.Conv1d
@@ -199,7 +306,7 @@ class HEncLayer(nn.Module):
         if norm:
             self.norm2 = nn.GroupNorm(cfg.norm_groups, 2 * chout)
         if cfg.dconv_mode & 1:
-            self.dconv = DConv(chout, cfg.dconv_comp, cfg.dconv_depth)
+            self.dconv = DConv(chout, cfg.dconv_comp, cfg.dconv_depth, lstm, attn)
 
     def forward(self, x: torch.Tensor, inject: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.freq:
@@ -228,7 +335,8 @@ class HEncLayer(nn.Module):
 
 class HDecLayer(nn.Module):
     def __init__(self, chin: int, chout: int, kernel: int, stride: int, pad: int,
-                 freq: bool, empty: bool, norm: bool, last: bool, cfg: HTDemucsConfig):
+                 freq: bool, empty: bool, norm: bool, last: bool, cfg: HTDemucsConfig,
+                 lstm: bool = False, attn: bool = False):
         super().__init__()
         self.freq, self.pad, self.empty, self.last, self.chin = freq, pad, empty, last, chin
         if freq:
@@ -247,7 +355,7 @@ class HDecLayer(nn.Module):
         if norm:
             self.norm1 = nn.GroupNorm(cfg.norm_groups, 2 * chin)
         if cfg.dconv_mode & 2:
-            self.dconv = DConv(chin, cfg.dconv_comp, cfg.dconv_depth)
+            self.dconv = DConv(chin, cfg.dconv_comp, cfg.dconv_depth, lstm, attn)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor],
                 length: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -467,10 +575,10 @@ def _layer_geometry(cfg: HTDemucsConfig) -> List[Dict[str, Any]]:
 class HTDemucs(nn.Module):
     """``mix (B, C, T)`` → ``(B, S, C, T)``."""
 
+    v3 = False  # HDemucs: no transformer, decoder fed zeros, BLSTM / LocalState
+
     def __init__(self, cfg: HTDemucsConfig):
         super().__init__()
-        if not cfg.cac:
-            raise NotImplementedError("HTDemucs with cac=False is not a Demucs v4 model")
         self.cfg = cfg
         self.geometry = _layer_geometry(cfg)
         self.encoder = nn.ModuleList()
@@ -479,33 +587,38 @@ class HTDemucs(nn.Module):
         self.tdecoder = nn.ModuleList()
 
         chin = cfg.audio_channels
-        chin_z = chin * 2  # complex as channels
+        chin_z = chin * 2 if cfg.cac else chin  # complex as channels, or magnitudes
         chout = chout_z = cfg.channels
         tpad = cfg.kernel_size // 4
         for index, g in enumerate(self.geometry):
             norm = index >= cfg.norm_starts
+            branches = {"lstm": self.v3 and index >= cfg.dconv_lstm,
+                        "attn": self.v3 and index >= cfg.dconv_attn}
             if g["last_freq"]:
                 chout_z = max(chout, chout_z)
                 chout = chout_z
             self.encoder.append(HEncLayer(chin_z, chout_z, g["kernel"], g["stride"], g["pad"],
-                                          g["freq"], False, norm, cfg))
+                                          g["freq"], False, norm, cfg, **branches))
             if g["freq"]:
                 self.tencoder.append(HEncLayer(chin, chout, cfg.kernel_size, cfg.stride, tpad,
-                                               False, g["last_freq"], norm, cfg))
+                                               False, g["last_freq"], norm, cfg, **branches))
             if index == 0:
                 chin = cfg.audio_channels * len(cfg.sources)
-                chin_z = chin * 2
+                chin_z = chin * 2 if cfg.cac else chin
             self.decoder.insert(0, HDecLayer(chout_z, chin_z, g["kernel"], g["stride"],
-                                             g["pad"], g["freq"], False, norm, index == 0, cfg))
+                                             g["pad"], g["freq"], False, norm, index == 0, cfg,
+                                             **branches))
             if g["freq"]:
                 self.tdecoder.insert(0, HDecLayer(chout, chin, cfg.kernel_size, cfg.stride,
                                                   tpad, False, g["last_freq"], norm,
-                                                  index == 0, cfg))
+                                                  index == 0, cfg, **branches))
             chin, chin_z = chout, chout_z
             chout, chout_z = int(cfg.growth * chout), int(cfg.growth * chout_z)
             if index == 0 and cfg.freq_emb:
                 self.freq_emb = ScaledEmbedding(cfg.nfft // 2 // cfg.stride, chin_z,
                                                 cfg.emb_scale)
+        if self.v3:
+            return
 
         t_channels = cfg.channels * cfg.growth ** (cfg.depth - 1)
         if cfg.bottom_channels:
@@ -522,19 +635,37 @@ class HTDemucs(nn.Module):
         with full_float32():
             return self._forward(mix)
 
+    def _bottleneck(self, x: torch.Tensor, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cross-transformer between the two branches' deepest levels."""
+        if not hasattr(self, "crosstransformer"):
+            return x, xt
+        cfg = self.cfg
+        if cfg.bottom_channels:
+            bb, _, ff, tt = x.shape
+            x = self.channel_upsampler(x.reshape(bb, -1, ff * tt)).reshape(bb, -1, ff, tt)
+            xt = self.channel_upsampler_t(xt)
+        x, xt = self.crosstransformer(x, xt)
+        if cfg.bottom_channels:
+            x = self.channel_downsampler(x.reshape(bb, -1, ff * tt)).reshape(bb, -1, ff, tt)
+            xt = self.channel_downsampler_t(xt)
+        return x, xt
+
     def _forward(self, mix: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         mix = mix.float()
         length = mix.shape[-1]
         length_pre_pad = None
-        if cfg.use_train_segment and length < cfg.training_length:
+        if not self.v3 and cfg.use_train_segment and length < cfg.training_length:
             mix = F.pad(mix, (0, cfg.training_length - length))
             length_pre_pad = length
             length = cfg.training_length
 
         z = _model_spec(mix, cfg)  # (B, C, Fr, T) complex
         b, c, fr, t = z.shape
-        x = torch.stack([z.real, z.imag], dim=2).reshape(b, c * 2, fr, t)
+        if cfg.cac:
+            x = torch.stack([z.real, z.imag], dim=2).reshape(b, c * 2, fr, t)
+        else:
+            x = z.abs()
 
         mean = x.mean(dim=(1, 2, 3), keepdim=True)
         std = x.std(dim=(1, 2, 3), keepdim=True)
@@ -563,15 +694,7 @@ class HTDemucs(nn.Module):
                 x = x + cfg.freq_emb * emb
             saved.append(x)
 
-        if hasattr(self, "crosstransformer"):
-            if cfg.bottom_channels:
-                bb, _, ff, tt = x.shape
-                x = self.channel_upsampler(x.reshape(bb, -1, ff * tt)).reshape(bb, -1, ff, tt)
-                xt = self.channel_upsampler_t(xt)
-            x, xt = self.crosstransformer(x, xt)
-            if cfg.bottom_channels:
-                x = self.channel_downsampler(x.reshape(bb, -1, ff * tt)).reshape(bb, -1, ff, tt)
-                xt = self.channel_downsampler_t(xt)
+        x, xt = self._bottleneck(x, xt)
 
         offset = cfg.depth - len(self.tdecoder)
         for idx, decode in enumerate(self.decoder):
@@ -588,9 +711,7 @@ class HTDemucs(nn.Module):
         n_sources = len(cfg.sources)
         x = x.reshape(b, n_sources, -1, fr, t)
         x = x * std[:, None] + mean[:, None]
-        out = x.reshape(b, n_sources, -1, 2, fr, t)
-        zout = torch.complex(out[:, :, :, 0].contiguous(), out[:, :, :, 1].contiguous())
-        xf = _model_ispec(zout, length, cfg)
+        xf = _model_ispec(self._head(x, z), length, cfg)
 
         xt = xt.reshape(b, n_sources, -1, length)
         xt = xt * stdt[:, None] + meant[:, None]
@@ -598,3 +719,52 @@ class HTDemucs(nn.Module):
         if length_pre_pad is not None:
             result = result[..., :length_pre_pad]
         return result
+
+    def _head(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """The frequency branch's output ``(B, S, C', Fr, T)`` → the sources'
+        complex spectrograms ``(B, S, C, Fr, T)``: complex as channels, or a
+        magnitude head (``cac=False``) whose raw values (no ``abs``: a negative
+        value flips the mixture's phase at that bin, as upstream) scale the
+        mixture's phase (``wiener_iters < 0``) or seed the Wiener EM, run in
+        300-frame windows so that its statistics and scaling match upstream;
+        ``wiener_residual`` adds a residual source and drops it again."""
+        cfg = self.cfg
+        if cfg.cac:
+            b, s, c2, fr, t = x.shape
+            out = x.reshape(b, s, c2 // 2, 2, fr, t)
+            return torch.complex(out[:, :, :, 0].contiguous(), out[:, :, :, 1].contiguous())
+        if cfg.wiener_iters < 0:
+            zm = z[:, None]
+            return zm / (1e-8 + zm.abs()) * x
+        window = 300
+        outs = []
+        for mags, mix_z in zip(x, z):
+            tfcs = mags.permute(3, 2, 1, 0)  # (T, F, C, S)
+            tfc = mix_z.permute(2, 1, 0)  # (T, F, C)
+            y = torch.cat([wiener(tfcs[pos : pos + window], tfc[pos : pos + window],
+                                  iterations=max(cfg.wiener_iters, 0),
+                                  residual=cfg.wiener_residual)
+                           for pos in range(0, tfcs.shape[0], window)], dim=0)
+            if cfg.wiener_residual:
+                y = y[..., :-1]
+            outs.append(y.permute(3, 2, 1, 0))  # (S, C, F, T)
+        return torch.stack(outs)
+
+
+class HDemucs(HTDemucs):
+    """Demucs v3 (``hdemucs_mmi``): ``mix (B, C, T)`` → ``(B, S, C, T)`` at the
+    input's exact length. The levels past ``dconv_lstm`` / ``dconv_attn`` hold
+    a BLSTM / LocalState in their DConvs; there is no transformer, and the
+    decoder starts from zeros, so only the skips carry signal (JAX
+    ``apply_hdemucs``)."""
+
+    v3 = True
+
+    def _bottleneck(self, x: torch.Tensor, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return torch.zeros_like(x), xt
+
+
+def build_demucs(cfg: HTDemucsConfig) -> HTDemucs:
+    """The module a config describes: ``HDemucs`` for ``arch="hdemucs"``,
+    else ``HTDemucs``."""
+    return HDemucs(cfg) if cfg.arch == "hdemucs" else HTDemucs(cfg)

@@ -1,8 +1,9 @@
 """Seeded random parameter trees — for smoke runs and benchmarks where no
 trained checkpoint is on disk. RoFormer trees are in the layout of
 ``models/convert.convert_roformer`` (load one with ``convert.load_jax_params``);
-HTDemucs trees are in the upstream state-dict layout split on ``.`` (load one
-with ``convert.load_jax_htdemucs_params``)."""
+HTDemucs and HDemucs trees are in the upstream state-dict layout split on
+``.`` (load one with ``convert.load_jax_htdemucs_params`` or
+``load_jax_hdemucs_params``)."""
 
 from __future__ import annotations
 
@@ -120,26 +121,49 @@ def htdemucs_full_config(sources=("drums", "bass", "other", "vocals")) -> HTDemu
         bottom_channels=512, segment=7.8, use_train_segment=True)
 
 
+def hdemucs_full_config(sources=("drums", "bass", "other", "vocals")) -> HTDemucsConfig:
+    """The published ``hdemucs_mmi`` (signature 75fc33f5): the ``HDemucs``
+    constructor's defaults, evaluated at each chunk's exact length."""
+    return HTDemucsConfig(
+        sources=tuple(sources), arch="hdemucs", channels=48, growth=2, nfft=4096, depth=6,
+        kernel_size=8, stride=4, norm_starts=4, norm_groups=4, dconv_depth=2, dconv_comp=4,
+        dconv_lstm=4, dconv_attn=4, freq_emb=0.2, cac=True, samplerate=44100, segment=40.0,
+        use_train_segment=False)
+
+
+_V3_ONLY = ("arch", "use_train_segment", "t_layers", "t_heads", "t_hidden_scale",
+            "t_cross_first", "bottom_channels")
+
+
 def htdemucs_kwargs(cfg: HTDemucsConfig) -> Dict[str, Any]:
-    """A config as the constructor arguments a checkpoint package records."""
-    return {**cfg.__dict__, "sources": list(cfg.sources)}
+    """A config as the constructor arguments a checkpoint package records
+    (an ``HDemucs`` constructor takes no transformer arguments)."""
+    kwargs = {**cfg.__dict__, "sources": list(cfg.sources)}
+    if cfg.arch == "hdemucs":
+        kwargs = {k: v for k, v in kwargs.items() if k not in _V3_ONLY}
+    return kwargs
+
+
+def demucs_class_name(cfg: HTDemucsConfig) -> str:
+    return "HDemucs" if cfg.arch == "hdemucs" else "HTDemucs"
 
 
 def init_htdemucs_params(cfg: HTDemucsConfig, seed: int = 0,
                          layer_scale: float = 0.5) -> Dict[str, Any]:
-    """A tree with every key and shape of the upstream state dict. Weights are
+    """A tree with every key and shape of the upstream state dict of an
+    ``HTDemucs``, or of an ``HDemucs`` for ``arch="hdemucs"``. Weights are
     drawn from N(0, 1/fan_in) (so activations keep their scale through the
     depth), norm gains are one, biases small, and the LayerScale gains
     ``layer_scale`` rather than the 1e-4 of a fresh model, so that the DConv
     branches and the transformer contribute to the output."""
     rng = np.random.default_rng(seed)
     tree: Dict[str, Any] = {}
-    for key, shape in demucs_param_manifest("HTDemucs", htdemucs_kwargs(cfg)):
+    for key, shape in demucs_param_manifest(demucs_class_name(cfg), htdemucs_kwargs(cfg)):
         parts = key.split(".")
         leaf = parts[-1]
         if leaf == "scale":
             value = np.full(shape, layer_scale, np.float32)
-        elif leaf in ("bias", "in_proj_bias"):
+        elif leaf.startswith("bias") or leaf == "in_proj_bias":  # LSTM: bias_ih_l0, ...
             value = (rng.standard_normal(shape) * 0.02).astype(np.float32)
         elif len(shape) == 1:  # norm gains
             value = np.ones(shape, np.float32)

@@ -1,20 +1,25 @@
 """Host-side waveform helpers used by the separators (numpy in and out).
 
 Port of the JAX package's ``ops/spec.py``: peak normalisation, shape
-matching, the VR helpers (magnitude and phase, window padding), and the
-spectral inversion of a stem against its mixture
-(``invert_stem``, the MDX secondary under ``invert_using_spec``), whose STFT
-runs in torch on the device given.
+matching, the VR helpers (magnitude and phase, window padding), the spectral
+inversion of a stem against its mixture (``invert_stem``, the MDX secondary
+under ``invert_using_spec``), and the ensembling helpers (the UVR max/min
+spectrum selection, the least-noisy-chunk waveform ensemble, the weighted
+average of two stems). The STFTs run in torch on the device given, and so does
+the spectrum selection.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from .stft import hann_window, istft, stft
+
+MAX_SPEC = "max_spec"
+MIN_SPEC = "min_spec"
 
 
 def normalize(wave: np.ndarray, max_peak: float = 1.0,
@@ -50,16 +55,24 @@ _INV_N_FFT = 2048
 _INV_HOP = 1024
 
 
+def stft2048(wave: torch.Tensor) -> torch.Tensor:
+    """The inversion and ensembling STFT on ``wave``'s device: n_fft 2048,
+    hop 1024, periodic Hann, constant padding."""
+    return stft(wave.float(), _INV_N_FFT, _INV_HOP, hann_window(_INV_N_FFT, device=wave.device),
+                pad_mode="constant")
+
+
+def istft2048(spec: torch.Tensor, length=None) -> torch.Tensor:
+    return istft(spec, _INV_N_FFT, _INV_HOP, hann_window(_INV_N_FFT, device=spec.device),
+                 length=length)
+
+
 def _stft2048(wave: np.ndarray, device="cpu") -> np.ndarray:
-    spec = stft(torch.as_tensor(wave.astype(np.float32), device=device), _INV_N_FFT,
-                _INV_HOP, hann_window(_INV_N_FFT, device=device), pad_mode="constant")
-    return spec.cpu().numpy()
+    return stft2048(torch.as_tensor(wave.astype(np.float32), device=device)).cpu().numpy()
 
 
 def _istft2048(spec: np.ndarray, device="cpu") -> np.ndarray:
-    wave = istft(torch.as_tensor(spec, device=device), _INV_N_FFT, _INV_HOP,
-                 hann_window(_INV_N_FFT, device=device))
-    out = wave.cpu().numpy()
+    out = istft2048(torch.as_tensor(spec, device=device)).cpu().numpy()
     if out.ndim == 1:
         out = np.stack([out, out])
     return out
@@ -88,6 +101,59 @@ def invert_stem(mixture: np.ndarray, stem: np.ndarray, device="cpu") -> np.ndarr
     stem_spec = _stft2048(stem.T if stem.shape[0] != 2 else stem, device)
     out = _istft2048(invert_audio([mix_spec, stem_spec]), device)
     return -out.T
+
+
+def ensembling(algorithm: str, inputs: List[torch.Tensor]) -> torch.Tensor:
+    """MAX_SPEC / MIN_SPEC selection (ref: spec_utils.ensembling:583-608):
+    fold the inputs left to right, keeping at each bin the one of larger
+    (smaller) magnitude, ties to the later input; the time axis is cropped to
+    the shorter of each pair (spectra or waveforms alike). Tensors in, a
+    tensor out, on their device."""
+    acc = inputs[0]
+    for nxt in inputs[1:]:
+        ln = min(acc.shape[-1], nxt.shape[-1])
+        acc, nxt = acc[..., :ln], nxt[..., :ln]
+        if algorithm == MIN_SPEC:
+            acc = torch.where(nxt.abs() <= acc.abs(), nxt, acc)
+        elif algorithm == MAX_SPEC:
+            acc = torch.where(nxt.abs() >= acc.abs(), nxt, acc)
+        else:
+            raise ValueError(f"unknown spec ensemble algorithm {algorithm}")
+    return acc
+
+
+def ensemble_spec_waves(algorithm: str, waves: Sequence[np.ndarray],
+                        device="cpu") -> np.ndarray:
+    """MAX/MIN_SPEC over ``(C, T)`` waveforms: STFT → select → iSTFT on
+    ``device``, cropped to the shortest input."""
+    specs = [stft2048(torch.as_tensor(np.asarray(w, np.float32), device=device))
+             for w in waves]
+    out = istft2048(ensembling(algorithm, specs)).cpu().numpy()
+    if out.ndim == 1:  # a 1-D wave comes back as two equal channels
+        out = np.stack([out, out])
+    return out[..., :min(w.shape[-1] for w in waves)]
+
+
+def ensemble_wav(waveforms: Sequence[np.ndarray], split_size: int = 240) -> np.ndarray:
+    """Least-noisy-chunk waveform ensemble (ref: spec_utils.ensemble_wav:1245-1267):
+    split along the time (last) axis, and take each piece from the input
+    whose piece has the least mean magnitude."""
+    pieces = [np.array_split(w, split_size, axis=-1) for w in waveforms]
+    out = []
+    for idx in range(split_size):
+        means = [np.abs(p[idx]).mean() if p[idx].size else np.inf for p in pieces]
+        out.append(pieces[int(np.argmin(means))][idx])
+    return np.concatenate(out, axis=-1)
+
+
+def average_dual_sources(a: np.ndarray, b: np.ndarray, value: float) -> np.ndarray:
+    """Weighted average of two stems, the shorter zero-padded
+    (ref: spec_utils.average_dual_sources:847)."""
+    if a.shape > b.shape:
+        b = to_shape(b, a.shape)
+    if a.shape < b.shape:
+        a = to_shape(a, b.shape)
+    return a * value + b * (1 - value)
 
 
 def to_shape(x: np.ndarray, target_shape) -> np.ndarray:

@@ -3,12 +3,15 @@
 Port of ``audio_separator_tpu/separator/separator.py``: the constructor,
 device setup, the registry's listing and download methods, ``load_model``
 (registry lookup, model data resolution, architecture instantiation),
-``separate``, ``separate_batch``, ``warmup`` and chunked processing
-(``chunk_duration``). The four families are ported: MDX (ONNX Conv-TDF),
-VR (CascadedASPPNet v5 and CascadedNet v5.1 over the multiband chain), MDXC
-(BS/Mel RoFormer and TFC-TDF, MDX23C) and Demucs v4 (HTDemucs bags); Demucs
-v3, ensembles and the device mesh are not yet (ROADMAP, Queue A), and loading
-or asking for them raises ``NotImplementedError``.
+``separate``, ``separate_batch``, ``warmup``, chunked processing
+(``chunk_duration``) and multi-model ensembles (a list of models or a named
+preset: each model separates the file, the stems are grouped by their
+canonical name and each group is ensembled, ``separator/ensembler.py``). The
+four families are ported: MDX (ONNX Conv-TDF), VR (CascadedASPPNet v5 and
+CascadedNet v5.1 over the multiband chain), MDXC (BS/Mel RoFormer and
+TFC-TDF, MDX23C) and Demucs (v4 HTDemucs and v3 HDemucs bags). The device
+mesh is not ported yet (ROADMAP, Queue A item 16): asking for it raises
+``NotImplementedError``.
 
 Computation runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, ``device=None`` raises.
@@ -23,7 +26,7 @@ import re
 import shutil
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -33,15 +36,45 @@ from ..io import audio as audio_io
 from ..io.yaml_config import read_yaml_config
 from ..utils.profiling import device_trace
 from .chunking import AudioChunker
-from .registry import ModelRegistry, get_model_hash
+from .ensembler import ALGORITHMS as VALID_ENSEMBLE_ALGORITHMS
+from .ensembler import Ensembler
+from .registry import ModelRegistry, _load_data_json, get_model_hash
 
 DEFAULT_MODEL = "model_bs_roformer_ep_317_sdr_12.9755.ckpt"
+
+# A member's stem name → the ensemble group it joins.
+STEM_NAME_MAP = {
+    "vocals": "Vocals",
+    "instrumental": "Instrumental",
+    "inst": "Instrumental",
+    "karaoke": "Instrumental",
+    "other": "Other",
+    "no_vocals": "Instrumental",
+    "drums": "Drums",
+    "bass": "Bass",
+    "guitar": "Guitar",
+    "piano": "Piano",
+    "synthesizer": "Synthesizer",
+    "strings": "Strings",
+    "woodwinds": "Woodwinds",
+    "brass": "Brass",
+    "wind inst": "Wind Inst",
+    "lead vocals": "Lead Vocals",
+    "backing vocals": "Backing Vocals",
+    "primary stem": "Primary Stem",
+    "secondary stem": "Secondary Stem",
+}
+# Prefixes dropped from a member's file name in a custom ensemble's output name.
+_SLUG_PREFIXES = ("mel_band_roformer_", "melband_roformer_", "bs_roformer_",
+                  "model_bs_roformer_", "UVR-MDX-NET-", "UVR_MDXNET_")
 
 _AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".opus", ".m4a", ".aiff", ".ac3")
 
 
 class Separator:
     """Audio stem separation orchestrator (PyTorch; CUDA by default)."""
+
+    VALID_ENSEMBLE_ALGORITHMS = VALID_ENSEMBLE_ALGORITHMS
 
     def __init__(
         self,
@@ -111,16 +144,30 @@ class Separator:
         self.use_autocast = use_autocast
         if use_directml:
             self.logger.warning("use_directml is ignored: this build runs on CUDA or the CPU")
-        if (ensemble_algorithm is not None or ensemble_weights is not None
-                or ensemble_preset is not None):
-            raise NotImplementedError(
-                "ensembling is not ported to PyTorch yet (ROADMAP, Queue A item 14)")
         if use_mesh:
             raise NotImplementedError(
                 "multi-device execution (use_mesh) is not ported to PyTorch yet "
                 "(ROADMAP, Queue A item 16)")
         self.chunk_duration = chunk_duration
         self.trace_dir = trace_dir
+
+        # Ensembles: a preset supplies the models, and the algorithm and
+        # weights where the caller gives none.
+        self.ensemble_algorithm = ensemble_algorithm
+        self.ensemble_weights = ensemble_weights
+        self.ensemble_preset = ensemble_preset
+        self._ensemble_preset_models = None
+        if ensemble_preset is not None:
+            preset = self._load_ensemble_preset(ensemble_preset)
+            self._ensemble_preset_models = preset["models"]
+            if self.ensemble_algorithm is None:
+                self.ensemble_algorithm = preset.get("algorithm", "avg_wave")
+            if self.ensemble_weights is None:
+                self.ensemble_weights = preset.get("weights")
+        if (self.ensemble_algorithm is not None
+                and self.ensemble_algorithm not in VALID_ENSEMBLE_ALGORITHMS):
+            raise ValueError(f"Invalid ensemble algorithm: {self.ensemble_algorithm}. "
+                             f"Valid options: {', '.join(VALID_ENSEMBLE_ALGORITHMS)}")
 
         self.arch_specific_params = {
             "MDX": mdx_params if mdx_params is not None else {
@@ -141,6 +188,7 @@ class Separator:
         self.registry = ModelRegistry(self.model_file_dir, self.logger)
         self.model_instance = None
         self.model_filename = None
+        self.model_filenames: List[str] = []
         self.model_is_uvr_vip = False
         self.model_friendly_name = None
         self.device = None
@@ -257,12 +305,26 @@ class Separator:
                 return json.load(f)
         return self.registry.load_model_data_using_hash(model_path)
 
-    def load_model(self, model_filename: str = DEFAULT_MODEL):
+    def load_model(self, model_filename: Union[str, List[str]] = DEFAULT_MODEL):
         """Resolve the model's files (downloading only what is missing from
-        ``model_file_dir``) and instantiate its architecture separator."""
+        ``model_file_dir``) and instantiate its architecture separator. A list
+        of two or more models (or the preset's, when the default is asked
+        for) makes an ensemble: its members load one at a time, at each
+        :meth:`separate`."""
         if self.device is None:
             raise ValueError("Separator was built with info_only=True; no device")
+        if self._ensemble_preset_models is not None and model_filename == DEFAULT_MODEL:
+            model_filename = self._ensemble_preset_models
+        if isinstance(model_filename, list):
+            if len(model_filename) > 1:
+                self.model_filename = list(model_filename)
+                self.model_filenames = list(model_filename)
+                self.logger.info(f"Multiple models specified for ensembling: "
+                                 f"{self.model_filenames}")
+                return
+            model_filename = model_filename[0]
         self.model_filename = model_filename
+        self.model_filenames = [model_filename]
         self.logger.info(f"Loading model {model_filename}...")
         start = time.perf_counter()
 
@@ -322,9 +384,11 @@ class Separator:
     def separate(self, audio_file_path, custom_output_names: Optional[Dict] = None) -> List[str]:
         """Separate one file, a list of files, or every audio file under a
         directory. Returns the written output paths."""
-        if not self.model_instance:
+        if not (self.model_instance or self._is_ensemble()):
             raise ValueError("Initialization failed or model not loaded. Please "
                              "load a model before attempting to separate.")
+        if self._is_ensemble():
+            return self._separate_ensemble(audio_file_path, custom_output_names)
         if isinstance(audio_file_path, str):
             audio_file_path = [audio_file_path]
 
@@ -379,7 +443,7 @@ class Separator:
         builds and loads, cuDNN and cuFFT plans, allocator growth). Outputs
         go to a temporary directory and are discarded. Returns the elapsed
         seconds."""
-        if not self.model_instance:
+        if not (self.model_instance or self._is_ensemble()):
             raise ValueError("Load a model before warming up.")
         start = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="audsep_warmup_") as td:
@@ -389,13 +453,15 @@ class Separator:
             audio_io.save_audio(path, noise, self.sample_rate)
             prev_output_dir = self.output_dir
             self.output_dir = td
-            self.model_instance.output_dir = td
+            if self.model_instance:
+                self.model_instance.output_dir = td
             try:
                 self.separate(path)
             finally:
                 self.output_dir = prev_output_dir
-                self.model_instance.clear_file_specific_paths()
-                self.model_instance.output_dir = prev_output_dir
+                if self.model_instance:
+                    self.model_instance.clear_file_specific_paths()
+                    self.model_instance.output_dir = prev_output_dir
         elapsed = time.perf_counter() - start
         self.logger.info(f"Warmup separation took {elapsed:.1f}s ({seconds:.0f}s synthetic track)")
         return elapsed
@@ -472,3 +538,126 @@ class Separator:
             return output_files
         finally:
             shutil.rmtree(temp_dir, ignore_errors=True)
+
+    # --------------------------------------------------------------- ensemble
+
+    def _is_ensemble(self) -> bool:
+        return isinstance(self.model_filename, list) and len(self.model_filename) > 1
+
+    @staticmethod
+    def _ensemble_group(raw_name: str, stem_names: List[str]) -> str:
+        """The canonical stem name a member's stem is ensembled under."""
+        lower = raw_name.lower()
+        if "vocal" in lower and "lead" not in lower and "backing" not in lower:
+            return "Vocals"
+        if lower == "other" and len(stem_names) == 2 and any(
+                "vocal" in s.lower() for s in stem_names):
+            return "Instrumental"
+        return STEM_NAME_MAP.get(lower, raw_name.title())
+
+    def _ensemble_output_name(self, base_name: str, stem_name: str, members: List[str],
+                              custom_output_names: Optional[Dict]) -> str:
+        if custom_output_names and stem_name in custom_output_names:
+            return custom_output_names[stem_name]
+        if self.ensemble_preset:
+            return f"{base_name}_({stem_name})_preset_{self.ensemble_preset}"
+        slugs = []
+        for mf in members:
+            name = os.path.splitext(mf)[0]
+            for prefix in _SLUG_PREFIXES:
+                if name.startswith(prefix):
+                    name = name[len(prefix):]
+                    break
+            slugs.append(name[:12])
+        return f"{base_name}_({stem_name})_custom_ensemble_{'_'.join(slugs)}"
+
+    def _separate_ensemble(self, audio_file_path, custom_output_names=None) -> List[str]:
+        """Each member separates the file into a temporary directory; its
+        stems are grouped by canonical name, each group is ensembled (on the
+        separator's device for the spectral algorithms) and written once
+        (ref: separator.py:1242-1412). A group whose members are all mono
+        stays mono."""
+        if isinstance(audio_file_path, str):
+            audio_file_path = [audio_file_path]
+        output_files: List[str] = []
+        members = list(self.model_filenames)
+        ensembler = Ensembler(self.logger, self.ensemble_algorithm or "avg_wave",
+                              self.ensemble_weights, device=self.device)
+        for path in audio_file_path:
+            self.logger.info(f"Ensemble processing for file: {path}")
+            temp_dir = tempfile.mkdtemp(prefix="audio-separator-ensemble-")
+            original_output_dir = self.output_dir
+            try:
+                stems_by_type: Dict[str, List[str]] = {}
+                for model_filename in members:
+                    self.logger.info(f"Processing with model: {model_filename}")
+                    self.load_model(model_filename)
+                    self.output_dir = temp_dir
+                    self.model_instance.output_dir = temp_dir
+                    try:
+                        model_stems = self._separate_file(path, None)
+                    finally:
+                        self.output_dir = original_output_dir
+                    stem_names = []
+                    for stem_path in model_stems:
+                        match = re.search(r"_\(([^)]+)\)", os.path.basename(stem_path))
+                        stem_names.append(match.group(1) if match else "Unknown")
+                    for stem_path, raw_name in zip(model_stems, stem_names):
+                        abs_path = (stem_path if os.path.isabs(stem_path)
+                                    else os.path.join(temp_dir, stem_path))
+                        stems_by_type.setdefault(
+                            self._ensemble_group(raw_name, stem_names), []).append(abs_path)
+
+                base_name = os.path.splitext(os.path.basename(path))[0]
+                for stem_name, stem_paths in stems_by_type.items():
+                    self.logger.info(f"Ensembling {len(stem_paths)} stems for type: {stem_name}")
+                    waveforms, channels = [], 1
+                    for sp in stem_paths:
+                        wav, _sr = audio_io.load_audio(sp, sample_rate=self.sample_rate)
+                        channels = max(channels, wav.shape[0])
+                        waveforms.append(np.vstack([wav, wav]) if wav.shape[0] == 1 else wav)
+                    ensembled = ensembler.ensemble(waveforms)
+                    if channels == 1:
+                        ensembled = ensembled[:1, :]
+                    name = self._ensemble_output_name(base_name, stem_name, members,
+                                                      custom_output_names)
+                    output_path = f"{name}.{self.output_format.lower()}"
+                    self.model_instance.audio_file_path = path
+                    self.model_instance.output_dir = self.output_dir
+                    self.model_instance.write_audio(output_path, ensembled.T)
+                    output_files.append(os.path.join(self.output_dir or ".", output_path))
+            finally:
+                self.model_filename = members
+                self.model_filenames = members
+                self.model_instance = None
+                shutil.rmtree(temp_dir, ignore_errors=True)
+        return output_files
+
+    # ---------------------------------------------------------------- presets
+
+    def _load_ensemble_preset(self, preset_name: str) -> dict:
+        presets = self.list_ensemble_presets()
+        if preset_name not in presets:
+            available = ", ".join(sorted(presets.keys()))
+            raise ValueError(
+                f"Unknown ensemble preset: '{preset_name}'. Available presets: {available}")
+        preset = presets[preset_name]
+        models = preset.get("models", [])
+        if not isinstance(models, list) or len(models) < 2:
+            raise ValueError(f"Ensemble preset '{preset_name}' must specify at least 2 models")
+        algorithm = preset.get("algorithm", "avg_wave")
+        if algorithm not in VALID_ENSEMBLE_ALGORITHMS:
+            raise ValueError(
+                f"Ensemble preset '{preset_name}' has unknown algorithm: '{algorithm}'")
+        weights = preset.get("weights")
+        if weights is not None and (not isinstance(weights, list) or len(weights) != len(models)):
+            raise ValueError(
+                f"Ensemble preset '{preset_name}' weights length must match models count")
+        self.logger.info(
+            f"Loaded ensemble preset '{preset_name}': {preset.get('name', preset_name)} — "
+            f"{preset.get('description', '')}")
+        return preset
+
+    def list_ensemble_presets(self) -> dict:
+        """The presets of the package's own ``data/ensemble_presets.json``."""
+        return _load_data_json("ensemble_presets.json").get("presets", {})

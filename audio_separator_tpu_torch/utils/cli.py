@@ -12,9 +12,14 @@ Differences from the JAX package's CLI:
   other non-WAV formats need the native codec (``io/audio.py``), so where
   libav is missing pass ``--output_format WAV``;
 * ``--env_info`` prints the torch, CUDA and card facts;
-* flags of features not ported yet (``--extra_models``, ``--ensemble_*``,
-  ``--list_presets``: Queue A item 14; ``--use_mesh``: item 16) exit with
-  status 2 and name the ROADMAP item.
+* ``--list_models``, ``--list_presets`` and ``--download_model_only`` honour
+  ``--model_file_dir``;
+* ``--use_mesh``, not ported yet (ROADMAP, Queue A item 16), exits with
+  status 2 and names the item.
+
+Ensembles: ``-m A --extra_models B ...`` (with ``--ensemble_algorithm`` and
+``--ensemble_weights``), or ``--ensemble_preset NAME`` (``--list_presets``
+lists them).
 """
 
 from __future__ import annotations
@@ -26,14 +31,7 @@ import sys
 
 from ..separator.separator import DEFAULT_MODEL
 
-_UNPORTED_FLAGS = (
-    ("extra_models", "--extra_models", 14),
-    ("ensemble_algorithm", "--ensemble_algorithm", 14),
-    ("ensemble_weights", "--ensemble_weights", 14),
-    ("ensemble_preset", "--ensemble_preset", 14),
-    ("list_presets", "--list_presets", 14),
-    ("use_mesh", "--use_mesh", 16),
-)
+_UNPORTED_FLAGS = (("use_mesh", "--use_mesh", 16),)
 
 
 def _build_parser(version: str) -> argparse.ArgumentParser:
@@ -65,7 +63,7 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
     io.add_argument("-m", "--model_filename", default=DEFAULT_MODEL,
                     help="Model to use for separation.")
     io.add_argument("--extra_models", nargs="+", default=None,
-                    help="Additional models for ensembling (not ported yet).")
+                    help="Additional models for ensembling.")
     io.add_argument("--output_format", default="FLAC",
                     help="Output format for separated files (non-WAV formats need the "
                          "native codec).")
@@ -103,13 +101,13 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
                         choices=["avg_wave", "median_wave", "min_wave", "max_wave",
                                  "avg_fft", "median_fft", "min_fft", "max_fft",
                                  "uvr_max_spec", "uvr_min_spec", "ensemble_wav"],
-                        help="Algorithm for ensembling multiple models (not ported yet).")
+                        help="Algorithm for ensembling multiple models.")
     common.add_argument("--ensemble_weights", nargs="+", type=float, default=None,
-                        help="Weights for ensembling multiple models (not ported yet).")
+                        help="Weights for ensembling multiple models.")
     common.add_argument("--ensemble_preset", default=None,
-                        help="Use a named ensemble preset (not ported yet).")
+                        help="Use a named ensemble preset (see --list_presets).")
     common.add_argument("--list_presets", action="store_true",
-                        help="List all available ensemble presets (not ported yet).")
+                        help="List all available ensemble presets and exit.")
     common.add_argument("--custom_output_names", type=json.loads, default=None,
                         help='Custom names for output files in JSON format, e.g. '
                              '\'{"Vocals": "vocals_out"}\'.')
@@ -159,6 +157,21 @@ def _print_model_table(models: dict) -> None:
     print("-" * total)
     for filename, inf in models.items():
         print(f"{filename:<{fn_w}}  {inf['Type']:<{arch_w}}  {', '.join(inf['Stems']):<{stems_w}}  {inf['Name']}")
+
+
+def _print_preset_table(presets: dict) -> None:
+    if not presets:
+        print("No ensemble presets available.")
+        return
+    id_w = max(len("Preset ID"), max(len(k) for k in presets))
+    desc_w = max(len("Description"),
+                 max(len(p.get("description", "")[:60]) for p in presets.values()))
+    print("-" * (id_w + desc_w + 22))
+    print(f"{'Preset ID':<{id_w}}  {'Description':<{desc_w}}  Models  Algorithm")
+    print("-" * (id_w + desc_w + 22))
+    for pid, preset in presets.items():
+        print(f"{pid:<{id_w}}  {preset.get('description', '')[:60]:<{desc_w}}  "
+              f"{len(preset.get('models', [])):<6}  {preset.get('algorithm', '')}")
 
 
 def _print_env_info(device) -> None:
@@ -217,10 +230,16 @@ def main(argv=None):
             _print_model_table(models)
         sys.exit(0)
 
+    if args.list_presets:
+        separator = Separator(info_only=True, model_file_dir=args.model_file_dir)
+        _print_preset_table(separator.list_ensemble_presets())
+        sys.exit(0)
+
     if args.download_model_only:
         separator = Separator(log_formatter=formatter, log_level=log_level,
                               model_file_dir=args.model_file_dir, info_only=True)
-        separator.download_model_and_data(args.model_filename)
+        for model in [args.model_filename] + (args.extra_models or []):
+            separator.download_model_and_data(model)
         sys.exit(0)
 
     audio_files = list(getattr(args, "audio_files", []))
@@ -244,6 +263,9 @@ def main(argv=None):
         use_autocast=args.use_autocast,
         chunk_duration=args.chunk_duration,
         trace_dir=args.trace_dir,
+        ensemble_algorithm=args.ensemble_algorithm,
+        ensemble_weights=args.ensemble_weights,
+        ensemble_preset=args.ensemble_preset,
         mdx_params={
             "hop_length": args.mdx_hop_length,
             "segment_size": args.mdx_segment_size,
@@ -276,7 +298,12 @@ def main(argv=None):
         },
         device=args.device,
     )
-    separator.load_model(model_filename=args.model_filename)
+    if args.ensemble_preset and args.model_filename == DEFAULT_MODEL and not args.extra_models:
+        separator.load_model()  # the preset's models
+    else:
+        model_filenames = [args.model_filename] + (args.extra_models or [])
+        separator.load_model(
+            model_filename=model_filenames if len(model_filenames) > 1 else model_filenames[0])
     output_files = separator.separate(audio_files, custom_output_names=args.custom_output_names)
     logger.info(f"Separation complete! Output file(s): {' '.join(output_files)}")
 

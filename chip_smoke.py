@@ -82,8 +82,25 @@ result lines are printed):
    its size) over ``4band_44100`` and ``4band_44100_reverse``; and
    ``separate_batch`` of a 16-bit and a 24-bit WAV against their solo
    outputs; the path launches none of the three kernels either;
-6. one JSON line describing each kernel, then the last line
-   ``{"ok": true, "device": {...}}``.
+   then Demucs v3 (``[demucs_v3]``): the full-width ``HDemucs`` of the
+   published ``hdemucs_mmi`` (83.6 M parameters, seeded) forward of one 40 s
+   window on the card against the CPU (floor 40 dB), with its time, TFLOP/s
+   and peak memory; a seeded package under the published signature
+   (``75fc33f5-<sha256[:8]>.th``) and ``hdemucs_mmi.yaml``,
+   ``Separator().load_model("hdemucs_mmi.yaml")`` then ``.separate()`` of a
+   60 s WAV, whose every shifted pass runs a full window through the engine
+   and its tails by direct calls (four finite stems, profiled), and the
+   card's stems against the CPU's on the first 40 s (floor 40 dB); the path
+   launches none of the three kernels; then ensembles (``[ensemble]``): the
+   full-width BS-RoFormer and HTDemucs in one model directory,
+   ``Separator(ensemble_algorithm=...).load_model([default, "htdemucs.yaml"])``
+   then ``.separate()`` of the 30 s WAV under ``avg_wave``, ``avg_fft`` and
+   ``uvr_max_spec``: five stem groups, Vocals ensembled from both members and
+   held against the CPU ``Ensembler`` on the members' solo stems, the rest
+   passed through (floor 60 dB), and 24, 24 and 18 launches of B1, B2 and B3
+   in each call, with the warm ensemble wall beside the members' solo walls;
+6. one JSON line describing each kernel (with its launches on the ensemble
+   path), then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every float32 comparison (``torch.backends.cuda.matmul`` and
 ``torch.backends.cudnn``), so the plain versions run in full float32; the
@@ -171,7 +188,8 @@ def device_split(fn):
     split = {}
     for e in prof.key_averages():
         if e.device_time_total > 0:
-            name = e.key.split("(")[0].replace("void ", "").replace("asep::", "")
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.replace("void ", "").replace("asep::", "")
             split[name] = split.get(name, 0.0) + e.device_time_total / 1e3
     return split
 
@@ -1470,30 +1488,35 @@ def phase_user_surface(ab, sep, model_dir, tmp, seed, seconds, device_label):
             "first_call": first_call}
 
 
-def write_synthetic_demucs_bag(model_dir: str, seed: int) -> None:
-    """A full-width HTDemucs package ``<signature>-<sha256 prefix>.th`` (seeded
+def write_synthetic_demucs_bag(model_dir: str, seed: int, cfg=None, signature="955717e8",
+                               bag="htdemucs.yaml") -> None:
+    """A full-width Demucs package ``<signature>-<sha256 prefix>.th`` (seeded
     weights, the loader's stub class as ``klass``, as a genuine package
-    pickles ``demucs.htdemucs.HTDemucs``), the JSON-flow ``htdemucs.yaml`` bag
-    that names its signature, and an empty remote listing so the registry
-    resolves everything locally."""
+    pickles ``demucs.htdemucs.HTDemucs`` or ``demucs.hdemucs.HDemucs``), the
+    JSON-flow YAML bag that names its signature, and an empty remote listing
+    so the registry resolves everything locally. The defaults are the
+    published ``htdemucs``; ``cfg=hdemucs_full_config()``, signature
+    ``75fc33f5`` and ``hdemucs_mmi.yaml`` make the published Demucs v3."""
     import hashlib
 
     import torch
 
     from audio_separator_tpu_torch.models import demucs_load
     from audio_separator_tpu_torch.models.convert import flatten_tree
-    from audio_separator_tpu_torch.models.init_params import (htdemucs_full_config,
+    from audio_separator_tpu_torch.models.init_params import (demucs_class_name,
+                                                              htdemucs_full_config,
                                                               htdemucs_kwargs,
                                                               init_htdemucs_params)
 
-    cfg = htdemucs_full_config()
+    cfg = cfg or htdemucs_full_config()
     state = {k: torch.from_numpy(v)
              for k, v in flatten_tree(init_htdemucs_params(cfg, seed=seed)).items()}
-    signature = "955717e8"  # the published htdemucs
+    klass = demucs_class_name(cfg)
     tmp = os.path.join(model_dir, f"{signature}.tmp")
     added = demucs_load._ensure_stub_modules()
     try:
-        torch.save({"klass": sys.modules["demucs.htdemucs"].HTDemucs, "args": (),
+        module = sys.modules["demucs.hdemucs" if klass == "HDemucs" else "demucs.htdemucs"]
+        torch.save({"klass": getattr(module, klass), "args": (),
                     "kwargs": htdemucs_kwargs(cfg), "state": state}, tmp)
     finally:
         for name in added:
@@ -1503,7 +1526,7 @@ def write_synthetic_demucs_bag(model_dir: str, seed: int) -> None:
         for block in iter(lambda: f.read(1 << 20), b""):
             sha.update(block)
     os.replace(tmp, os.path.join(model_dir, f"{signature}-{sha.hexdigest()[:8]}.th"))
-    with open(os.path.join(model_dir, "htdemucs.yaml"), "w") as f:
+    with open(os.path.join(model_dir, bag), "w") as f:
         json.dump({"models": [signature]}, f)  # JSON-flow YAML
     with open(os.path.join(model_dir, "download_checks.json"), "w") as f:
         f.write("{}")
@@ -1702,6 +1725,255 @@ def phase_demucs_separator(att, seed, seconds, device_label):
         return {"launches": launches, "wall_s": wall, "wall2_s": wall2}
 
 
+V3_SECONDS = 60.0  # at a 30 s stride, each shifted pass runs a full 40 s window and a tail
+V3_SIGNATURE = "75fc33f5"  # the published hdemucs_mmi
+
+
+def phase_demucs_v3(seed, device_label):
+    """Demucs v3 (``[demucs_v3]``): the full-width ``HDemucs`` forward of one
+    40 s window on the card against the CPU, then ``hdemucs_mmi.yaml`` through
+    the user entry point on a 60 s WAV (each shifted pass runs a full window
+    through the engine and its 30.5 s and 0.5 s tails by direct calls), and
+    the card's stems against the CPU's. The path launches none of the three
+    kernels."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.models.convert import load_jax_hdemucs_params
+    from audio_separator_tpu_torch.models.htdemucs import HDemucs
+    from audio_separator_tpu_torch.models.init_params import (hdemucs_full_config,
+                                                              init_htdemucs_params)
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.separator import Separator
+
+    cfg = hdemucs_full_config()
+    tree = init_htdemucs_params(cfg, seed=seed)
+    n = cfg.training_length
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / cfg.samplerate
+    audio = torch.from_numpy((0.2 * np.stack([np.sin(2 * np.pi * 220 * t),
+                                              np.sin(2 * np.pi * 277 * t)])[None]
+                              + 0.05 * rng.standard_normal((1, 2, n))).astype(np.float32))
+
+    _build.reset_launch_counts()
+    gpu = load_jax_hdemucs_params(HDemucs(cfg), tree).cuda().eval()
+    n_params = sum(p.numel() for p in gpu.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    x = audio.cuda()
+    t0 = time.perf_counter()
+    out_gpu = gpu(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    forward_ms = cuda_time_ms(lambda: gpu(x), iters=3)
+    x4 = x.expand(4, -1, -1).contiguous()  # the engine's batch of windows
+    forward4_ms = cuda_time_ms(lambda: gpu(x4), iters=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with FlopCounterMode(display=False) as counter:
+        gpu(x)
+    flop = counter.get_total_flops()  # cuDNN's LSTM is not counted
+    split = category_split(lambda: gpu(x))
+    out_gpu = out_gpu.cpu()
+    del gpu, x, x4
+    torch.cuda.empty_cache()
+    cpu = load_jax_hdemucs_params(HDemucs(cfg), tree).eval()
+    t0 = time.perf_counter()
+    out_cpu = cpu(audio)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    sdrs = [sdr_db(out_cpu[:, i], out_gpu[:, i]) for i in range(len(cfg.sources))]
+    busy = sum(split.values())
+    log(f"[demucs_v3] {device_label}: full-width HDemucs ({n_params / 1e6:.2f} M parameters) "
+        f"fp32 (TF32 off), one {n / cfg.samplerate:.0f} s window {tuple(audio.shape)} -> "
+        f"{tuple(out_gpu.shape)}: SDR vs CPU per source {[round(v, 2) for v in sdrs]} dB "
+        f"(floor {SDR_FLOOR_DB}); card first call {first_s:.3f} s, warm forward "
+        f"{forward_ms:.1f} ms ({flop / 1e12:.3f} TFLOP by torch.utils.flop_counter, LSTM "
+        f"excluded: {flop / (forward_ms * 1e-3) / 1e12:.1f} TFLOP/s; FMA bound "
+        f"{flop / PEAK_FLOPS['float32'] * 1e3:.1f} ms), batch of 4 windows {forward4_ms:.1f} ms, "
+        f"peak device memory {peak_gb:.2f} GiB; CPU {cpu_s:.1f} s")
+    log("[demucs_v3]   device ms by category (one window): " + ", ".join(
+        f"{k} {v:.1f} ({v / busy:.3f})" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    if tuple(out_gpu.shape) != (1, len(cfg.sources), 2, n) or not bool(
+            torch.isfinite(out_gpu).all()):
+        raise AssertionError(f"HDemucs output {tuple(out_gpu.shape)} is not finite or misshapen")
+    if min(sdrs) < SDR_FLOOR_DB:
+        raise AssertionError(f"HDemucs SDR {sdrs} dB below {SDR_FLOOR_DB}")
+
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        write_synthetic_demucs_bag(model_dir, seed, cfg=cfg, signature=V3_SIGNATURE,
+                                   bag="hdemucs_mmi.yaml")
+        write_s = time.perf_counter() - t0
+        sr = 44100
+        wav = os.path.join(tmp, "mix.wav")
+        mix = write_seeded_wav(wav, seed, V3_SECONDS, sr, bit_depth=32)
+
+        out_dir = os.path.join(tmp, "out")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sep = Separator(model_file_dir=model_dir, output_dir=out_dir, log_level=logging.WARNING)
+        sep.load_model("hdemucs_mmi.yaml")
+        load_s = time.perf_counter() - t0
+        params = sep.arch_specific_params["Demucs"]
+        t0 = time.perf_counter()
+        files = sep.separate(wav)
+        wall = time.perf_counter() - t0
+        check_stems(out_dir, files, 4, mix, sr)
+        t0 = time.perf_counter()
+        sep.separate(wav)
+        wall2 = time.perf_counter() - t0
+        prof = profile_separate(sep, wav, tag="demucs_v3")
+        launches = dict(_build.LAUNCHES)
+        segment, stride = cfg.training_length, int((1 - params["overlap"]) * cfg.training_length)
+        pass_len = mix.shape[-1] + sr // 2
+        full = [o for o in range(0, pass_len, stride) if o + segment <= pass_len]
+        tails = [pass_len - o for o in range(0, pass_len, stride) if o + segment > pass_len]
+        log(f"[demucs_v3] {device_label}: {V3_SECONDS:.0f} s stereo WAV, hdemucs_mmi.yaml "
+            f"(float32), params {params}: each of {params['shifts']} shifted passes "
+            f"({pass_len} samples) runs windows at {full} through the engine and tails "
+            f"of {tails} samples by direct calls; first separate {wall:.3f} s, warm "
+            f"{wall2:.3f} s ({V3_SECONDS / wall2:.2f}x realtime), idle share "
+            f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; package write {write_s:.1f} s, "
+            f"load_model {load_s:.1f} s; launches {launches}")
+        if not full or not tails:
+            raise AssertionError("the 60 s track does not run both branches of the split")
+        if any(launches.values()):
+            raise AssertionError(f"the Demucs v3 path launched a kernel: {launches}")
+
+        # Card against CPU through the same entry point on the first 40 s (one
+        # pass of 40.5 s: the window at 0 and a 10.5 s tail), one shift and
+        # one window a batch: the CPU's share of the phase.
+        one = {**params, "shifts": 1, "batch_size": 1}
+        excerpt = os.path.join(tmp, "mix40.wav")
+        audio_io.save_audio(excerpt, mix[:, : 40 * sr], sr, bit_depth=32)
+        stems = {}
+        for device in ("cuda", "cpu"):
+            d = os.path.join(tmp, f"cmp_{device}")
+            sep = Separator(model_file_dir=model_dir, output_dir=d, demucs_params=one,
+                            log_level=logging.WARNING, device=device)
+            sep.load_model("hdemucs_mmi.yaml")
+            t0 = time.perf_counter()
+            names = sep.separate(excerpt)
+            took = time.perf_counter() - t0
+            stems[device] = {f: audio_io.load_audio(os.path.join(d, f))[0] for f in names}
+            log(f"[demucs_v3]   {device} separate (shifts 1, batch 1): {took:.2f} s")
+        stem_sdrs = {f: round(sdr_db(stems["cpu"][f], stems["cuda"][f]), 2) for f in stems["cpu"]}
+        log(f"[demucs_v3] written stems, card vs CPU: {stem_sdrs} dB (floor {SDR_FLOOR_DB})")
+        if sorted(stems["cpu"]) != sorted(stems["cuda"]) or min(stem_sdrs.values()) < SDR_FLOOR_DB:
+            raise AssertionError(f"Demucs v3 card stems against the CPU: {stem_sdrs}")
+    return {"sdr_db": sdrs, "forward_ms": forward_ms, "wall2_s": wall2,
+            "stem_sdr_db": stem_sdrs}
+
+
+ENSEMBLE_ALGORITHMS = ("avg_wave", "avg_fft", "uvr_max_spec")
+# One 30 s ensemble separate: the RoFormer member's one forward launches each
+# fused block once a layer (24), the HTDemucs member's 3 forwards the
+# whole-sequence attention 6 times each.
+ENSEMBLE_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24, "fused_attention": 18}
+ENSEMBLE_FLOOR_DB = 60.0  # card ensemble against the CPU Ensembler on the same member stems
+
+
+def phase_ensemble(seed, seconds, device_label):
+    """Ensembles (``[ensemble]``): the full-width default BS-RoFormer and the
+    full-width HTDemucs bag in one model directory, ``load_model([default,
+    "htdemucs.yaml"])`` under three algorithms; the Vocals group is
+    ensembled from both members and held against the CPU ``Ensembler`` on
+    the members' solo stems, the other groups pass one member's stem through;
+    every kernel's launches are counted over each ensemble call."""
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops.spec import normalize
+    from audio_separator_tpu_torch.separator import Separator
+    from audio_separator_tpu_torch.separator.ensembler import Ensembler
+    from audio_separator_tpu_torch.separator.separator import DEFAULT_MODEL
+
+    members = [DEFAULT_MODEL, "htdemucs.yaml"]
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        write_synthetic_model(model_dir, seed)
+        write_synthetic_demucs_bag(model_dir, seed)
+        write_s = time.perf_counter() - t0
+        sr = 44100
+        wav = os.path.join(tmp, "mix.wav")
+        write_seeded_wav(wav, seed, seconds, sr, bit_depth=32)
+
+        def read(path):
+            return audio_io.load_audio(path, sample_rate=sr)[0]
+
+        solo = {}
+        for member in members:
+            out = os.path.join(tmp, "solo_" + member.split(".")[0])
+            sep = Separator(model_file_dir=model_dir, output_dir=out, log_level=logging.WARNING)
+            sep.load_model(member)
+            files = sep.separate(wav)
+            t0 = time.perf_counter()
+            sep.separate(wav)
+            solo[member] = ({f.split("_(")[1].split(")")[0].lower(): read(os.path.join(out, f))
+                             for f in files}, time.perf_counter() - t0)
+            del sep
+        solo_sum = sum(w for _, w in solo.values())
+
+        slug = "custom_ensemble_ep_317_sdr_1_htdemucs"
+        groups = ("Bass", "Drums", "Instrumental", "Other", "Vocals")
+        results = {}
+        for algorithm in ENSEMBLE_ALGORITHMS:
+            out = os.path.join(tmp, algorithm)
+            sep = Separator(model_file_dir=model_dir, output_dir=out,
+                            ensemble_algorithm=algorithm, log_level=logging.WARNING)
+            sep.load_model(members)
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            files = sep.separate(wav)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            names = sorted(os.path.basename(f) for f in files)
+            if names != [f"mix_({g})_{slug}.wav" for g in groups]:
+                raise AssertionError(f"{algorithm}: ensemble outputs {names}")
+            if launches != ENSEMBLE_LAUNCHES:
+                raise AssertionError(f"{algorithm}: launches {launches}, "
+                                     f"expected {ENSEMBLE_LAUNCHES}")
+            got = {g: read(os.path.join(out, f"mix_({g})_{slug}.wav")) for g in groups}
+            roformer, demucs = solo[DEFAULT_MODEL][0], solo["htdemucs.yaml"][0]
+            # The written ensemble is peak-normalised to 0.9 (write_audio).
+            want = {"Vocals": normalize(Ensembler(algorithm=algorithm, device="cpu").ensemble(
+                        [roformer["vocals"], demucs["vocals"]]), 0.9),
+                    "Instrumental": roformer["other"], "Bass": demucs["bass"],
+                    "Drums": demucs["drums"], "Other": demucs["other"]}
+            sdrs = {g: round(sdr_db(want[g], got[g]), 2) for g in groups}
+            # (uvr_*_spec end at the inverse STFT's length, up to a hop short
+            # of the track, as in the JAX package.)
+            n = got["Vocals"].shape[-1]
+            vocal_members = [round(sdr_db(got["Vocals"], m[..., :n]), 2)
+                             for m in (roformer["vocals"], demucs["vocals"])]
+            log(f"[ensemble] {device_label}: {seconds:.0f} s WAV, {algorithm}: separate "
+                f"{wall:.3f} s, launches {launches}; outputs against the CPU Ensembler on the "
+                f"members' solo stems (Vocals) and the members' own stems (the rest) {sdrs} dB "
+                f"(floor {ENSEMBLE_FLOOR_DB}); Vocals against each member {vocal_members} dB")
+            if min(sdrs.values()) < ENSEMBLE_FLOOR_DB:
+                raise AssertionError(f"{algorithm}: ensemble outputs against the CPU {sdrs}")
+            results[algorithm] = {"wall_s": wall, "sdr_db": sdrs, "launches": launches}
+            if algorithm == ENSEMBLE_ALGORITHMS[0]:
+                t0 = time.perf_counter()
+                sep.separate(wav)
+                warm = time.perf_counter() - t0
+                results["warm_wall_s"] = warm
+            del sep
+        log(f"[ensemble] {device_label}: warm ensemble separate {results['warm_wall_s']:.3f} s "
+            f"(each call loads both members) against the members' warm solo calls "
+            f"{[round(w, 3) for _, w in solo.values()]} s, sum {solo_sum:.3f} s "
+            f"(x{results['warm_wall_s'] / solo_sum:.2f}); checkpoint writes {write_s:.1f} s")
+        return {"launches": results[ENSEMBLE_ALGORITHMS[0]]["launches"], "results": results}
+
+
 def phase_separator(ab, seed, seconds, device_label):
     """Phase 5, RoFormer: the default model through the user entry point."""
     from audio_separator_tpu_torch.separator import Separator
@@ -1816,6 +2088,8 @@ def main(argv=None) -> int:
         phase_mdx_model(args.seed, mdx_dir)
         phase_mdx_separator(ab, att, args.seed, args.seconds, mdx_dir, f"{kind} ({smi})")
     phase_vr(ab, att, args.seed, args.seconds, f"{kind} ({smi})")
+    phase_demucs_v3(args.seed, f"{kind} ({smi})")
+    ensemble = phase_ensemble(args.seed, args.seconds, f"{kind} ({smi})")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)
@@ -1852,6 +2126,7 @@ def main(argv=None) -> int:
                                               "max_abs_err", "mean_abs_err", "scale", "split")}
                       for r in records if r["name"] == name],
             "model_launches_per_forward": per_forward[name],
+            "ensemble_launches": ensemble["launches"][name],
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,7 +1,8 @@
 """The port's CLI (``audio_separator_tpu_torch.utils.cli.main``) with
 ``--device cpu``: help without arguments, model listings, a separation that
 writes the same stems as ``Separator.separate``, ``--chunk_duration``, the
-unported flags, and the default device without a card."""
+ensemble flags, the one unported flag, and the default device without a
+card."""
 
 import json
 import logging
@@ -17,15 +18,23 @@ from audio_separator_tpu_torch.io import audio as audio_io
 from audio_separator_tpu_torch.separator import Separator
 from audio_separator_tpu_torch.utils import cli
 
+from test_torch_ensemble_separator import PRESET, PRESET_FILES
 from test_torch_separate_batch import write_small_roformer, write_wav
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SECOND = "bs_roformer_vocals_b.ckpt"
 
 
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
+    """The default model, a second small RoFormer and the two of the
+    ``vocal_balanced`` preset, all local."""
     tmp = tmp_path_factory.mktemp("torch-cli-model")
     write_small_roformer(str(tmp))
+    write_small_roformer(str(tmp), seed=5, ckpt=SECOND)
+    for seed, (ckpt, yaml_name) in enumerate(PRESET_FILES.items()):
+        write_small_roformer(str(tmp), seed=seed + 7, ckpt=ckpt, yaml_name=yaml_name)
     return str(tmp)
 
 
@@ -101,16 +110,41 @@ def test_chunk_duration(model_dir, wav, tmp_path):
         assert pcm.shape == mix.shape and np.isfinite(pcm).all()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--extra_models", "other.ckpt"], 14),
-    (["--ensemble_algorithm", "avg_wave"], 14),
-    (["--ensemble_preset", "vocals_hq"], 14),
-    (["--list_presets"], 14),
-    (["--use_mesh"], 16),
-])
-def test_unported_flags_exit_naming_roadmap(wav, capsys, flags, item):
-    assert _main([wav, "--device", "cpu"] + flags) == 2
-    assert f"ROADMAP, Queue A item {item}" in capsys.readouterr().err
+_CUSTOM = "custom_ensemble_ep_317_sdr_1_vocals_b"  # the members' slugs
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--extra_models", SECOND], _CUSTOM),
+    (["--extra_models", SECOND, "--ensemble_algorithm", "max_wave",
+      "--ensemble_weights", "1", "2"], _CUSTOM),
+    (["--ensemble_preset", PRESET], f"preset_{PRESET}"),
+    (["--list_presets"], 0),
+    (["--use_mesh"], 2),
+], ids=["flags0-14", "flags1-14", "flags2-14", "flags3-14", "flags4-16"])  # ROADMAP items
+def test_unported_flags_exit_naming_roadmap(model_dir, wav, tmp_path, capsys, flags, expect):
+    """The ensemble flags run on the CPU: ``--extra_models`` (with an
+    algorithm and weights) and ``--ensemble_preset`` write one file for each
+    stem group, named after the members or the preset; ``--list_presets``
+    lists the presets and exits 0. ``--use_mesh`` is not ported: it exits 2
+    naming its ROADMAP item."""
+    out_dir = str(tmp_path / "out")
+    argv = [wav, "--device", "cpu", "--model_file_dir", model_dir, "--output_dir", out_dir,
+            "--log_level", "warning"] + flags
+    if isinstance(expect, int):
+        assert _main(argv) == expect
+        captured = capsys.readouterr()
+        if expect == 2:
+            assert "ROADMAP, Queue A item 16" in captured.err
+        else:
+            assert "Preset ID" in captured.out and PRESET in captured.out
+        return
+    cli.main(argv)
+    mix, _ = audio_io.load_audio(wav)
+    names = sorted(os.listdir(out_dir))
+    assert names == [f"song_({stem})_{expect}.flac" for stem in ("Instrumental", "Vocals")]
+    for name in names:
+        pcm, _ = audio_io.load_audio(os.path.join(out_dir, name))
+        assert pcm.shape == mix.shape and np.isfinite(pcm).all()
 
 
 def test_env_info_on_the_cpu(capsys):

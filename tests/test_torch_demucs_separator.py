@@ -1,6 +1,6 @@
 """The port's Demucs path against the JAX package's, on one synthetic
 HTDemucs package and YAML bag: checkpoint loading (plain, diffq-quantised,
-checksum rule, HDemucs refused), the window plan, ``demix_demucs`` with and
+checksum rule, an HDemucs package as Demucs v3), the window plan, ``demix_demucs`` with and
 without shifts and split (>= 40 dB SDR per source, tests/test_parity_pipeline.py's
 bar), and ``Separator(device="cpu")`` end to end."""
 
@@ -24,6 +24,7 @@ from audio_separator_tpu_torch.models.convert import flatten_tree
 from audio_separator_tpu_torch.models.diffq_restore import demucs_param_manifest, quantize_diffq
 from audio_separator_tpu_torch.models.init_params import init_htdemucs_params
 from audio_separator_tpu_torch.separator import Separator
+from torch_threads import one_torch_thread  # noqa: F401
 
 SR = 44100
 SOURCES = ("drums", "bass", "other", "vocals")
@@ -174,9 +175,29 @@ def test_checksum_mismatch_raises(tmp_path, model_dir):
 
 
 def test_hdemucs_package_is_refused_loudly(tmp_path):
-    path = _save_package(str(tmp_path), "v3model", "HDemucs", {"sources": list(SOURCES)}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demucs_load.load_demucs_checkpoint(path)
+    """An HDemucs package loads as Demucs v3, as the JAX loader reads it: the
+    HDemucs constructor's defaults (depth 6, 40 s segments, DConv compression
+    4) and exact-length evaluation; its state loads into ``HDemucs``
+    strictly. (Until Demucs v3 was ported, such a package was refused.)"""
+    from audio_separator_tpu.models.demucs_load import load_demucs_checkpoint as jax_load
+    from audio_separator_tpu_torch.models.init_params import htdemucs_kwargs
+
+    kwargs = {"sources": list(SOURCES), "channels": 8, "nfft": 256, "norm_starts": 2,
+              "dconv_lstm": 3, "dconv_attn": 3}
+    cfg = ht.config_from_kwargs(kwargs, klass_name="HDemucs")
+    tree = init_htdemucs_params(cfg, seed=2)
+    assert htdemucs_kwargs(cfg)["depth"] == 6
+    state = {k: torch.from_numpy(v) for k, v in flatten_tree(tree).items()}
+    path = _save_package(str(tmp_path), "v3model", "HDemucs", kwargs, state)
+    klass, cfg, restored = demucs_load.load_demucs_checkpoint(path)
+    _, jcfg, _ = jax_load(path)
+    assert klass == "HDemucs" and cfg.arch == jcfg.arch == "hdemucs"
+    for field in ("depth", "segment", "use_train_segment", "channels", "nfft", "norm_starts"):
+        assert getattr(cfg, field) == getattr(jcfg, field), field
+    assert (cfg.depth, cfg.segment, cfg.use_train_segment, cfg.dconv_comp) == (6, 40.0, False, 4)
+    model = ht.build_demucs(cfg)
+    assert isinstance(model, ht.HDemucs)
+    model.load_state_dict(restored, strict=True)
 
 
 # ----------------------------------------------------------------- the plan
@@ -271,15 +292,28 @@ def test_segment_override_and_models_are_loaded_once(model_dir):
     assert not any(p.is_cuda for p in models[0].parameters())
 
 
-def test_exact_length_split_is_refused(model_dir):
+def test_exact_length_split_is_refused(model_dir, mix):
+    """The exact-length split runs (it was refused until Demucs v3 was
+    ported; tests/test_torch_demucs_v3_separator.py holds it to the JAX
+    package). Over 30000 samples in 0.5 s windows at stride 16537, the window
+    at 0 is full and the one at 16537 is a tail: up to the tail's start the
+    result is the first window's own output, where the weights cancel."""
+    import dataclasses
+
     sep = DemucsSeparator(common_config=_common(model_dir, device="cpu"),
                           arch_config=_arch(0, True))
     model = sep._load_models()[0][0]
-    import dataclasses
-
-    model.cfg = dataclasses.replace(model.cfg, use_train_segment=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sep._apply_split(model, np.zeros((2, 30000), np.float32))
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, use_train_segment=False)
+    try:
+        track = mix[:, :30000]
+        out = sep._apply_split(model, track)
+        first = model(torch.from_numpy(track[None, :, :22050]))[0].numpy()
+    finally:
+        model.cfg = saved
+    assert out.shape == (4, 2, 30000) and np.isfinite(out).all()
+    np.testing.assert_allclose(out[..., :16537], first[..., :16537],
+                               atol=1e-5 * np.abs(first).max())
 
 
 # ---------------------------------------------------------------- Separator

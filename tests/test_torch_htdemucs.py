@@ -22,6 +22,7 @@ from audio_separator_tpu_torch.models.init_params import (
     init_htdemucs_params,
 )
 from audio_separator_tpu_torch.ops import attention as att
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(sources=("drums", "bass", "other", "vocals"), channels=8, nfft=1024, depth=3,
              t_layers=3, t_heads=4, segment=0.5)
@@ -262,5 +263,7 @@ def test_config_from_kwargs_matches_jax():
                   "hop_length", "training_length"):
         assert getattr(cfg, field) == getattr(want, field), field
     assert ht.config_from_kwargs({}, args=(["a", "b"],)).sources == ("a", "b")
-    with pytest.raises(NotImplementedError):
-        ht.HTDemucs(ht.HTDemucsConfig(sources=("a", "b"), cac=False))
+    # cac=False builds the shared magnitude head (Demucs v3's; it was refused
+    # before v3 was ported): magnitudes in, one channel per audio channel.
+    model = ht.HTDemucs(ht.HTDemucsConfig(sources=("a", "b"), cac=False))
+    assert model.encoder[0].conv.in_channels == 2

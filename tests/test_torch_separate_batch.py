@@ -45,9 +45,10 @@ def _sdr(ref, est):
     return 10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - est) ** 2), 1e-30))
 
 
-def write_small_roformer(model_dir, seed=3):
-    """A small BS-RoFormer checkpoint in the upstream key layout and its YAML
-    under the default model's file names, plus an empty remote listing."""
+def write_small_roformer(model_dir, seed=3, ckpt=DEFAULT_MODEL, yaml_name=None):
+    """A small BS-RoFormer (vocals / other) checkpoint in the upstream key
+    layout and its YAML, under the default model's file names unless others
+    are given, plus an empty remote listing."""
     torch.manual_seed(seed)
     bins, start = [], 0
     for nf in FREQS:
@@ -59,7 +60,7 @@ def write_small_roformer(model_dir, seed=3):
     with torch.no_grad():
         for p in oracle.parameters():
             p.copy_(torch.randn_like(p) * 0.2)
-    torch.save({"state_dict": oracle.state_dict()}, os.path.join(model_dir, DEFAULT_MODEL))
+    torch.save({"state_dict": oracle.state_dict()}, os.path.join(model_dir, ckpt))
     config = {
         "audio": {"sample_rate": SR, "hop_length": 64},
         "model": {"dim": 32, "depth": 1, "stereo": True, "num_stems": 1,
@@ -70,7 +71,7 @@ def write_small_roformer(model_dir, seed=3):
         "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"},
         "inference": {"dim_t": 64},
     }
-    with open(os.path.join(model_dir, DEFAULT_MODEL.replace(".ckpt", ".yaml")), "w") as f:
+    with open(os.path.join(model_dir, yaml_name or ckpt.replace(".ckpt", ".yaml")), "w") as f:
         json.dump(config, f)  # JSON-flow YAML
     with open(os.path.join(model_dir, "download_checks.json"), "w") as f:
         f.write("{}")

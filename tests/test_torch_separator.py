@@ -19,6 +19,7 @@ from audio_separator_tpu_torch.io import audio as audio_io
 from audio_separator_tpu_torch.separator import DEFAULT_MODEL, Separator
 
 from torch_oracles.roformer_oracle import RoformerOracle
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "audio_separator_tpu_torch")
@@ -128,19 +129,31 @@ def test_separator_without_cuda_raises(model_dir):
 
 
 def test_separator_rejects_unported_model_types(model_dir, tmp_path):
-    """The four families load since VR (Queue A item 13); a Demucs v3 bag
-    (item 12b) still raises, naming the ROADMAP item."""
+    """Every model type the registry lists now separates: a Demucs v3 bag
+    (ROADMAP item 12b, refused before it was ported) writes its two stems. Only the
+    device mesh (item 16) is still refused."""
+    from audio_separator_tpu_torch.models.convert import flatten_tree
+    from audio_separator_tpu_torch.models.htdemucs import HTDemucsConfig
+    from audio_separator_tpu_torch.models.init_params import (htdemucs_kwargs,
+                                                              init_htdemucs_params)
     from test_torch_demucs_separator import _save_package
 
-    _save_package(str(tmp_path), "v3model", "HDemucs", {"sources": ["drums", "bass"]}, {})
+    cfg = HTDemucsConfig(sources=("drums", "bass"), arch="hdemucs", channels=8, nfft=64,
+                         depth=2, dconv_comp=4, segment=0.05, use_train_segment=False)
+    state = {k: torch.from_numpy(v)
+             for k, v in flatten_tree(init_htdemucs_params(cfg, seed=1)).items()}
+    _save_package(str(tmp_path), "v3model", "HDemucs", htdemucs_kwargs(cfg), state)
     (tmp_path / "v3bag.yaml").write_text(json.dumps({"models": ["v3model"]}))
     (tmp_path / "download_checks.json").write_text("{}")
     wav = str(tmp_path / "song.wav")
     audio_io.save_audio(wav, np.zeros((2, 4410), np.float32) + 0.1, 44100)
-    sep = Separator(model_file_dir=str(tmp_path), device="cpu", log_level=logging.WARNING)
+    sep = Separator(model_file_dir=str(tmp_path), output_dir=str(tmp_path / "out"),
+                    device="cpu", log_level=logging.WARNING)
     sep.load_model("v3bag.yaml")  # the bag's models load at the first separation
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        sep.separate(wav)
+    files = sep.separate(wav)
+    assert len(files) == 2 and all(os.path.exists(tmp_path / "out" / f) for f in files)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        Separator(model_file_dir=str(tmp_path), device="cpu", use_mesh=True)
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -173,6 +186,10 @@ def test_no_file_of_the_port_imports_jax():
     for root, _dirs, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    # The Demucs v3 and ensembling modules are among them.
+    for module in ("models/filtering.py", "separator/ensembler.py", "ops/align.py",
+                   "ops/stretch.py", "models/htdemucs.py"):
+        assert os.path.join(PORT, module) in files, module
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "audio_separator_tpu"}, path
@@ -188,6 +205,21 @@ def test_vr_band_params_are_read_from_the_ports_own_copies():
     names = sorted(os.listdir(own))
     assert len(names) == 26 and names == sorted(os.listdir(os.path.join(
         REPO, "audio_separator_tpu", "data", "vr_modelparams")))
+
+
+def test_ensemble_presets_are_read_from_the_ports_own_copy(tmp_path):
+    """The presets come from the port's ``data/ensemble_presets.json``, a copy
+    of the JAX package's."""
+    from audio_separator_tpu_torch.separator import registry
+
+    own = os.path.join(PORT, "data", "ensemble_presets.json")
+    assert os.path.realpath(registry._DATA_DIR) == os.path.realpath(os.path.join(PORT, "data"))
+    with open(own, encoding="utf-8") as f, open(os.path.join(
+            REPO, "audio_separator_tpu", "data", "ensemble_presets.json"), encoding="utf-8") as g:
+        assert json.load(f) == json.load(g)
+    with open(own, encoding="utf-8") as f:
+        presets = json.load(f)["presets"]
+    assert Separator(info_only=True, model_file_dir=str(tmp_path)).list_ensemble_presets() == presets
 
 
 def test_yaml_config_reader_without_pyyaml(monkeypatch, tmp_path):
