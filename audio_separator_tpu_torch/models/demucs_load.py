@@ -14,6 +14,7 @@ import hashlib
 import os
 import re
 import sys
+import threading
 import types
 from typing import Dict, List, Optional, Tuple
 
@@ -29,6 +30,10 @@ _STUB_MODULES = [
     "demucs.transformer", "demucs.states", "demucs.spec", "demucs.repo",
 ]
 _STUB_CLASSES = ["HTDemucs", "HDemucs", "Demucs", "ConvTasNet"]
+# sys.modules is the process's: one load at a time installs, uses and removes
+# the stubs, or a second thread's unpickling finds them gone (a server loads
+# packages on several worker threads).
+_STUB_LOCK = threading.Lock()
 
 
 def _ensure_stub_modules() -> List[str]:
@@ -68,23 +73,24 @@ def check_checksum(path: str) -> None:
 
 def load_demucs_checkpoint(path: str) -> Tuple[str, HTDemucsConfig, Dict[str, torch.Tensor]]:
     """Load one ``.th`` package → (class name, config, state dict)."""
-    added_stubs = _ensure_stub_modules()
-    try:
-        # A package pickles the model *class* itself, which the plain
-        # weights_only loader rejects. Allowlist exactly the stub classes;
-        # fall back to full unpickling only if a package carries some other
-        # global.
-        safe = [cls for name in _STUB_MODULES if name in sys.modules
-                for cls in (getattr(sys.modules[name], c, None) for c in _STUB_CLASSES)
-                if isinstance(cls, type)]
+    with _STUB_LOCK:
+        added_stubs = _ensure_stub_modules()
         try:
-            with torch.serialization.safe_globals(safe):
-                package = torch.load(path, map_location="cpu", weights_only=True)
-        except Exception:
-            package = torch.load(path, map_location="cpu", weights_only=False)
-    finally:
-        for name in added_stubs:
-            sys.modules.pop(name, None)
+            # A package pickles the model *class* itself, which the plain
+            # weights_only loader rejects. Allowlist exactly the stub classes;
+            # fall back to full unpickling only if a package carries some
+            # other global.
+            safe = [cls for name in _STUB_MODULES if name in sys.modules
+                    for cls in (getattr(sys.modules[name], c, None) for c in _STUB_CLASSES)
+                    if isinstance(cls, type)]
+            try:
+                with torch.serialization.safe_globals(safe):
+                    package = torch.load(path, map_location="cpu", weights_only=True)
+            except Exception:
+                package = torch.load(path, map_location="cpu", weights_only=False)
+        finally:
+            for name in added_stubs:
+                sys.modules.pop(name, None)
     klass = package["klass"]
     klass_name = getattr(klass, "__name__", str(klass))
     kwargs = dict(package.get("kwargs") or {})

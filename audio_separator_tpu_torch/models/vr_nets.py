@@ -85,13 +85,19 @@ class Conv2d(nn.Conv2d):
     of these nets (``(4, 320, 112, 128) → 128`` at 3×3, 0.1 TFLOP/s) where
     PyTorch's takes 1.6 ms, and the full-width v5.1 forward of 4 windows
     drops from 728 to 194 ms (``tools/torch_vr_conv_probe.py``, H100). bf16
-    calls keep cuDNN's tensor-core kernels."""
+    calls keep cuDNN's tensor-core kernels.
+
+    ``torch._convolution`` takes cuDNN's and TF32's switches as arguments of
+    the one call, so no process-wide switch is touched: a server runs jobs
+    on several threads, and the other threads' convolutions keep cuDNN."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.float32:
             return super().forward(x)
-        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
-            return super().forward(x)
+        # benchmark, deterministic, cudnn_enabled, allow_tf32
+        return torch._convolution(x, self.weight, self.bias, self.stride, self.padding,
+                                  self.dilation, False, (0, 0), self.groups,
+                                  False, False, False, False)
 
 
 def _pair(v) -> Tuple[int, int]:

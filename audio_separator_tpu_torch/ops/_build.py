@@ -21,14 +21,23 @@ from typing import Dict
 
 import torch
 
-# Launch counters: each wrapper adds one where it launches its kernel (chain).
+# Launch counters: each wrapper adds one where it launches its kernel (chain),
+# through count(), under one lock: jobs of a server launch from several threads.
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
                             "fused_attention": 0}
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel ``name``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -48,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind,
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
                      load, reset_launch_counts, stream)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "attention_ref", "fused_attention",
@@ -112,7 +112,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 v.data_ptr(), out.data_ptr(), b * h, n, dh,
                                 float(scale), stream(q))
     check_rc(lib, rc, "fused_attention")
-    LAUNCHES["fused_attention"] += 1
+    count("fused_attention")
     return out[..., :d] if dh != d else out
 
 

@@ -61,7 +61,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind,
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
                      load, reset_launch_counts, stream)
 from .tf32 import prepare_tf32_weight
 
@@ -248,7 +248,7 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
             merged.data_ptr(), out.data_ptr(),
             b, n_pad, d, heads, n_valid, stream(x))
     check_rc(lib, rc, "fused_attention_block")
-    LAUNCHES["fused_attention_block"] += 1
+    count("fused_attention_block")
     return out
 
 
@@ -279,5 +279,5 @@ def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
             h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, stream(x))
     check_rc(lib, rc, "fused_ff_block")
-    LAUNCHES["fused_ff_block"] += 1
+    count("fused_ff_block")
     return out

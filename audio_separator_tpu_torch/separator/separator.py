@@ -71,6 +71,20 @@ _SLUG_PREFIXES = ("mel_band_roformer_", "melband_roformer_", "bs_roformer_",
 _AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".opus", ".m4a", ".aiff", ".ac3")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a ``Separator`` computes on: ``None`` means the CUDA device,
+    and raises without one; ask for ``"cpu"`` explicitly."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    return dev
+
+
 class Separator:
     """Audio stem separation orchestrator (PyTorch; CUDA by default)."""
 
@@ -203,15 +217,9 @@ class Separator:
 
         self.logger.info(f"Operating System: {platform.system()} {platform.release()}")
         self.logger.info(f"Python Version: {platform.python_version()}")
-        dev = torch.device(device if device is not None else "cuda")
+        dev = resolve_device(device)
         if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device available; pass device='cpu' to run the "
-                    "plain PyTorch path on the CPU")
             self.logger.info(f"CUDA device: {torch.cuda.get_device_name(dev)}")
-        elif dev.type != "cpu":
-            raise ValueError(f"unsupported device {dev} (cuda or cpu)")
         self.device = dev
         return dev
 

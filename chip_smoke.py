@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (audio_separator_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--seconds S]
+    python3 chip_smoke.py [--seed N] [--seconds S] [--phase all|remote]
+
+(``--phase remote`` builds the kernels and runs the ``[remote]`` phase alone,
+and prints no result line.)
 
 Phases, each of which must pass (any failure exits non-zero before the
 result lines are printed):
@@ -99,8 +102,32 @@ result lines are printed):
    held against the CPU ``Ensembler`` on the members' solo stems, the rest
    passed through (floor 60 dB), and 24, 24 and 18 launches of B1, B2 and B3
    in each call, with the warm ensemble wall beside the members' solo walls;
+   then the remote service (``[remote]``): the full-width BS-RoFormer,
+   HTDemucs, VR v5.1 and MDX23C in one model directory, a seeded 30 s and a 20 s float32 WAV,
+   direct ``Separator`` calls of each job's file and settings on the card as
+   references; the port's HTTP server (``remote/server.serve``) with one
+   worker and ``AUDSEP_SERVER_COALESCE=2`` answering ``/health``,
+   ``/models-json``, ``/presets``, a 404 and (with ``AUDSEP_API_KEY`` set) a
+   401, and running an HTDemucs job, two float32 RoFormer jobs that must
+   coalesce into one ``separate_batch`` group, and a bf16 RoFormer job, each
+   submitted over HTTP (a multipart body built by hand, the standard
+   library's ``urllib``), polled on ``/status`` and downloaded by hash;
+   a second server with two workers and coalescing off, both TF32 switches
+   on, running two HTDemucs jobs at once and then a float32 VR and a float32
+   MDX23C job submitted together; cuDNN's and the matmul's switches must read
+   after each round what they read before;
+   one RoFormer job through the ASGI app (``remote/asgi.create_app``) driven
+   in process. Every job must complete with no group retry and no failure
+   logged by the server; every served stem must score >= 100 dB against its
+   direct call (``utils/metrics.simple_sdr``), one ``bss_eval`` of served
+   against direct stems must finish (SDR +inf only where they are
+   bit-identical); the launches of B1, B2 and B3 over each server must equal
+   what the engine's window plan implies (24 B1 and B2 per RoFormer forward,
+   6 B3 per HTDemucs forward); each job's latency, each server's wall and
+   jobs/hour and the group's wall against two solo calls are printed;
 6. one JSON line describing each kernel (with its launches on the ensemble
-   path), then the last line ``{"ok": true, "device": {...}}``.
+   path and over the remote servers), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every float32 comparison (``torch.backends.cuda.matmul`` and
 ``torch.backends.cudnn``), so the plain versions run in full float32; the
@@ -118,6 +145,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1974,6 +2002,512 @@ def phase_ensemble(seed, seconds, device_label):
         return {"launches": results[ENSEMBLE_ALGORITHMS[0]]["launches"], "results": results}
 
 
+# ---------------------------------------------------------------------------
+# [remote]: the serving front end over HTTP and ASGI
+
+
+REMOTE_FLOOR_DB = 100.0  # served stems against direct card calls (PERF.md §2)
+REMOTE_SHORT_SECONDS = 20.0
+REMOTE_WAIT_S = 300.0
+
+
+def http_request(url, method="GET", body=None, headers=None):
+    """(status, body bytes) over the standard library."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def http_json(url, method="GET", body=None, headers=None):
+    status, payload = http_request(url, method, body, headers)
+    return status, json.loads(payload)
+
+
+def multipart_body(fields, file_path=None):
+    """A multipart/form-data body built by hand: (bytes, content type)."""
+    import uuid
+
+    boundary = "chip-smoke-" + uuid.uuid4().hex
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'
+             .encode() for k, v in fields.items()]
+    if file_path is not None:
+        with open(file_path, "rb") as f:
+            data = f.read()
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                     f'filename="{os.path.basename(file_path)}"\r\n'
+                     f'Content-Type: application/octet-stream\r\n\r\n'.encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
+def submit_job(url, wav, fields):
+    """POST /separate; returns (task id, submit time on the host clock)."""
+    body, ctype = multipart_body(fields, wav)
+    t0 = time.perf_counter()
+    status, payload = http_json(url + "/separate", "POST", body, {"Content-Type": ctype})
+    if status != 200 or payload.get("status") != "queued":
+        raise AssertionError(f"submit of {os.path.basename(wav)}: {status} {payload}")
+    return payload["task_id"], t0
+
+
+def wait_jobs(get_status, task_ids, timeout=REMOTE_WAIT_S):
+    """Poll each job's status until every one is terminal: {task id:
+    (status JSON, host time it was first seen terminal)}."""
+    done = {}
+    deadline = time.perf_counter() + timeout
+    while len(done) < len(task_ids):
+        for task_id in task_ids:
+            if task_id not in done:
+                status = get_status(task_id)
+                if status["status"] in ("completed", "error"):
+                    done[task_id] = (status, time.perf_counter())
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"jobs not finished after {timeout:.0f} s: "
+                                 f"{[t for t in task_ids if t not in done]}")
+        time.sleep(0.02)
+    failed = {t: s["error"] for t, (s, _) in done.items() if s["status"] != "completed"}
+    if failed:
+        raise AssertionError(f"remote jobs failed: {failed}")
+    return done
+
+
+def http_fetcher(url):
+    """``fetch(task, hash)`` -> the file's bytes, over GET /download."""
+    def fetch(task, file_hash):
+        status, payload = http_request(f"{url}/download/{task}/{file_hash}")
+        if status != 200:
+            raise AssertionError(f"download {task}/{file_hash}: {status} {payload[:200]}")
+        return payload
+
+    return fetch
+
+
+def stem_label(name):
+    """``<task>_<file>_(Vocals)_<model>.wav`` -> ``vocals``."""
+    return name.split("_(")[1].split(")")[0].lower()
+
+
+def read_stems(fetch, status, out_dir):
+    """Download every file of a completed job through ``fetch(task, hash)``
+    (bytes) into ``out_dir``: {stem label: (C, T) float32}."""
+    from audio_separator_tpu_torch.io import audio as audio_io
+
+    os.makedirs(out_dir, exist_ok=True)
+    stems = {}
+    for entry in status["files"]:
+        path = os.path.join(out_dir, os.path.basename(entry["filename"]))
+        with open(path, "wb") as f:
+            f.write(fetch(status["task_id"], entry["hash"]))
+        stems[stem_label(entry["filename"])] = audio_io.load_audio(path)[0]
+    return stems
+
+
+def asgi_call(app, method, path, headers=None, body=b""):
+    """One request through an ASGI app's raw interface: (status, body)."""
+    import asyncio
+
+    messages = []
+
+    async def run():
+        scope = {"type": "http", "method": method, "path": path,
+                 "headers": [(k.lower().encode(), v.encode())
+                             for k, v in (headers or {}).items()]}
+        sent = [False]
+
+        async def receive():
+            if sent[0]:
+                return {"type": "http.disconnect"}
+            sent[0] = True
+            return {"type": "http.request", "body": body, "more_body": False}
+
+        async def send(message):
+            messages.append(message)
+
+        await app(scope, receive, send)
+
+    asyncio.run(run())
+    status = next(m["status"] for m in messages if m["type"] == "http.response.start")
+    return status, b"".join(m.get("body", b"") for m in messages
+                            if m["type"] == "http.response.body")
+
+
+def roformer_forwards(sep, lengths):
+    """Forwards of the RoFormer engine for tracks of ``lengths`` samples in
+    one pass: ``demix_jobs`` pools every job's windows into its batches."""
+    from audio_separator_tpu_torch.ops.demix import window_positions
+
+    mi = sep.model_instance
+    chunk, step, _ = mi._roformer_geometry()
+    windows = sum(len(window_positions(n, chunk, step)) for n in lengths)
+    return math.ceil(windows / max(1, int(mi.batch_size)))
+
+
+def demucs_forwards(sep, length):
+    """Forwards of one Demucs v4 ``separate`` of ``length`` samples: every
+    model of the bag runs its shifts' windows in one engine call."""
+    mi = sep.model_instance
+    models, _ = mi._load_models()
+    total = 0
+    for model in models:
+        max_shift = int(0.5 * model.cfg.samplerate)
+        positions = mi._train_segment_plan(model.cfg, length + max_shift)[4]
+        total += math.ceil(mi.shifts * len(positions) / mi.batch_size)
+    return total
+
+
+class _RecordCounter(logging.Handler):
+    """Counts the server's records of failed jobs and failed groups."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def write_vr51_model(model_dir: str, seed: int) -> None:
+    """The full-width v5.1 checkpoint of the ``[vr]`` phase and its sidecar
+    JSON, alone."""
+    import torch
+
+    path = os.path.join(model_dir, VR51_MODEL)
+    torch.save(vr_state_dict(seed, True), path)
+    with open(os.path.splitext(path)[0] + ".json", "w") as f:
+        json.dump(VR51_DATA, f)
+
+
+def backend_switches():
+    """The process-wide switches that float32 work of the port must leave
+    as it found them."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    return {"cudnn.enabled": cudnn.enabled, "cudnn.allow_tf32": cudnn.allow_tf32,
+            "cudnn.benchmark": cudnn.benchmark, "cudnn.deterministic": cudnn.deterministic,
+            "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def phase_remote(seed, seconds, device_label):
+    """The serving front end (``[remote]``): the full-width BS-RoFormer and
+    HTDemucs behind the port's HTTP server and its ASGI app on the card, each
+    served stem against a direct ``Separator`` call of the same file with the
+    same settings, and the kernels' launches over each server against the
+    engine's window plan. Server B also runs the full-width VR v5.1 and
+    MDX23C in float32 on its two workers, whose process-wide switches must
+    end as they began."""
+    import numpy as np
+    import torch
+
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.remote import server as server_mod
+    from audio_separator_tpu_torch.remote.asgi import create_app
+    from audio_separator_tpu_torch.separator import DEFAULT_MODEL, Separator
+    from audio_separator_tpu_torch.utils.metrics import bss_eval, simple_sdr
+
+    sr = 44100
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    records = _RecordCounter()
+    server_mod.logger.addHandler(records)
+    saved_env = {k: os.environ.get(k) for k in ("AUDSEP_SERVER_COALESCE", "AUDSEP_API_KEY")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+            model_dir = os.path.join(tmp, "models")
+            os.makedirs(model_dir)
+            t0 = time.perf_counter()
+            write_synthetic_model(model_dir, seed)
+            write_synthetic_demucs_bag(model_dir, seed)
+            write_vr51_model(model_dir, seed)
+            write_synthetic_mdx23c(model_dir, seed)
+            write_s = time.perf_counter() - t0
+            wavs = {"long": os.path.join(tmp, "long.wav"), "short": os.path.join(tmp, "short.wav")}
+            lengths = {}
+            for i, (key, secs) in enumerate((("long", seconds),
+                                             ("short", REMOTE_SHORT_SECONDS))):
+                # 32-bit float WAVs: the stems are written at the input's depth
+                lengths[key] = write_seeded_wav(wavs[key], seed + 70 + i, secs, sr,
+                                                bit_depth=32).shape[-1]
+
+            # Direct card calls with the server's settings: the references,
+            # the solo walls and the window plans.
+            models = {"demucs": ("htdemucs.yaml", False, ("long", "short")),
+                      "roformer": (DEFAULT_MODEL, False, ("long", "short")),
+                      "roformer bf16": (DEFAULT_MODEL, True, ("long",)),
+                      "vr": (VR51_MODEL, False, ("long",)),
+                      "mdx23c": (MDX23C_MODEL, False, ("short",))}
+            direct, solo_s, seps = {}, {}, {}
+            for key, (model, autocast, tracks) in models.items():
+                for track in tracks:
+                    t0 = time.perf_counter()
+                    sep = Separator(model_file_dir=model_dir, output_format="wav",
+                                    output_dir=os.path.join(tmp, "direct", key),
+                                    use_autocast=autocast, log_level=logging.WARNING)
+                    sep.load_model(model)
+                    t1 = time.perf_counter()
+                    files = sep.separate(wavs[track])
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    solo_s[key, track] = (t2 - t0, t2 - t1)
+                    direct[key, track] = {
+                        stem_label(f): audio_io.load_audio(os.path.join(sep.output_dir, f))[0]
+                        for f in files}
+                    seps[key] = sep
+            cfg = seps["roformer"].model_instance.model_cfg  # one B1 and one B2 a layer
+            per_forward = {"roformer": cfg.depth * (cfg.time_transformer_depth
+                                                    + cfg.freq_transformer_depth),
+                           "demucs": HTDEMUCS_LAUNCHES_PER_FORWARD}
+            fwd = {"demucs": {k: demucs_forwards(seps["demucs"], n) for k, n in lengths.items()},
+                   "roformer": {k: roformer_forwards(seps["roformer"], [n])
+                                for k, n in lengths.items()},
+                   "group": roformer_forwards(seps["roformer"], list(lengths.values()))}
+            del seps
+
+            def expect(b1_forwards, b3_forwards):
+                return {"fused_attention_block": per_forward["roformer"] * b1_forwards,
+                        "fused_ff_block": per_forward["roformer"] * b1_forwards,
+                        "fused_attention": per_forward["demucs"] * b3_forwards}
+
+            def score(tag, job_key, stems, track):
+                """The served stems against the direct call's: SDR per stem,
+                and whether all are bit-identical."""
+                want = direct[job_key, track]
+                if sorted(stems) != sorted(want):
+                    raise AssertionError(f"{tag}: stems {sorted(stems)}, direct {sorted(want)}")
+                sdrs = {}
+                for name, got in stems.items():
+                    if got.shape != want[name].shape or not np.isfinite(got).all():
+                        raise AssertionError(f"{tag} {name}: shape {got.shape} against "
+                                             f"{want[name].shape}, or not finite")
+                    sdrs[name] = round(simple_sdr(got, want[name]), 2)
+                return {"sdr_db": sdrs, "bit_identical": all(
+                    np.array_equal(got, want[name]) for name, got in stems.items())}
+
+            def floor(tag, result):
+                if min(result["sdr_db"].values()) < REMOTE_FLOOR_DB:
+                    raise AssertionError(f"{tag}: served stems against the direct call "
+                                         f"{result['sdr_db']} dB (floor {REMOTE_FLOOR_DB})")
+                return result
+
+            def check(tag, job_key, stems, track):
+                return floor(tag, score(tag, job_key, stems, track))
+
+            results = {}
+            remote_launches = dict.fromkeys(_build.LAUNCHES, 0)
+
+            # ---- Server A: one worker, coalescing on at 2.
+            os.environ["AUDSEP_SERVER_COALESCE"] = "2"
+            srv = server_mod.serve(host="127.0.0.1", port=0, model_file_dir=model_dir,
+                                   work_dir=os.path.join(tmp, "server_a"), workers=1,
+                                   device="cuda")
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            try:
+                for path in ("/health", "/models-json", "/presets"):
+                    status, payload = http_json(url + path)
+                    if status != 200 or not payload:
+                        raise AssertionError(f"GET {path}: {status} {payload}")
+                if http_request(url + "/status/unknown-task")[0] != 404:
+                    raise AssertionError("GET /status of an unknown task did not answer 404")
+                jobs = [("demucs", "long", {"model": "htdemucs.yaml"}),
+                        ("roformer", "long", {"use_autocast": "false"}),
+                        ("roformer", "short", {"use_autocast": "false"}),
+                        ("roformer bf16", "long", {"use_autocast": "true"})]
+                _build.reset_launch_counts()
+                t_start = time.perf_counter()
+                submitted = [(key, track, *submit_job(url, wavs[track],
+                                                      {**fields, "output_format": "wav"}))
+                             for key, track, fields in jobs]
+                done = wait_jobs(lambda t: http_json(f"{url}/status/{t}")[1],
+                                 [task for _, _, task, _ in submitted])
+                wall_a = time.perf_counter() - t_start
+                launches_a = dict(_build.LAUNCHES)
+                want_a = expect(fwd["group"] + fwd["roformer"]["long"],
+                                fwd["demucs"]["long"])
+
+                latencies, served = {}, {}
+                for key, track, task, t_submit in submitted:
+                    status, t_done = done[task]
+                    latencies[f"{key} {track}"] = t_done - t_submit
+                    served[key, track] = read_stems(http_fetcher(url), status,
+                                                    os.path.join(tmp, "dl", task))
+                    results[f"A {key} {track}"] = check(f"server A {key} {track}", key,
+                                                        served[key, track], track)
+                group_dir = os.path.join(tmp, "server_a", "group-" + submitted[1][2])
+                if not os.path.isdir(group_dir):
+                    raise AssertionError("the two float32 RoFormer jobs did not coalesce")
+                # the group starts when the one worker finishes the HTDemucs job
+                group_s = done[submitted[2][2]][1] - done[submitted[0][2]][1]
+                os.environ["AUDSEP_API_KEY"] = "chip-smoke-key"
+                status_401 = http_request(url + f"/status/{submitted[0][2]}")[0]
+                os.environ.pop("AUDSEP_API_KEY")
+                if status_401 != 401:
+                    raise AssertionError(f"GET /status without the API key: {status_401}")
+                # bss_eval: the short file's two served RoFormer stems against
+                # the direct ones
+                names = sorted(served["roformer", "short"])
+                t0 = time.perf_counter()
+                bss = bss_eval([direct["roformer", "short"][n] for n in names],
+                               [served["roformer", "short"][n] for n in names], sample_rate=sr)
+                bss_s = time.perf_counter() - t0
+                # SDR is +inf exactly where a served stem equals its direct
+                # stem bit for bit (no distortion at all); every other ratio
+                # must be finite
+                identical = [np.array_equal(served["roformer", "short"][n],
+                                            direct["roformer", "short"][n]) for n in names]
+                if not all(math.isfinite(v) or (k == "SDR" and v == math.inf and same)
+                           for scores, same in zip(bss, identical) for k, v in scores.items()):
+                    raise AssertionError(f"bss_eval of served against direct stems: {bss} "
+                                         f"(bit-identical {identical})")
+            finally:
+                srv.shutdown()
+                srv.server_close()
+            for name, n in launches_a.items():
+                remote_launches[name] += n
+            log(f"[remote] {device_label}: server A (1 worker, coalescing at 2), "
+                f"{seconds:.0f} s and {REMOTE_SHORT_SECONDS:.0f} s float32 WAVs, 4 jobs: wall "
+                f"{wall_a:.3f} s ({len(jobs) * 3600 / wall_a:.1f} jobs/hour); latency submit to "
+                f"completed {({k: round(v, 3) for k, v in latencies.items()})} s")
+            log(f"[remote] {device_label}: server A launches {launches_a}, expected {want_a} "
+                f"({per_forward['roformer']} B1/B2 per RoFormer forward x ({fwd['group']} "
+                f"forwards of the coalesced group + {fwd['roformer']['long']} bf16); "
+                f"{per_forward['demucs']} B3 per HTDemucs forward x {fwd['demucs']['long']})")
+            log(f"[remote] {device_label}: coalesced float32 RoFormer group (one "
+                f"separate_batch, {seconds:.0f} s + {REMOTE_SHORT_SECONDS:.0f} s, its Separator "
+                f"built and loaded) {group_s:.3f} s against two solo direct calls built, loaded "
+                f"and run {solo_s['roformer', 'long'][0]:.3f} + "
+                f"{solo_s['roformer', 'short'][0]:.3f} s (separate alone "
+                f"{solo_s['roformer', 'long'][1]:.3f} + {solo_s['roformer', 'short'][1]:.3f} s)")
+            log(f"[remote] {device_label}: served stems against direct card calls (floor "
+                f"{REMOTE_FLOOR_DB} dB): {results}; bss_eval of the "
+                f"{REMOTE_SHORT_SECONDS:.0f} s float32 RoFormer stems {names} in {bss_s:.1f} s: "
+                f"{[{k: round(v, 2) for k, v in s.items()} for s in bss]} (bit-identical to "
+                f"the direct stems: {identical})")
+            if launches_a != want_a:
+                raise AssertionError(f"server A launches {launches_a}, expected {want_a}")
+
+            # ---- Server B: two workers, coalescing off, both TF32 switches
+            # on. Round 1: two HTDemucs jobs at once, whose float32 scopes
+            # must keep TF32 off while either job is inside one. Round 2: the
+            # VR v5.1 and MDX23C jobs submitted together, float32 both (VR's
+            # convolutions pass cuDNN's switches per call). Every score is
+            # logged before any check raises.
+            os.environ["AUDSEP_SERVER_COALESCE"] = "1"
+            cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+            saved_tf32 = (cudnn.allow_tf32, matmul.allow_tf32)
+            cudnn.allow_tf32 = matmul.allow_tf32 = True
+            switches_before = backend_switches()
+            rounds = (("demucs", "long", {"model": "htdemucs.yaml"}),
+                      ("demucs", "short", {"model": "htdemucs.yaml"})), (
+                      ("vr", "long", {"model": VR51_MODEL}),
+                      ("mdx23c", "short", {"model": MDX23C_MODEL}))
+            try:
+                srv = server_mod.serve(host="127.0.0.1", port=0, model_file_dir=model_dir,
+                                       work_dir=os.path.join(tmp, "server_b"), workers=2,
+                                       device="cuda")
+                thread = threading.Thread(target=srv.serve_forever, daemon=True)
+                thread.start()
+                url = f"http://127.0.0.1:{srv.server_address[1]}"
+                try:
+                    walls_b, latencies_b, switches_after = [], {}, []
+                    _build.reset_launch_counts()
+                    for jobs_b in rounds:
+                        t_start = time.perf_counter()
+                        submitted = [(key, track, *submit_job(url, wavs[track],
+                                                              {**fields, "output_format": "wav"}))
+                                     for key, track, fields in jobs_b]
+                        done = wait_jobs(lambda t: http_json(f"{url}/status/{t}")[1],
+                                         [task for _, _, task, _ in submitted])
+                        walls_b.append(time.perf_counter() - t_start)
+                        switches_after.append(backend_switches())
+                        for key, track, task, t_submit in submitted:
+                            status, t_done = done[task]
+                            latencies_b[f"{key} {track}"] = t_done - t_submit
+                            stems = read_stems(http_fetcher(url), status,
+                                               os.path.join(tmp, "dl", task))
+                            results[f"B {key} {track}"] = score(f"server B {key} {track}", key,
+                                                                stems, track)
+                    launches_b = dict(_build.LAUNCHES)
+                finally:
+                    srv.shutdown()
+                    srv.server_close()
+            finally:
+                cudnn.allow_tf32, matmul.allow_tf32 = saved_tf32
+            want_b = expect(0, fwd["demucs"]["long"] + fwd["demucs"]["short"])
+            for name, n in launches_b.items():
+                remote_launches[name] += n
+            log(f"[remote] {device_label}: server B (2 workers, coalescing off, both TF32 "
+                f"switches on): two HTDemucs jobs at once, wall {walls_b[0]:.3f} s "
+                f"({2 * 3600 / walls_b[0]:.1f} jobs/hour), solo direct calls "
+                f"{solo_s['demucs', 'long'][0]:.3f} + {solo_s['demucs', 'short'][0]:.3f} s; "
+                f"float32 VR v5.1 and MDX23C jobs together, wall {walls_b[1]:.3f} s, solo "
+                f"direct calls {solo_s['vr', 'long'][0]:.3f} + "
+                f"{solo_s['mdx23c', 'short'][0]:.3f} s; latency "
+                f"{({k: round(v, 3) for k, v in latencies_b.items()})} s; stems against direct "
+                f"{({k: v for k, v in results.items() if k.startswith('B ')})}; switches before "
+                f"{switches_before}, after each round {switches_after}; launches {launches_b}, "
+                f"expected {want_b}")
+            for key, result in results.items():
+                if key.startswith("B "):
+                    floor(f"server {key}", result)
+            if any(after != switches_before for after in switches_after):
+                raise AssertionError(f"switches after concurrent jobs {switches_after}, "
+                                     f"before {switches_before}")
+            if launches_b != want_b:
+                raise AssertionError(f"server B launches {launches_b}, expected {want_b}")
+
+            # ---- ASGI: one float32 RoFormer job in process.
+            os.environ.pop("AUDSEP_SERVER_COALESCE")
+            app = create_app(service=server_mod.SeparatorService(
+                work_dir=os.path.join(tmp, "asgi"), model_file_dir=model_dir, workers=1,
+                device="cuda"))
+            status, payload = asgi_call(app, "GET", "/health")
+            if status != 200:
+                raise AssertionError(f"ASGI /health: {status} {payload}")
+            body, ctype = multipart_body({"output_format": "wav"}, wavs["short"])
+            _build.reset_launch_counts()
+            t_submit = time.perf_counter()
+            status, payload = asgi_call(app, "POST", "/separate", {"Content-Type": ctype}, body)
+            if status != 200:
+                raise AssertionError(f"ASGI /separate: {status} {payload}")
+            task = json.loads(payload)["task_id"]
+            done = wait_jobs(lambda t: json.loads(asgi_call(app, "GET", f"/status/{t}")[1]),
+                             [task])
+            latency_asgi = done[task][1] - t_submit
+            launches_asgi = dict(_build.LAUNCHES)
+            want_asgi = expect(fwd["roformer"]["short"], 0)
+            stems = read_stems(lambda t, h: asgi_call(app, "GET", f"/download/{t}/{h}")[1],
+                               done[task][0], os.path.join(tmp, "dl", "asgi"))
+            results["ASGI roformer short"] = check("ASGI roformer short", "roformer", stems,
+                                                   "short")
+            for name, n in launches_asgi.items():
+                remote_launches[name] += n
+            log(f"[remote] {device_label}: ASGI app, one {REMOTE_SHORT_SECONDS:.0f} s float32 "
+                f"RoFormer job: latency {latency_asgi:.3f} s; stems against direct "
+                f"{results['ASGI roformer short']}; launches {launches_asgi}, expected "
+                f"{want_asgi}; checkpoint writes {write_s:.1f} s")
+            if launches_asgi != want_asgi:
+                raise AssertionError(f"ASGI launches {launches_asgi}, expected {want_asgi}")
+            if records.messages:
+                raise AssertionError(f"the server logged failures: {records.messages}")
+            return {"launches": remote_launches, "stems": results}
+    finally:
+        server_mod.logger.removeHandler(records)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
 def phase_separator(ab, seed, seconds, device_label):
     """Phase 5, RoFormer: the default model through the user entry point."""
     from audio_separator_tpu_torch.separator import Separator
@@ -2039,6 +2573,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--seconds", type=float, default=30.0)
+    parser.add_argument("--phase", choices=("all", "remote"), default="all",
+                        help="'remote' builds the kernels and runs the [remote] phase alone; "
+                             "it prints no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -2072,6 +2609,12 @@ def main(argv=None) -> int:
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
                 log(f"[ptxas] {name}: {line.strip()}")
 
+    if args.phase == "remote":
+        t0 = time.perf_counter()
+        phase_remote(args.seed, args.seconds, f"{kind} ({smi})")
+        log(f"[remote] phase {time.perf_counter() - t0:.1f} s; no other phase was run")
+        return 0
+
     records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
     model = phase_model(ab, args.seed)
     htdemucs = phase_htdemucs_model(att, args.seed)
@@ -2090,6 +2633,9 @@ def main(argv=None) -> int:
     phase_vr(ab, att, args.seed, args.seconds, f"{kind} ({smi})")
     phase_demucs_v3(args.seed, f"{kind} ({smi})")
     ensemble = phase_ensemble(args.seed, args.seconds, f"{kind} ({smi})")
+    t0 = time.perf_counter()
+    remote = phase_remote(args.seed, args.seconds, f"{kind} ({smi})")
+    log(f"[remote] phase {time.perf_counter() - t0:.1f} s")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)
@@ -2127,6 +2673,7 @@ def main(argv=None) -> int:
                       for r in records if r["name"] == name],
             "model_launches_per_forward": per_forward[name],
             "ensemble_launches": ensemble["launches"][name],
+            "remote_launches": remote["launches"][name],
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

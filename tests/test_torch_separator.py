@@ -186,9 +186,12 @@ def test_no_file_of_the_port_imports_jax():
     for root, _dirs, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
-    # The Demucs v3 and ensembling modules are among them.
+    # The Demucs v3, ensembling, remote-service and metrics modules are among them.
     for module in ("models/filtering.py", "separator/ensembler.py", "ops/align.py",
-                   "ops/stretch.py", "models/htdemucs.py"):
+                   "ops/stretch.py", "models/htdemucs.py", "remote/server.py",
+                   "remote/asgi.py", "remote/api_client.py", "remote/cli.py",
+                   "remote/job_store.py", "remote/output_store.py", "utils/metrics.py",
+                   "utils/audio_verification.py"):
         assert os.path.join(PORT, module) in files, module
     for path in files:
         roots = set(_imported_roots(path))
