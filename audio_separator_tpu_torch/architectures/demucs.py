@@ -252,6 +252,7 @@ class DemucsSeparator(BaseSeparator):
             fetch_stems=fetch if len(fetch) < n_sources else None,
             post_device_fn=post, device=self.device)
 
+    @torch.no_grad()
     def _apply_split(self, model: HTDemucs, mix: np.ndarray,
                      fetch: Optional[tuple] = None) -> np.ndarray:
         cfg = model.cfg
@@ -285,6 +286,7 @@ class DemucsSeparator(BaseSeparator):
             fetch_stems=fetch if partial else None, device=self.device)
         return out[..., pad_lead : pad_lead + length]
 
+    @torch.no_grad()
     def _apply_exact_split(self, model: HTDemucs, mix: np.ndarray,
                            fetch: tuple) -> np.ndarray:
         """The v3 split: each window at its exact length (no padding to the

@@ -202,6 +202,53 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     return module
 
 
+def export_jax_params(module: nn.Module) -> Dict[str, Any]:
+    """The module's parameters and buffers as the JAX package's parameter
+    tree (numpy float32 leaves): the inverse of ``load_jax_params`` for a
+    ``Roformer`` (whose numbered levels are lists) and of
+    ``load_jax_htdemucs_params`` / ``load_jax_hdemucs_params`` and the other
+    path trees (numbered levels stay string keys), e.g. to hand trained
+    weights back to the JAX package or to ``save_params``."""
+    from .roformer import Roformer
+
+    tree = tree_from_state_dict({k: v.detach().float().cpu().numpy()
+                                 for k, v in module.state_dict().items()})
+    if not isinstance(module, Roformer):
+        return tree
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    tree = lists(tree)
+    tree["mask_est"].setdefault("hidden", [])  # no hidden layer: no state-dict key
+    return tree
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        flat[f"{prefix}__len__"] = np.asarray(len(tree))
+        for i, v in enumerate(tree):
+            flat.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        flat[prefix[:-1]] = np.asarray(tree)
+    return flat
+
+
+def save_params(path: str, params: Any) -> None:
+    """Write a parameter tree as the ``.npz`` the JAX package's
+    ``models/convert.save_params`` writes (``/``-joined keys, ``__len__``
+    entries for lists), which its ``load_params`` reads."""
+    np.savez(path, **_flatten(params))
+
+
 def _load_path_tree(module: nn.Module, tree: Any) -> nn.Module:
     """Strict ``load_state_dict`` of a tree keyed by the state-dict path split
     on ``.``: every key of the tree is consumed and every parameter and

@@ -21,7 +21,9 @@ The self-attention layers of the cross-transformer go through
 ``ops/attention.dot_product_attention`` (the hand-written kernel on a CUDA
 tensor). The projections around it are plain products (``F.linear``), and the
 cross-attention layers, whose query and key lengths differ, are plain PyTorch
-too — as the JAX package computes both outside any Pallas kernel.
+too — as the JAX package computes both outside any Pallas kernel. The
+modules are differentiable (``training.make_train_step`` trains them); the
+self-attention's backward is the kernel of ``csrc/attention_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -617,9 +619,12 @@ class HTDemucs(nn.Module):
             if index == 0 and cfg.freq_emb:
                 self.freq_emb = ScaledEmbedding(cfg.nfft // 2 // cfg.stride, chin_z,
                                                 cfg.emb_scale)
-        if self.v3:
-            return
+        if not self.v3:
+            self._build_bottleneck(cfg)
+        # Inference builds no graph; training.make_train_step turns this on.
+        self.requires_grad_(False)
 
+    def _build_bottleneck(self, cfg: HTDemucsConfig) -> None:
         t_channels = cfg.channels * cfg.growth ** (cfg.depth - 1)
         if cfg.bottom_channels:
             self.channel_upsampler = nn.Conv1d(t_channels, cfg.bottom_channels, 1)
@@ -630,8 +635,11 @@ class HTDemucs(nn.Module):
         if cfg.t_layers > 0:
             self.crosstransformer = CrossTransformerEncoder(t_channels, cfg)
 
-    @torch.no_grad()
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
+        """Differentiable; the parameters are created with ``requires_grad``
+        off, so an inference call builds no graph. The scope keeps this
+        call's convolutions float32; a training step keeps its backward pass
+        float32 with a scope of its own around ``backward()``."""
         with full_float32():
             return self._forward(mix)
 

@@ -8,7 +8,8 @@ weights, ...), so one converted checkpoint tree loads into either side
 
 Every attention+feed-forward layer of the time and frequency transformers
 runs through the two fused blocks of ``ops/attention_block.py``: CUDA kernels
-for a CUDA module, their plain PyTorch versions for a CPU module. The token
+for a CUDA module, their plain PyTorch versions for a CPU module, forward and
+backward (``training.make_train_step`` trains the module). The token
 axis is padded to a multiple of 64 once around each inner stack and the
 kernels mask key columns past the real length. The linear-attention
 pre-stage (``linear_transformer_depth > 0``) has no kernel in the JAX package
@@ -361,13 +362,16 @@ class Roformer(nn.Module):
                     for name, p in st.items() if name in self.TF32_WEIGHTS)
         cached = getattr(self, "_tf32_cache", None)
         if cached is None or cached[0] != key:
-            cached = (key, {br: tf32_stack_forms(st, self.TF32_WEIGHTS)
-                            for br, st in params.items()})
+            with torch.no_grad():  # the forms are no part of a training graph
+                cached = (key, {br: tf32_stack_forms(st, self.TF32_WEIGHTS)
+                                for br, st in params.items()})
             self._tf32_cache = cached
         return cached[1]
 
-    @torch.no_grad()
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        """Differentiable: the parameters are created with ``requires_grad``
+        off, so an inference call builds no graph (its callers also run it
+        under ``torch.no_grad``); ``training.make_train_step`` turns them on."""
         cfg, layout = self.cfg, self.layout
         dt = self.band_split.b.dtype
         dev = audio.device

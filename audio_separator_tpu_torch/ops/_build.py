@@ -24,7 +24,9 @@ import torch
 # Launch counters: each wrapper adds one where it launches its kernel (chain),
 # through count(), under one lock: jobs of a server launch from several threads.
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
-                            "fused_attention": 0}
+                            "fused_attention": 0, "attention_backward": 0,
+                            "rmsnorm_backward": 0, "gelu_backward": 0,
+                            "rope_gate_backward": 0}
 _count_lock = threading.Lock()
 
 
@@ -51,13 +53,22 @@ _I = ctypes.c_int
 # library name -> source file under csrc/, and -> (entry point, ctypes argtypes)
 KERNEL_SOURCES = {"attention_block": "attention_block.cu",
                   "ff_block": "ff_block.cu",
-                  "attention": "attention.cu"}
+                  "attention": "attention.cu",
+                  "attention_bwd": "attention_bwd.cu",
+                  "norm_bwd": "norm_bwd.cu",
+                  "gelu_bwd": "gelu_bwd.cu",
+                  "rope_gate_bwd": "rope_gate_bwd.cu"}
 _SIGNATURES = {
     "attention_block": ("asep_attention_block",
                         [_I] + [_P] * 15 + [_I] * 5 + [_P]),
     "ff_block": ("asep_ff_block", [_I] + [_P] * 9 + [_I] * 3 + [_P]),
     "attention": ("asep_attention",
                   [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
+    "attention_bwd": ("asep_attention_bwd",
+                      [_I] + [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]),
+    "norm_bwd": ("asep_norm_bwd", [_P] * 7 + [_I] * 3 + [_P]),
+    "gelu_bwd": ("asep_gelu_bwd", [_P] * 4 + [ctypes.c_longlong, _P]),
+    "rope_gate_bwd": ("asep_rope_gate_bwd", [_P] * 9 + [_I] * 3 + [_P]),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

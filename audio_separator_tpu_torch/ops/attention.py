@@ -40,6 +40,14 @@ register-blocked FMA tiles (TF32 is not float32) with K and V brought by
 ``cp.async`` while the other product runs. In both, scores, output, running maximum and running sum stay
 in registers across key tiles. TMA and the vector loads want 16-byte aligned
 operands, which the wrapper checks before the launch.
+
+Gradients: ``dot_product_attention`` is a ``torch.autograd.Function`` on both
+devices. Its backward is ``attention_backward``: on a CUDA tensor the kernel
+of ``csrc/attention_bwd.cu`` (float32; the JAX package has no backward kernel
+to port, as it cannot differentiate through ``pl.pallas_call``), on a CPU
+tensor its plain version ``attention_bwd_ref``, so CPU autograd runs the
+composition the card runs. The same backward serves the RoFormer attention
+block, whose output is the gated merged heads (``gates=``).
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, 
                      load, reset_launch_counts, stream)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "attention_ref", "fused_attention",
-           "dot_product_attention", "padded_head_dim"]
+           "dot_product_attention", "padded_head_dim", "attention_bwd_ref",
+           "attention_backward", "check_float32_backward"]
 
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -116,12 +125,122 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :d] if dh != d else out
 
 
+def check_float32_backward(t: torch.Tensor) -> None:
+    """The backward kernels are float32 only: bf16 training is its own item."""
+    if t.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the backward pass takes float32, got {t.dtype}: bf16 training (bf16 backward "
+            f"kernels, float32 master weights) is ROADMAP item 17b")
+
+
+def _heads_of(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``(B, N, heads·D)`` merged heads → ``(B, heads, N, D)``."""
+    b, n, hd = t.shape
+    return t.reshape(b, n, heads, hd // heads).transpose(1, 2)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                      do: torch.Tensor, scale: float, n_valid: Optional[int] = None,
+                      gates: Optional[torch.Tensor] = None):
+    """The plain version of the attention backward: ``(dq, dk, dv, delta)``.
+
+    ``o`` is the forward's output and ``do`` its gradient, ``(B, H, N, D)``;
+    with ``gates`` ``(B, H, N)`` they are instead the attention block's gated
+    merged heads ``merged = O·g`` and their gradient, ``(B, N, H·D)``, so
+    that ``dO = d_merged·g``. ``delta`` ``(B, H, N)`` is ``Σ dO ⊙ O``
+    (``Σ d_merged ⊙ merged`` for the merged heads). Keys ``≥ n_valid`` are
+    masked as in the forward."""
+    q, k, v = q.float(), k.float(), v.float()
+    if gates is not None:
+        heads = q.shape[1]
+        o, do = _heads_of(o.float(), heads), _heads_of(do.float(), heads)
+        delta = (do * o).sum(-1)
+        do = do * gates[..., None]
+    else:
+        o, do = o.float(), do.float()
+        delta = (do * o).sum(-1)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if n_valid is not None and n_valid < s.shape[-1]:
+        s[..., n_valid:] = -1e30
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return dq, dk, dv, delta
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                       do: torch.Tensor, scale: float, n_valid: Optional[int] = None,
+                       gates: Optional[torch.Tensor] = None):
+    """The attention backward's wrapper: the plain version for CPU tensors,
+    the kernel (``csrc/attention_bwd.cu``) for CUDA tensors. Arguments and
+    result as :func:`attention_bwd_ref`; float32 only."""
+    check_float32_backward(q)
+    b, h, n, d = q.shape
+    n_valid = n if n_valid is None else n_valid
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"n_valid={n_valid} outside [1, {n}]")
+    if device_kind(q) == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, scale, n_valid, gates)
+    if gates is not None:
+        if d != 64:
+            raise ValueError(f"the gated backward takes 64-wide heads, got {d}")
+        dh = d
+        gates = gates.contiguous()
+        if tuple(o.shape) != (b, n, h * d) or tuple(gates.shape) != (b, h, n):
+            raise ValueError(f"merged heads {tuple(o.shape)} / gates {tuple(gates.shape)} "
+                             f"do not match q {tuple(q.shape)}")
+    else:
+        dh = padded_head_dim(d)
+        if dh != d:
+            q, k, v, o, do = (torch.nn.functional.pad(t, (0, dh - d)) for t in (q, k, v, o, do))
+    q, k, v, o, do = (t.float().contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty((b, h, n, dh), dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    lse, delta = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+                  for _ in range(2))
+    check_cuda_layout(q, k, v, o, do, dq, dk, dv)
+    lib = load("attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.asep_attention_bwd(
+            0 if gates is None else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), gates.data_ptr() if gates is not None else None, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, n_valid,
+            dh, h, float(scale), stream(q))
+    check_rc(lib, rc, "attention_backward")
+    count("attention_backward")
+    if dh != d:
+        dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+    return dq, dk, dv, delta
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: the plain version (CPU) or the kernel (CUDA); backward:
+    :func:`attention_backward` on the same device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if device_kind(q) == "cpu":
+            out = attention_ref(q, k, v, scale)
+        else:
+            out = fused_attention(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv, _ = attention_backward(q, k, v, out, dout, ctx.scale)
+        return dq, dk, dv, None
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Self-attention over ``(B, H, N, D)`` tensors; returns ``(B, H, N, D)``."""
+    """Self-attention over ``(B, H, N, D)`` tensors; returns ``(B, H, N, D)``.
+    Differentiable on both devices (the backward is :func:`attention_backward`)."""
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if device_kind(q) == "cpu":
-        return attention_ref(q, k, v, scale)
-    return fused_attention(q, k, v, scale)
+    return _Attention.apply(q, k, v, scale)

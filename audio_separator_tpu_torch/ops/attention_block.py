@@ -17,6 +17,14 @@ Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (``csrc/attention_block.cu``,
 ``csrc/ff_block.cu``) or raises. Nothing falls back.
 
+Both blocks are ``torch.autograd.Function``s on both devices, their only
+route: the forward keeps the intermediates it computes anyway (the attention
+block's xn, rotated q and k, v, gates and merged heads; the feed-forward
+block's xn, its hidden activation being recomputed), and the backward is
+``ops/block_backward.py``'s composition of hand-written kernels (float32):
+the attention backward, the RoPE and gate backward, the GELU backward and
+the RMSNorm backward, with plain products between them.
+
 Both sides round to the input dtype where the TPU kernels do: ``qkv`` before
 RoPE, the rotated q/k, the softmax weights before the PV product, the merged
 heads, the projection before the residual add, and the feed-forward hidden
@@ -63,6 +71,7 @@ import torch
 
 from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
                      load, reset_launch_counts, stream)
+from .block_backward import attention_block_backward, ff_block_backward
 from .tf32 import prepare_tf32_weight
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "fused_attention_block",
@@ -163,14 +172,17 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([-x2[..., 1], x2[..., 0]], dim=-1).reshape(x.shape)
 
 
-def fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
-                              heads: int, n_valid: int) -> torch.Tensor:
+def _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads: int,
+                               n_valid: int):
+    """The plain attention block and what its backward pass reads: ``out``
+    and ``(xn, q, k, v, gates, merged)``, the rotated ``q``, ``k`` and ``v``
+    as ``(b, h, n, dh)``, the gates as ``(b, h, n)``."""
     dt = x.dtype
     b, n, d = x.shape
     dh = wqkv.shape[-1] // (3 * heads)
     xn = _rmsnorm_rounded(x, attn_norm)
     qkv = _rnd(xn @ wqkv.float(), dt)
-    gates = torch.sigmoid(xn @ gate_w.float() + gate_b.float())  # (b, n, h)
+    gates = torch.sigmoid(xn @ gate_w.float() + gate_b.float()).transpose(1, 2)  # (b, h, n)
     qkv = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (b, h, n, dh)
     if rope is not None:
@@ -181,49 +193,41 @@ def fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
     if n_valid < n:
         s[..., n_valid:] = -1e30
     p = _rnd(torch.softmax(s, dim=-1), dt)
-    o = (p @ v) * gates.transpose(1, 2)[..., None]
+    o = (p @ v) * gates[..., None]
     merged = _rnd(o.permute(0, 2, 1, 3).reshape(b, n, heads * dh), dt)
     proj = _rnd(merged @ wo.float(), dt)
-    return (x.float() + proj).to(dt)
+    return (x.float() + proj).to(dt), (xn, q, k, v, gates, merged)
 
 
-def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2) -> torch.Tensor:
+def fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
+                              heads: int, n_valid: int) -> torch.Tensor:
+    return _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads,
+                                      n_valid)[0]
+
+
+def _ff_block_ref_parts(x, ff_norm, w1, b1, w2, b2):
+    """The plain feed-forward block and the ``xn`` its backward pass reads."""
     dt = x.dtype
     xn = _rmsnorm_rounded(x, ff_norm)
     h = _rnd(torch.nn.functional.gelu(xn @ w1.float() + b1.float()), dt)
     y = _rnd(h @ w2.float() + b2.float(), dt)
-    return (x.float() + y).to(dt)
+    return (x.float() + y).to(dt), xn
+
+
+def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2) -> torch.Tensor:
+    return _ff_block_ref_parts(x, ff_norm, w1, b1, w2, b2)[0]
 
 
 # ---------------------------------------------------------------------------
-# Wrappers.
+# Kernel launches (CUDA tensors, checked by the wrappers).
 
 
-def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
-                          gate_w: torch.Tensor, gate_b: torch.Tensor,
-                          wo: torch.Tensor, attn_norm: torch.Tensor,
-                          rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                          heads: int, n_valid: int, *,
-                          tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                          ) -> torch.Tensor:
-    """``x (B, n_pad, d)`` → same shape; ``n_pad % 64 == 0``, key columns
-    ``≥ n_valid`` masked. ``rope`` is ``(cos, sin)``, each ``(n_pad, dh)``.
-    ``tf32_weights``: the prepared forms of ``(wqkv, wo)``
-    (:func:`~audio_separator_tpu_torch.ops.tf32.prepare_tf32_weight`) for a
-    float32 call on the card; made for the call where not given."""
-    b, n_pad, d = x.shape if x.dim() == 3 else (0, 0, 0)
-    hd3 = wqkv.shape[-1] if wqkv.dim() == 2 else 0
-    dh = hd3 // (3 * heads)
-    expected = {"wqkv": (wqkv, (d, 3 * heads * dh)),
-                "gate_w": (gate_w, (d, heads)), "gate_b": (gate_b, (heads,)),
-                "wo": (wo, (heads * dh, d)), "attn_norm": (attn_norm, (d,))}
-    if rope is not None:
-        expected["cos"] = (rope[0], (n_pad, dh))
-        expected["sin"] = (rope[1], (n_pad, dh))
-    _check_tensors(x, n_valid, **expected)
-    if device_kind(x) == "cpu":
-        return fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo,
-                                         attn_norm, rope, heads, n_valid)
+def _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n_valid,
+                          tf32_weights):
+    """The kernel's launch: ``out`` and the intermediates it writes, ``(xn, q,
+    k, v, gates, merged)``, which the backward pass reads."""
+    b, n_pad, d = x.shape
+    dh = wqkv.shape[-1] // (3 * heads)
     check_kernel_dims(d, heads, dh)
     qkv_shape = (b, heads, n_pad, dh)
     q, k, v = (torch.empty(qkv_shape, dtype=x.dtype, device=x.device)
@@ -249,24 +253,15 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
             b, n_pad, d, heads, n_valid, stream(x))
     check_rc(lib, rc, "fused_attention_block")
     count("fused_attention_block")
-    return out
+    return out, (xn, q, k, v, gates, merged)
 
 
-def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
-                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, *,
-                   tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                   ) -> torch.Tensor:
-    """``x + FeedForward(rmsnorm(x))`` over ``x (B, n_pad, d)``.
-    ``tf32_weights``: the prepared forms of ``(w1, w2)`` for a float32 call on
-    the card; made for the call where not given."""
-    d = x.shape[-1] if x.dim() == 3 else 0
-    hidden = w1.shape[-1] if w1.dim() == 2 else 0
-    _check_tensors(x, None, ff_norm=(ff_norm, (d,)), w1=(w1, (d, hidden)),
-                   b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
-    if device_kind(x) == "cpu":
-        return fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2)
+def _ff_block_cuda(x, ff_norm, w1, b1, w2, b2, tf32_weights):
+    """The kernel's launch: ``out`` and ``xn``, which the backward pass reads
+    (the hidden activation is scratch, dropped here)."""
+    b, n_pad, d = x.shape
+    hidden = w1.shape[-1]
     check_kernel_dims(d, hidden=hidden)
-    b, n_pad, _ = x.shape
     h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
     check_cuda_layout(x, w1, b1, w2, b2, xn, h, out)
@@ -280,4 +275,98 @@ def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
             h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, stream(x))
     check_rc(lib, rc, "fused_ff_block")
     count("fused_ff_block")
-    return out
+    return out, xn
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the blocks' only route, on both devices. The forward is the plain
+# version (CPU) or the kernel (CUDA) and keeps what it computed on the way;
+# the backward is ops/block_backward.py's composition, whose kernels take the
+# same dispatch. The prepared 3xTF32 forms are not differentiated.
+
+
+class _AttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, gate_w, gate_b, wo, attn_norm, cos, sin, heads, n_valid,
+                tf32_weights):
+        rope = (cos, sin) if cos is not None else None
+        if device_kind(x) == "cpu":
+            out, saved = _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm,
+                                                    rope, heads, n_valid)
+        else:
+            out, saved = _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
+                                               heads, n_valid, tf32_weights)
+        ctx.save_for_backward(x, wqkv, gate_w, wo, attn_norm, cos, sin, *saved)
+        ctx.heads, ctx.n_valid = heads, n_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wqkv, gate_w, wo, attn_norm, cos, sin, *saved = ctx.saved_tensors
+        rope = (cos, sin) if cos is not None else None
+        grads = attention_block_backward(dy, x, wqkv, gate_w, wo, attn_norm, rope, ctx.heads,
+                                         ctx.n_valid, *saved)
+        return (*grads, None, None, None, None, None)
+
+
+class _FFBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ff_norm, w1, b1, w2, b2, tf32_weights):
+        if device_kind(x) == "cpu":
+            out, xn = _ff_block_ref_parts(x, ff_norm, w1, b1, w2, b2)
+        else:
+            out, xn = _ff_block_cuda(x, ff_norm, w1, b1, w2, b2, tf32_weights)
+        ctx.save_for_backward(x, ff_norm, w1, b1, w2, xn)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, dnorm, dw1, db1, dw2, db2 = ff_block_backward(dy, *ctx.saved_tensors)
+        return dx, dnorm, dw1, db1, dw2, db2, None
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+
+
+def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
+                          gate_w: torch.Tensor, gate_b: torch.Tensor,
+                          wo: torch.Tensor, attn_norm: torch.Tensor,
+                          rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                          heads: int, n_valid: int, *,
+                          tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """``x (B, n_pad, d)`` → same shape; ``n_pad % 64 == 0``, key columns
+    ``≥ n_valid`` masked. ``rope`` is ``(cos, sin)``, each ``(n_pad, dh)``.
+    ``tf32_weights``: the prepared forms of ``(wqkv, wo)``
+    (:func:`~audio_separator_tpu_torch.ops.tf32.prepare_tf32_weight`) for a
+    float32 call on the card; made for the call where not given.
+    Differentiable in ``x`` and every weight (float32)."""
+    b, n_pad, d = x.shape if x.dim() == 3 else (0, 0, 0)
+    hd3 = wqkv.shape[-1] if wqkv.dim() == 2 else 0
+    dh = hd3 // (3 * heads)
+    expected = {"wqkv": (wqkv, (d, 3 * heads * dh)),
+                "gate_w": (gate_w, (d, heads)), "gate_b": (gate_b, (heads,)),
+                "wo": (wo, (heads * dh, d)), "attn_norm": (attn_norm, (d,))}
+    if rope is not None:
+        expected["cos"] = (rope[0], (n_pad, dh))
+        expected["sin"] = (rope[1], (n_pad, dh))
+    _check_tensors(x, n_valid, **expected)
+    cos, sin = rope if rope is not None else (None, None)
+    return _AttentionBlock.apply(x, wqkv, gate_w, gate_b, wo, attn_norm, cos, sin, heads,
+                                 n_valid, tf32_weights)
+
+
+def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
+                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, *,
+                   tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
+    """``x + FeedForward(rmsnorm(x))`` over ``x (B, n_pad, d)``.
+    ``tf32_weights``: the prepared forms of ``(w1, w2)`` for a float32 call on
+    the card; made for the call where not given. Differentiable in ``x`` and
+    every weight (float32)."""
+    d = x.shape[-1] if x.dim() == 3 else 0
+    hidden = w1.shape[-1] if w1.dim() == 2 else 0
+    _check_tensors(x, None, ff_norm=(ff_norm, (d,)), w1=(w1, (d, hidden)),
+                   b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
+    return _FFBlock.apply(x, ff_norm, w1, b1, w2, b2, tf32_weights)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (audio_separator_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--seconds S] [--phase all|remote]
+    python3 chip_smoke.py [--seed N] [--seconds S] [--phase all|remote|training]
 
-(``--phase remote`` builds the kernels and runs the ``[remote]`` phase alone,
-and prints no result line.)
+(``--phase remote`` or ``--phase training`` builds the kernels and runs that
+phase alone, and prints no result line.)
 
 Phases, each of which must pass (any failure exits non-zero before the
 result lines are printed):
@@ -125,8 +125,25 @@ result lines are printed):
    what the engine's window plan implies (24 B1 and B2 per RoFormer forward,
    6 B3 per HTDemucs forward); each job's latency, each server's wall and
    jobs/hour and the group's wall against two solo calls are printed;
+   then training (``[training]``, ``training.make_train_step``): each of
+   the four backward kernels (K1 attention, K2 RMSNorm, K3 GELU, K4 RoPE
+   and gate) against its plain version at the full-width shapes of batch 2,
+   with CUDA-event times, bounds and, where one exists, a library call
+   beside them (``scaled_dot_product_attention``'s backward,
+   ``aten.gelu_backward``); the three autograd Functions against autograd
+   through their plain versions on the card; the flagship BS-RoFormer at
+   depth 2, one step's gradients against the CPU plain path (>= 80 dB each,
+   or within 6 dB of the CPU's own spread where the CPU does not reproduce
+   a gradient to 80 dB itself); at depth 12, 3 SGD and 3 Adam steps on
+   batch 2 of 8 s windows with both TF32 switches on (the step's
+   ``full_float32`` scope keeps it float32), each with its launches against
+   the plan (B1 24, B2 24, K1 24, K2 48, K3 24, K4 24), the step split into
+   forms remade, forward, backward and optimiser, peak memory and device
+   time by category; the published HTDemucs against the CPU and 3 Adam
+   steps on batch 2 (B3 6, K1 6 a step); one HDemucs step on 10 s;
 6. one JSON line describing each kernel (with its launches on the ensemble
-   path and over the remote servers), then the last line
+   path, over the remote servers and over the training steps; the backward
+   kernels' launches are those of the training steps), then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every float32 comparison (``torch.backends.cuda.matmul`` and
@@ -1902,7 +1919,11 @@ ENSEMBLE_ALGORITHMS = ("avg_wave", "avg_fft", "uvr_max_spec")
 # One 30 s ensemble separate: the RoFormer member's one forward launches each
 # fused block once a layer (24), the HTDemucs member's 3 forwards the
 # whole-sequence attention 6 times each.
-ENSEMBLE_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24, "fused_attention": 18}
+# The backward kernels (training's) run on no inference path.
+NO_BACKWARD = {"attention_backward": 0, "rmsnorm_backward": 0, "gelu_backward": 0,
+               "rope_gate_backward": 0}
+ENSEMBLE_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24, "fused_attention": 18,
+                     **NO_BACKWARD}
 ENSEMBLE_FLOOR_DB = 60.0  # card ensemble against the CPU Ensembler on the same member stems
 
 
@@ -2273,7 +2294,8 @@ def phase_remote(seed, seconds, device_label):
             def expect(b1_forwards, b3_forwards):
                 return {"fused_attention_block": per_forward["roformer"] * b1_forwards,
                         "fused_ff_block": per_forward["roformer"] * b1_forwards,
-                        "fused_attention": per_forward["demucs"] * b3_forwards}
+                        "fused_attention": per_forward["demucs"] * b3_forwards,
+                        **NO_BACKWARD}
 
             def score(tag, job_key, stems, track):
                 """The served stems against the direct call's: SDR per stem,
@@ -2508,6 +2530,500 @@ def phase_remote(seed, seconds, device_label):
                 os.environ[key] = value
 
 
+# ----------------------------------------------------------------------------
+# [training]: the backward kernels and make_train_step on the card.
+
+# name -> (source, the TPU kernel whose gradient it computes; the JAX package
+# has no backward kernel: it cannot differentiate through pl.pallas_call)
+BACKWARD_KERNELS = {
+    "attention_backward": ("audio_separator_tpu_torch/csrc/attention_bwd.cu",
+                           "audio_separator_tpu/ops/attention.py:39"),
+    "rmsnorm_backward": ("audio_separator_tpu_torch/csrc/norm_bwd.cu",
+                         "audio_separator_tpu/ops/attention_block.py:119"),
+    "gelu_backward": ("audio_separator_tpu_torch/csrc/gelu_bwd.cu",
+                      "audio_separator_tpu/ops/attention_block.py:119"),
+    "rope_gate_backward": ("audio_separator_tpu_torch/csrc/rope_gate_bwd.cu",
+                           "audio_separator_tpu/ops/attention_block.py:35"),
+}
+# One flagship (depth 12) training step: each of the 24 softmax layers runs B1
+# and B2 forward; B1's backward K1, K4 and K2, B2's K3 and K2.
+ROFORMER_STEP_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24,
+                          "fused_attention": 0, "attention_backward": 24,
+                          "rmsnorm_backward": 48, "gelu_backward": 24, "rope_gate_backward": 24}
+# One HTDemucs step: 6 self-attention layers, B3 forward and K1 backward.
+HTDEMUCS_STEP_LAUNCHES = {**dict.fromkeys(ROFORMER_STEP_LAUNCHES, 0), "fused_attention": 6,
+                          "attention_backward": 6}
+# Every parameter's gradient, card against the CPU plain path: within 1e-4
+# relative L2, 10x above the 1e-5 of output scale the 3xTF32 forward keeps.
+GRADIENT_FLOOR_DB = 80.0
+
+
+def grad_db(want, got) -> float:
+    """20·log10(‖want‖ / ‖want − got‖), +inf where they are equal."""
+    num = float(want.double().norm())
+    den = float((want.double() - got.double()).norm())
+    if den == 0:
+        return math.inf
+    return 20 * math.log10(max(num, 1e-300) / den)
+
+
+class tf32_switches_on:
+    """Both process-wide TF32 switches on for the enclosed run (as server B of
+    ``[remote]`` runs), so that the training step's ``full_float32`` scope is
+    what keeps its forward and backward float32. Single-threaded use only."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, exc_type, *exc):
+        import torch
+
+        left = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+        if exc_type is None and left != (True, True):
+            raise AssertionError(f"a training step left the TF32 switches at {left}")
+
+
+def training_category(name: str) -> str:
+    if "_bwd_" in name:
+        return "backward kernels (K1-K4)"
+    if any(k in name for k in ("flash_", "gemm_tf32x3", "gemm_wgmma", "rmsnorm")):
+        return "forward kernels (B1-B3)"
+    return op_category(name)
+
+
+def check_backward_case(records, name, axis, shape, kernel, plain, cost, library=None,
+                        n_valid=None):
+    """One backward kernel against its plain version: every output within
+    the float32 tolerance of its own scale; CUDA-event times of both and of
+    the library call beside them."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    errs = [compare(a, b, "float32") for a, b in zip(got, want)]
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(kernel, iters=5)
+    plain_ms = cuda_time_ms(plain, iters=2)
+    torch.cuda.empty_cache()
+    library_ms = cuda_time_ms(library, iters=5) if library is not None else None
+    bound_ms, bound_by = bound(cost, "float32")
+    rel = [e["max_abs_err"] / max(e["scale"], 1e-30) for e in errs]
+    rec = dict(name=name, dtype="float32", axis=axis, shape=list(shape), n_valid=n_valid, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               flop=cost[0], bytes=cost[1], max_abs_err=max(e["max_abs_err"] for e in errs),
+               mean_abs_err=max(e["mean_abs_err"] for e in errs),
+               scale=min(e["scale"] for e in errs), rel_errs=rel, split=device_split(kernel))
+    records.append(rec)
+    log(f"[training] {name} {axis} {tuple(shape)}"
+        + (f" n_valid={n_valid}" if n_valid is not None else "")
+        + f": max |kernel - plain| / scale per output {[f'{r:.2e}' for r in rel]} (tol "
+        f"{TOLERANCE['float32']['max']:.0e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        + (f"library {library_ms:.3f} ms, " if library_ms is not None else "")
+        + f"bound {bound_ms:.3f} ms ({bound_by}); launches (device ms) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["split"].items()))
+    if not all(e["ok"] for e in errs):
+        raise AssertionError(f"{name} {axis}: kernel disagrees with its plain version: {errs}")
+
+
+def phase_backward_kernels(seed):
+    """[training] part 1: each backward kernel against its plain version at
+    the path's full-width shapes (batch 2), float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_separator_tpu_torch.models.roformer import _rope_tables
+    from audio_separator_tpu_torch.ops import attention as att
+    from audio_separator_tpu_torch.ops import block_backward as bb
+
+    dev = torch.device("cuda")
+    d, h, dh, hidden = 512, 8, 64, 2048
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+
+    def sdpa_backward(shape):
+        """Yardstick, never called by the port: scaled_dot_product_attention's
+        backward at the same shape."""
+        qs = [randn(*shape).requires_grad_(True) for _ in range(3)]
+        out, do = F.scaled_dot_product_attention(*qs), randn(*shape)
+        return lambda: torch.autograd.grad(out, qs, do, retain_graph=True)
+
+    records = []
+    for axis, (b, n_valid) in {"time": (2 * 62, 801), "freq": (2 * 801, 62)}.items():
+        n_pad = -(-n_valid // 64) * 64
+        rows = b * n_pad
+        # K1 in the attention block's layout: merged heads, their gradient, gates.
+        q, k, v = (randn(b, h, n_pad, dh) for _ in range(3))
+        gates = torch.sigmoid(randn(b, h, n_pad))
+        merged, dm = randn(b, n_pad, h * dh), randn(b, n_pad, h * dh)
+        check_backward_case(
+            records, "attention_backward", axis, (b, h, n_pad, dh),
+            lambda: att.attention_backward(q, k, v, merged, dm, 0.125, n_valid, gates=gates),
+            lambda: att.attention_bwd_ref(q, k, v, merged, dm, 0.125, n_valid, gates=gates),
+            (2.5 * 4 * b * h * n_valid * n_valid * dh, 4 * (8 * b * h * n_pad * dh
+                                                          + 2 * b * h * n_pad)),
+            sdpa_backward((b, h, n_pad, dh)), n_valid)
+        del q, k, v, gates, merged, dm
+        torch.cuda.empty_cache()
+        # K2 with the residual's gradient, padded tokens zero.
+        x, dxn, dres = randn(b, n_pad, d), randn(b, n_pad, d), randn(b, n_pad, d)
+        x[:, n_valid:] = 0
+        gamma = 1 + randn(d, s=0.1)
+        check_backward_case(records, "rmsnorm_backward", axis, (rows, d),
+                            lambda: bb.rmsnorm_backward(x, gamma, dxn, dres),
+                            lambda: bb.rmsnorm_bwd_ref(x, gamma, dxn, dres),
+                            (10 * rows * d, 4 * (4 * rows * d + 2 * d)))
+        del x, dxn, dres
+        # K3 (12 operations a value besides erf and exp).
+        pre, dh_ = randn(rows, hidden, s=2.0), randn(rows, hidden)
+        check_backward_case(records, "gelu_backward", axis, (rows, hidden),
+                            lambda: bb.gelu_backward(pre, dh_),
+                            lambda: bb.gelu_bwd_ref(pre, dh_),
+                            (12 * rows * hidden, 4 * 4 * rows * hidden),
+                            lambda: torch.ops.aten.gelu_backward(dh_, pre))
+        del pre, dh_
+        torch.cuda.empty_cache()
+        # K4 with the model's RoPE tables, zero past n_valid.
+        dq, dk, dv = (randn(b, h, n_pad, dh) for _ in range(3))
+        delta, gates = randn(b, h, n_pad), torch.sigmoid(randn(b, h, n_pad))
+        cos, sin = _rope_tables(n_valid, dh, torch.float32, dev)
+        tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+        check_backward_case(records, "rope_gate_backward", axis, (b, h, n_pad, dh),
+                            lambda: bb.rope_gate_backward(dq, dk, dv, delta, gates, tables),
+                            lambda: bb.rope_gate_bwd_ref(dq, dk, dv, delta, gates, tables),
+                            (8 * 3 * rows * h * dh, 4 * (6 * rows * h * dh + 2 * n_pad * dh
+                                                         + 3 * rows * h)))
+        del dq, dk, dv, delta, gates
+        torch.cuda.empty_cache()
+    # K1 in the whole-sequence layout at the published HTDemucs shapes.
+    for axis, shape in (("htdemucs time", (2, 8, 1344, 64)), ("htdemucs freq", (2, 8, 2688, 64))):
+        b, h_, n, dh_ = shape
+        q, k, v, do = (randn(*shape, s=0.7) for _ in range(4))
+        o = att.attention_ref(q, k, v, dh_ ** -0.5)
+        check_backward_case(records, "attention_backward", axis, shape,
+                            lambda: att.attention_backward(q, k, v, o, do, dh_ ** -0.5),
+                            lambda: att.attention_bwd_ref(q, k, v, o, do, dh_ ** -0.5),
+                            (2.5 * 4 * b * h_ * n * n * dh_, 4 * 8 * b * h_ * n * dh_),
+                            sdpa_backward(shape))
+        del q, k, v, do, o
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_backward_functions(seed):
+    """[training] part 2: the three autograd Functions on the card (kernels
+    forward and backward) against autograd through their plain versions on
+    the card, every input's gradient, at both RoFormer axes (batch 2) and
+    both HTDemucs shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_separator_tpu_torch.models.roformer import _rope_tables
+    from audio_separator_tpu_torch.ops import attention as att
+    from audio_separator_tpu_torch.ops import attention_block as ab
+
+    dev = torch.device("cuda")
+    d, h, hidden = 512, 8, 2048
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+
+    def check(tag, fn, ref, inputs, names, dy, valid=None):
+        got = torch.autograd.grad(fn(), inputs, dy)
+        want = torch.autograd.grad(ref(), inputs, dy)
+        errs = {n: compare(a[:, :valid] if n == "x" and valid else a,
+                           w[:, :valid] if n == "x" and valid else w, "float32")
+                for n, a, w in zip(names, got, want)}
+        log(f"[training] autograd {tag}: max |card - plain| / scale per gradient "
+            + ", ".join(f"{n} {e['max_abs_err'] / max(e['scale'], 1e-30):.2e}"
+                        for n, e in errs.items())
+            + f" (tol {TOLERANCE['float32']['max']:.0e})")
+        if not all(e["ok"] for e in errs.values()):
+            raise AssertionError(f"{tag}: gradients disagree with the plain version's: {errs}")
+
+    for axis, (b, n_valid) in {"time": (2 * 62, 801), "freq": (2 * 801, 62)}.items():
+        n_pad = -(-n_valid // 64) * 64
+        x = randn(b, n_pad, d)
+        x[:, n_valid:] = 0
+        dy = randn(b, n_pad, d)
+        dy[:, n_valid:] = 0  # the model drops the padded tokens
+        x.requires_grad_(True)
+        cos, sin = _rope_tables(n_valid, 64, torch.float32, dev)
+        tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+        w = {k: t.requires_grad_(True) for k, t in dict(
+            wqkv=randn(d, 3 * h * 64, s=0.05), gate_w=randn(d, h, s=0.05), gate_b=randn(h, s=0.05),
+            wo=randn(h * 64, d, s=0.05), attn_norm=1 + randn(d, s=0.1)).items()}
+        kw = dict(rope=tables, heads=h, n_valid=n_valid)
+        check(f"fused_attention_block {axis} ({b}, {n_pad}, {d})",
+              lambda: ab.fused_attention_block(x, **kw, **w),
+              lambda: ab.fused_attention_block_ref(x, **kw, **w),
+              [x, *w.values()], ["x", *w], dy, n_valid)
+        ff = {k: t.requires_grad_(True) for k, t in dict(
+            ff_norm=1 + randn(d, s=0.1), w1=randn(d, hidden, s=0.05), b1=randn(hidden, s=0.05),
+            w2=randn(hidden, d, s=0.05), b2=randn(d, s=0.05)).items()}
+        check(f"fused_ff_block {axis} ({b}, {n_pad}, {d})",
+              lambda: ab.fused_ff_block(x, **ff), lambda: ab.fused_ff_block_ref(x, **ff),
+              [x, *ff.values()], ["x", *ff], dy, n_valid)
+        del x, dy, w, ff
+        torch.cuda.empty_cache()
+    for shape in ((2, 8, 1344, 64), (2, 8, 2688, 64)):
+        q, k, v = (randn(*shape, s=0.7).requires_grad_(True) for _ in range(3))
+        check(f"dot_product_attention {shape}", lambda: att.dot_product_attention(q, k, v),
+              lambda: att.attention_ref(q, k, v, shape[-1] ** -0.5), [q, k, v], list("qkv"),
+              randn(*shape))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def step_gradients(cfg, build, tree, mix, target, device):
+    """One ``make_train_step`` step of the module ``build(cfg, tree)`` on
+    ``device`` (SGD at lr 0: the weights stay, the gradients are left in
+    ``.grad``). Returns (loss, {name: gradient on the CPU})."""
+    import torch
+
+    from audio_separator_tpu_torch.training import make_train_step
+
+    model = build(cfg, tree).to(device)
+    step = make_train_step(cfg, model, torch.optim.SGD(model.parameters(), lr=0.0))
+    with tf32_switches_on():
+        loss = float(step(mix.to(device), target.to(device)))
+    grads = {n: (p.grad.detach().cpu() if p.grad is not None else torch.zeros(p.shape))
+             for n, p in model.named_parameters()}
+    del model, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return loss, grads
+
+
+def check_gradients(tag, cfg, build, tree, mix, target):
+    """The card's gradients of one step against the CPU plain path's: every
+    one >= GRADIENT_FLOOR_DB. A gradient that sums many terms of both signs
+    (a bias under the loss sums its output gradient over every sample) can
+    lose more than that to float32 rounding on the CPU itself: a gradient
+    below the floor is held instead to the CPU's own spread, the same step
+    on a batch of the same item twice (the same gradient in exact
+    arithmetic, summed in another order), within 6 dB."""
+    import torch
+
+    t0 = time.perf_counter()
+    loss_gpu, gpu = step_gradients(cfg, build, tree, mix, target, "cuda")
+    t1 = time.perf_counter()
+    loss_cpu, cpu = step_gradients(cfg, build, tree, mix, target, "cpu")
+    cpu_s = time.perf_counter() - t1
+    dbs = {k: grad_db(cpu[k], gpu[k]) for k in cpu}
+    low = {k: v for k, v in dbs.items() if v < GRADIENT_FLOOR_DB}
+    line = (f"[training] {tag}: one step on the card (both TF32 switches on) against the CPU "
+            f"plain path, {len(dbs)} parameters: loss {loss_gpu:.6f} / {loss_cpu:.6f}; gradient "
+            f"parity min {min(dbs.values()):.2f} dB, median "
+            f"{sorted(dbs.values())[len(dbs) // 2]:.2f} dB, lowest "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(dbs.items(), key=lambda kv: kv[1])[:3])
+            + f" (floor {GRADIENT_FLOOR_DB})")
+    failed = []
+    if low:
+        _, twice = step_gradients(cfg, build, tree, torch.cat([mix, mix]),
+                                  torch.cat([target, target]), "cpu")
+        for k, v in sorted(low.items(), key=lambda kv: kv[1]):
+            spread = grad_db(cpu[k], twice[k])
+            line += (f"; {k}: {v:.2f} dB against the CPU, whose own spread (the batch twice) "
+                     f"is {spread:.2f} dB")
+            if v < min(GRADIENT_FLOOR_DB, spread - 6.0):
+                failed.append((k, v, spread))
+    log(line + f"; card step {t1 - t0:.2f} s (first, with set-up), CPU step {cpu_s:.1f} s")
+    if not all(math.isfinite(v) for v in (loss_gpu, loss_cpu)):
+        raise AssertionError(f"{tag}: loss not finite")
+    if failed:
+        raise AssertionError(f"{tag}: gradients below {GRADIENT_FLOOR_DB} dB against the CPU "
+                             f"and more than 6 dB under the CPU's own spread: {failed}")
+    return {"min_db": min(dbs.values()), "below_floor": {k: dbs[k] for k in low}}
+
+
+def timed_steps(tag, step, mix, target, count, plan):
+    """``count`` steps through the entry point, each with the launch counts
+    set to 0 just before it and read just after; returns the losses, ms per
+    step and the launches summed over the run."""
+    import torch
+
+    from audio_separator_tpu_torch.ops import _build
+
+    losses, times, total = [], [], dict.fromkeys(_build.LAUNCHES, 0)
+    with tf32_switches_on():
+        for i in range(count):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(float(step(mix, target)))  # float() waits for the step
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(_build.LAUNCHES)
+            for name, n in launches.items():
+                total[name] += n
+            if launches != plan:
+                raise AssertionError(f"{tag} step {i}: launches {launches}, expected {plan}")
+    log(f"[training] {tag}: losses {[round(v, 6) for v in losses]}, ms per step "
+        f"{[round(t, 1) for t in times]}; launches per step as planned: "
+        + (", ".join(f"{k} {v}" for k, v in plan.items() if v) or "none"))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: loss not finite: {losses}")
+    return losses, times, total
+
+
+def phase_training(seed, device_label):
+    """[training]: the backward kernels against their plain versions, the
+    autograd Functions against autograd through the plain versions, and
+    ``training.make_train_step`` at full width: the flagship BS-RoFormer
+    (gradients against the CPU at depth 2; 3 SGD and 3 Adam steps at depth
+    12 on batch 2 of 8 s windows), the published HTDemucs (against the CPU;
+    3 Adam steps on batch 2) and one HDemucs step, with both TF32 switches on
+    around every step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_separator_tpu_torch.models.convert import (load_jax_htdemucs_params,
+                                                          load_jax_params)
+    from audio_separator_tpu_torch.models.htdemucs import build_demucs
+    from audio_separator_tpu_torch.models.init_params import (flagship_config,
+                                                              hdemucs_full_config,
+                                                              htdemucs_full_config,
+                                                              init_htdemucs_params,
+                                                              init_roformer_params)
+    from audio_separator_tpu_torch.models.roformer import Roformer
+    from audio_separator_tpu_torch.ops.precision import full_float32
+    from audio_separator_tpu_torch.training import make_loss_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    records = phase_backward_kernels(seed)
+    t1 = time.perf_counter()
+    phase_backward_functions(seed)
+    t2 = time.perf_counter()
+    log(f"[training] kernels {t1 - t_phase:.1f} s, autograd Functions {t2 - t1:.1f} s")
+
+    def roformer(cfg, tree):
+        return load_jax_params(Roformer(cfg), tree)
+
+    def demucs(cfg, tree):
+        return load_jax_htdemucs_params(build_demucs(cfg), tree)
+
+    def batch(rng, n, channels_out, length):
+        mix = rng.standard_normal((n, 2, length)).astype(np.float32) * 0.2
+        tgt = rng.standard_normal((n, channels_out, 2, length)).astype(np.float32) * 0.2
+        return torch.from_numpy(mix), torch.from_numpy(0.5 * tgt + 0.5 * mix[:, None])
+
+    rng = np.random.default_rng(seed)
+    cfg = flagship_config()
+    chunk = cfg.stft_hop_length * 800  # 8 s windows, 801 frames
+    # Part 3: the flagship. Gradients against the CPU at depth 2.
+    cfg2 = dataclasses.replace(cfg, depth=2)
+    mix1, tgt1 = batch(rng, 1, cfg.num_stems, chunk)
+    t0 = time.perf_counter()
+    roformer_db = check_gradients("flagship BS-RoFormer, depth 2, batch 1 of 8 s", cfg2,
+                                  roformer, init_roformer_params(cfg2, seed=seed), mix1, tgt1)
+    parity_s = time.perf_counter() - t0
+
+    # Full depth, batch 2: 3 SGD and 3 Adam steps through the entry point.
+    t0 = time.perf_counter()
+    model = roformer(cfg, init_roformer_params(cfg, seed=seed)).cuda()
+    mix2, tgt2 = (t.cuda() for t in batch(rng, 2, cfg.num_stems, chunk))
+    torch.cuda.reset_peak_memory_stats()
+    path_launches = dict.fromkeys(ROFORMER_STEP_LAUNCHES, 0)
+    step_ms = {}
+    for opt_name, opt in (("SGD", torch.optim.SGD(model.parameters(), lr=1e-4)),
+                          ("Adam", torch.optim.Adam(model.parameters(), lr=1e-4))):
+        step = make_train_step(cfg, model, opt)
+        _, step_ms[opt_name], total = timed_steps(
+            f"flagship BS-RoFormer depth 12, batch 2 of 8 s, {opt_name}", step, mix2, tgt2, 3,
+            ROFORMER_STEP_LAUNCHES)
+        for name, n in total.items():
+            path_launches[name] += n
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # One more Adam step, split: the prepared forms remade after the update,
+    # forward and loss, backward, optimiser.
+    loss_fn = make_loss_fn(cfg, model)
+    split = {}
+
+    def timed(part, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[part] = (time.perf_counter() - start) * 1e3
+        return out
+
+    with tf32_switches_on(), full_float32():
+        timed("forms remade", model.tf32_forms)
+        opt.zero_grad(set_to_none=True)
+        loss = timed("forward + loss", lambda: loss_fn(mix2, tgt2))
+        timed("backward", loss.backward)
+        timed("optimiser", opt.step)
+    del loss
+    with tf32_switches_on(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(mix2, tgt2)
+        torch.cuda.synchronize()
+    categories = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            cat = training_category(e.key)
+            categories[cat] = categories.get(cat, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(categories.values())
+    samples_per_s = 2 * chunk / (sum(step_ms["Adam"]) / len(step_ms["Adam"]) / 1e3)
+    log(f"[training] {device_label}: flagship step split (Adam, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; peak device memory {peak_gib:.2f} GiB at batch 2; {samples_per_s:.0f} samples/s "
+        f"({samples_per_s / 44100:.2f} s of audio per second); device ms of one step by "
+        f"category ({busy:.1f} busy): "
+        + ", ".join(f"{k} {v:.1f} ({v / busy:.3f})" for k, v in
+                    sorted(categories.items(), key=lambda kv: -kv[1])))
+    del model, mix2, tgt2, opt, step, loss_fn
+    torch.cuda.empty_cache()
+    flagship_s = time.perf_counter() - t0
+
+    # Part 4: the published HTDemucs at its training length.
+    t0 = time.perf_counter()
+    hcfg = htdemucs_full_config()
+    htree = init_htdemucs_params(hcfg, seed=seed)
+    n_src = len(hcfg.sources)
+    hmix1, htgt1 = batch(rng, 1, n_src, hcfg.training_length)
+    htdemucs_db = check_gradients(f"published HTDemucs, batch 1 of {hcfg.training_length}",
+                                  hcfg, demucs, htree, hmix1, htgt1)
+    model = demucs(hcfg, htree).cuda()
+    hmix2, htgt2 = (t.cuda() for t in batch(rng, 2, n_src, hcfg.training_length))
+    step = make_train_step(hcfg, model, torch.optim.Adam(model.parameters(), lr=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    _, ht_ms, total = timed_steps("published HTDemucs, batch 2, Adam", step, hmix2, htgt2, 3,
+                                  HTDEMUCS_STEP_LAUNCHES)
+    ht_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, n in total.items():
+        path_launches[name] += n
+    del model, step, hmix2, htgt2
+    torch.cuda.empty_cache()
+    # One HDemucs step on a 10 s segment (no kernel on its path).
+    vcfg = hdemucs_full_config()
+    model = demucs(vcfg, init_htdemucs_params(vcfg, seed=seed)).cuda()
+    vmix, vtgt = (t.cuda() for t in batch(rng, 1, len(vcfg.sources), 441000))
+    step = make_train_step(vcfg, model, torch.optim.Adam(model.parameters(), lr=1e-4))
+    (v_loss,), v_ms, _ = timed_steps("hdemucs_mmi, batch 1 of 10 s, Adam", step, vmix, vtgt, 1,
+                                     dict.fromkeys(ROFORMER_STEP_LAUNCHES, 0))
+    del model, step, vmix, vtgt
+    torch.cuda.empty_cache()
+    log(f"[training] HTDemucs peak device memory {ht_peak:.2f} GiB at batch 2; parts: kernels "
+        f"{t1 - t_phase:.1f} s, Functions {t2 - t1:.1f} s, flagship parity {parity_s:.1f} s, "
+        f"flagship steps {flagship_s:.1f} s, HTDemucs and HDemucs "
+        f"{time.perf_counter() - t0:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"records": records, "launches": path_launches, "roformer_db": roformer_db,
+            "htdemucs_db": htdemucs_db, "step_ms": step_ms, "split": split,
+            "peak_gib": peak_gib, "htdemucs_ms": ht_ms, "hdemucs_ms": v_ms}
+
+
 def phase_separator(ab, seed, seconds, device_label):
     """Phase 5, RoFormer: the default model through the user entry point."""
     from audio_separator_tpu_torch.separator import Separator
@@ -2573,9 +3089,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--seconds", type=float, default=30.0)
-    parser.add_argument("--phase", choices=("all", "remote"), default="all",
-                        help="'remote' builds the kernels and runs the [remote] phase alone; "
-                             "it prints no result line")
+    parser.add_argument("--phase", choices=("all", "remote", "training"), default="all",
+                        help="'remote' or 'training' builds the kernels and runs that phase "
+                             "alone; it prints no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -2614,6 +3130,10 @@ def main(argv=None) -> int:
         phase_remote(args.seed, args.seconds, f"{kind} ({smi})")
         log(f"[remote] phase {time.perf_counter() - t0:.1f} s; no other phase was run")
         return 0
+    if args.phase == "training":
+        phase_training(args.seed, f"{kind} ({smi})")
+        log("[training] no other phase was run")
+        return 0
 
     records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
     model = phase_model(ab, args.seed)
@@ -2636,6 +3156,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     remote = phase_remote(args.seed, args.seconds, f"{kind} ({smi})")
     log(f"[remote] phase {time.perf_counter() - t0:.1f} s")
+    training = phase_training(args.seed, f"{kind} ({smi})")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)
@@ -2674,6 +3195,29 @@ def main(argv=None) -> int:
             "model_launches_per_forward": per_forward[name],
             "ensemble_launches": ensemble["launches"][name],
             "remote_launches": remote["launches"][name],
+            "training_launches": training["launches"][name],
+        })
+    # The backward kernels: the main path is the [training] phase's steps
+    # (flagship and HTDemucs); headline numbers over the flagship's two axes.
+    for name, (source, replaces) in BACKWARD_KERNELS.items():
+        cases = [r for r in training["records"] if r["name"] == name]
+        main = [r for r in cases if r["axis"] in ("time", "freq")]
+        library = [r["library_ms"] for r in main if r["library_ms"] is not None]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": training["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": sum(r["ms"] for r in main) / len(main),
+            "plain_ms": sum(r["plain_ms"] for r in main) / len(main),
+            "bound_ms": sum(r["bound_ms"] for r in main) / len(main),
+            "bound_by": main[0]["bound_by"],
+            "library_ms": sum(library) / len(library) if library else None,
+            "cases": [{k: r.get(k) for k in ("dtype", "axis", "shape", "n_valid", "ms",
+                                              "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                              "max_abs_err", "rel_errs", "split")}
+                      for r in cases],
+            "launches_per_roformer_step": ROFORMER_STEP_LAUNCHES[name],
+            "launches_per_htdemucs_step": HTDEMUCS_STEP_LAUNCHES[name],
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -231,7 +231,9 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     assert path == _build.library_path("ff_block")
     # One loader and one table of launch counts for every kernel.
-    assert set(_build.KERNEL_SOURCES) == {"attention_block", "ff_block", "attention"}
+    assert set(_build.KERNEL_SOURCES) == {"attention_block", "ff_block", "attention",
+                                          "attention_bwd", "norm_bwd", "gelu_bwd",
+                                          "rope_gate_bwd"}
     assert ab.LAUNCHES is _build.LAUNCHES
 
 

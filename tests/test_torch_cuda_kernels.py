@@ -316,7 +316,9 @@ def test_model_forward_on_card_matches_cpu(cuda):
     ab.reset_launch_counts()
     got = load_jax_params(Roformer(cfg), tree).to(cuda)(audio.to(cuda)).cpu()
     assert ab.LAUNCHES == {"fused_attention_block": 2, "fused_ff_block": 2,
-                           "fused_attention": 0}
+                           "fused_attention": 0, "attention_backward": 0,
+                           "rmsnorm_backward": 0, "gelu_backward": 0,
+                           "rope_gate_backward": 0}
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
 
@@ -414,3 +416,170 @@ def test_mdx_model_fn_on_card_matches_cpu(cuda, tmp_path):
     assert got.shape == want.shape == (4, 1, 2, 128 * 31)
     assert not any({**ab.LAUNCHES, **att.LAUNCHES}.values())
     _close(got, want, torch.float32)
+
+
+# ------------------------------------------------------------------ backward
+# The backward kernels (float32) against their plain versions on the card,
+# and the three autograd Functions against autograd through the forward
+# plain versions, at the slice's full-width shapes. Gradient tolerance: the
+# float32 TOL (1e-4 max, 1e-5 mean of each gradient's scale); the Functions'
+# forwards are the 3xTF32 kernels, good to 1e-5 of their outputs' scale, and
+# the weight gradients sum over tens of thousands of tokens.
+
+from audio_separator_tpu_torch.ops import _build  # noqa: E402
+from audio_separator_tpu_torch.ops import block_backward as bb  # noqa: E402
+
+
+def _counted(name):
+    before = _build.LAUNCHES[name]
+    return lambda: _build.LAUNCHES[name] - before
+
+
+@pytest.mark.parametrize("shape,n_valid", [((2, 8, 1344, 64), None), ((2, 8, 2688, 64), None),
+                                           ((2, 4, 173, 8), None), ((2, 4, 700, 128), None),
+                                           ((3, 2, 130, 64), 77), ((4, 2, 64, 64), 62)])
+def test_attention_backward_kernel_matches_plain(cuda, shape, n_valid):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=cuda) * 0.7 for _ in range(4))
+    scale = shape[-1] ** -0.5
+    n_valid = n_valid or shape[2]
+    o = att.attention_ref(q, k[:, :, :n_valid], v[:, :, :n_valid], scale)
+    launched = _counted("attention_backward")
+    got = att.attention_backward(q, k, v, o, do, scale, n_valid)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    want = att.attention_bwd_ref(q, k, v, o, do, scale, n_valid)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("b,n_valid", [(16, 801), (96, 62)])
+def test_gated_attention_backward_kernel_matches_plain(cuda, b, n_valid):
+    """The attention block's layout: merged heads, their gradient and the gates."""
+    h, n_pad = 8, -(-n_valid // 64) * 64
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v = (torch.randn(b, h, n_pad, 64, generator=g, device=cuda) for _ in range(3))
+    gates = torch.sigmoid(torch.randn(b, h, n_pad, generator=g, device=cuda))
+    merged = torch.randn(b, n_pad, h * 64, generator=g, device=cuda)
+    dm = torch.randn(b, n_pad, h * 64, generator=g, device=cuda)
+    got = att.attention_backward(q, k, v, merged, dm, 0.125, n_valid, gates=gates)
+    want = att.attention_bwd_ref(q, k, v, merged, dm, 0.125, n_valid, gates=gates)
+    for a, w in zip(got, want):
+        _close(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("rows,d,zero_rows", [(16 * 832, 512, 31), (96 * 64, 512, 2), (5, 64, 1)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, zero_rows, residual):
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x, dxn, dres = (torch.randn(rows, d, generator=g, device=cuda) for _ in range(3))
+    x[-zero_rows:] = 0  # padded tokens
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    launched = _counted("rmsnorm_backward")
+    got = bb.rmsnorm_backward(x, gamma, dxn, dres if residual else None)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    want = bb.rmsnorm_bwd_ref(x, gamma, dxn, dres if residual else None)
+    for a, w in zip(got, want):
+        _close(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("rows,hidden", [(16 * 832, 2048), (7, 64)])
+def test_gelu_backward_kernel_matches_plain(cuda, rows, hidden):
+    g = torch.Generator(device=cuda).manual_seed(24)
+    pre = torch.randn(rows, hidden, generator=g, device=cuda) * 2
+    dh = torch.randn(rows, hidden, generator=g, device=cuda)
+    launched = _counted("gelu_backward")
+    got = bb.gelu_backward(pre, dh)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    for a, w in zip(got, bb.gelu_bwd_ref(pre, dh)):
+        _close(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("b,n_pad,heads,rope", [(16, 832, 8, True), (96, 64, 8, True),
+                                                (3, 128, 5, False)])
+def test_rope_gate_backward_kernel_matches_plain(cuda, b, n_pad, heads, rope):
+    g = torch.Generator(device=cuda).manual_seed(25)
+    dq, dk, dv = (torch.randn(b, heads, n_pad, 64, generator=g, device=cuda) for _ in range(3))
+    delta = torch.randn(b, heads, n_pad, generator=g, device=cuda)
+    gates = torch.sigmoid(torch.randn(b, heads, n_pad, generator=g, device=cuda))
+    tables = _rope_tables(n_pad, 64, torch.float32, cuda) if rope else None
+    launched = _counted("rope_gate_backward")
+    got = bb.rope_gate_backward(dq, dk, dv, delta, gates, tables)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    for a, w in zip(got, bb.rope_gate_bwd_ref(dq, dk, dv, delta, gates, tables)):
+        assert a.shape == w.shape
+        _close(a, w, torch.float32)
+
+
+def _grads(out, inputs, dy):
+    return torch.autograd.grad(out, inputs, dy)
+
+
+@pytest.mark.parametrize("b,n_valid", [(16, 801), (96, 62)])
+def test_block_functions_backward_match_plain_autograd(cuda, b, n_valid):
+    """Every input's gradient of both blocks' autograd Functions (kernels
+    forward and backward) against autograd through the plain versions."""
+    d, h, hidden = 512, 8, 2048
+    n_pad = -(-n_valid // 64) * 64
+    g = torch.Generator(device=cuda).manual_seed(26)
+    x = torch.randn(b, n_pad, d, generator=g, device=cuda)
+    x[:, n_valid:] = 0
+    dy = torch.randn(b, n_pad, d, generator=g, device=cuda)
+    dy[:, n_valid:] = 0  # the model drops the padded tokens
+    w = _block_weights(g, cuda, torch.float32, d, h)
+    cos, sin = _rope_tables(n_valid, 64, torch.float32, cuda)
+    tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    ff = dict(ff_norm=(1 + 0.1 * torch.randn(d, generator=g, device=cuda)),
+              w1=torch.randn(d, hidden, generator=g, device=cuda) * 0.05,
+              b1=torch.randn(hidden, generator=g, device=cuda) * 0.05,
+              w2=torch.randn(hidden, d, generator=g, device=cuda) * 0.05,
+              b2=torch.randn(d, generator=g, device=cuda) * 0.05)
+    xs = x.requires_grad_(True)
+    for fn, ref, kw, block_weights in (
+            (ab.fused_attention_block, ab.fused_attention_block_ref,
+             dict(rope=tables, heads=h, n_valid=n_valid), w),
+            (ab.fused_ff_block, ab.fused_ff_block_ref, {}, ff)):
+        weights = {k: t.clone().requires_grad_(True) for k, t in block_weights.items()}
+        names = list(weights)
+        inputs = [xs, *weights.values()]
+        _build.reset_launch_counts()
+        got = _grads(fn(xs, **kw, **weights), inputs, dy)
+        torch.cuda.synchronize()
+        if fn is ab.fused_attention_block:
+            assert {k: _build.LAUNCHES[k] for k in ("attention_backward", "rope_gate_backward",
+                                                   "rmsnorm_backward")} == dict.fromkeys(
+                ("attention_backward", "rope_gate_backward", "rmsnorm_backward"), 1)
+        else:
+            assert (_build.LAUNCHES["gelu_backward"], _build.LAUNCHES["rmsnorm_backward"]) == (1, 1)
+        want = _grads(ref(xs, **kw, **weights), inputs, dy)
+        for name, a, b_ in zip(["x", *names], got, want):
+            _close(a[:, :n_valid] if name == "x" else a, b_[:, :n_valid] if name == "x" else b_,
+                   torch.float32)
+        del got, want
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 1344, 64), (2, 8, 2688, 64)])
+def test_attention_function_backward_matches_plain_autograd(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda).requires_grad_(True)
+               for _ in range(3))
+    do = torch.randn(*shape, generator=g, device=cuda)
+    _build.reset_launch_counts()
+    got = _grads(att.dot_product_attention(q, k, v), [q, k, v], do)
+    assert (_build.LAUNCHES["fused_attention"], _build.LAUNCHES["attention_backward"]) == (1, 1)
+    want = _grads(att.attention_ref(q, k, v, shape[-1] ** -0.5), [q, k, v], do)
+    for a, b in zip(got, want):
+        _close(a, b, torch.float32)
+
+
+def test_backward_kernels_refuse_bf16(cuda):
+    x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="17b"):
+        bb.rmsnorm_backward(x, torch.ones(64, device=cuda), x)
+    q = torch.randn(1, 1, 64, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="17b"):
+        att.dot_product_attention(q, q, q).sum().backward()

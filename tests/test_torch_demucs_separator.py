@@ -111,6 +111,9 @@ def mix():
 
 
 def test_package_and_bag_round_trip(model_dir, tree):
+    # An earlier test in this process may have left demucs modules behind:
+    # the load must leave them as it found them.
+    before = {m for m in sys.modules if m.split(".")[0] == "demucs"}
     models, weights, segment = demucs_load.load_demucs_model_or_bag(
         os.path.join(model_dir, "htdemucs.yaml"), model_dir)
     assert weights == BAG_WEIGHTS and segment is None and len(models) == 1
@@ -121,7 +124,7 @@ def test_package_and_bag_round_trip(model_dir, tree):
     for key, value in flat.items():
         assert state[key].dtype == torch.float32
         np.testing.assert_array_equal(state[key].numpy(), value)
-    assert not [m for m in sys.modules if m.split(".")[0] == "demucs"]  # stubs removed
+    assert {m for m in sys.modules if m.split(".")[0] == "demucs"} == before  # stubs removed
     # The same package by its signature alone.
     single, w, _ = demucs_load.load_demucs_model_or_bag(SIGNATURE, model_dir)
     assert single[0][0] == cfg and w == [[1.0] * 4]
@@ -345,6 +348,28 @@ def test_separator_end_to_end_writes_the_stems_jax_names(model_dir, mix, tmp_pat
         # The written stem is the demix row, peak-normalised to 0.9 at most.
         row = direct[i] * min(1.0, 0.9 / np.abs(direct[i]).max())
         assert _sdr(row, pcm) >= MIN_PARITY_SDR
+
+
+def test_separator_inference_builds_no_graph(model_dir, mix, tmp_path):
+    """The HTDemucs forwards of a separation run without gradients: no
+    parameter requires one and no model output carries a graph."""
+    wav = str(tmp_path / "song.wav")
+    audio_io.save_audio(wav, mix[:, : SR // 2], SR)
+    sep = Separator(model_file_dir=model_dir, output_dir=str(tmp_path / "out"), device="cpu",
+                    log_level=logging.WARNING)
+    sep.load_model("htdemucs.yaml")
+    models, _ = sep.model_instance._load_models()
+    graphs = []
+    handles = [m.register_forward_hook(
+        lambda _m, _i, out: graphs.append(out.requires_grad or out.grad_fn is not None))
+        for m in models]
+    try:
+        assert len(sep.separate(wav)) == 4
+    finally:
+        for h in handles:
+            h.remove()
+    assert graphs and not any(graphs)
+    assert not any(p.requires_grad for m in models for p in m.parameters())
 
 
 def test_separator_single_stem_writes_only_that_stem(model_dir, mix, tmp_path):

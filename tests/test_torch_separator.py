@@ -119,6 +119,23 @@ def test_mdxc_demix_matches_jax(separated):
     np.testing.assert_allclose(got["other"], mix - got["vocals"], atol=1e-6)
 
 
+def test_separator_inference_builds_no_graph(separated):
+    """The forwards of a separation run without gradients: no parameter
+    requires one and no model output carries a graph."""
+    wav, _, outs = separated
+    sep = outs["torch"][0]
+    model = sep.model_instance.model
+    graphs = []
+    handle = model.register_forward_hook(
+        lambda _m, _i, out: graphs.append(out.requires_grad or out.grad_fn is not None))
+    try:
+        sep.separate(wav)
+    finally:
+        handle.remove()
+    assert graphs and not any(graphs)
+    assert not any(p.requires_grad for p in model.parameters())
+
+
 def test_separator_without_cuda_raises(model_dir):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -187,7 +204,10 @@ def test_no_file_of_the_port_imports_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     # The Demucs v3, ensembling, remote-service and metrics modules are among them.
-    for module in ("models/filtering.py", "separator/ensembler.py", "ops/align.py",
+    files.append(os.path.join(REPO, "tools", "finetune_torch.py"))
+    # The training slice's modules are among them too.
+    for module in ("training.py", "ops/losses.py", "ops/block_backward.py",
+                   "models/filtering.py", "separator/ensembler.py", "ops/align.py",
                    "ops/stretch.py", "models/htdemucs.py", "remote/server.py",
                    "remote/asgi.py", "remote/api_client.py", "remote/cli.py",
                    "remote/job_store.py", "remote/output_store.py", "utils/metrics.py",
