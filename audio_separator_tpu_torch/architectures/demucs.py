@@ -24,9 +24,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.demucs_load import load_demucs_model_or_bag
+from ..models.demucs_load import bag_members, load_demucs_member
 from ..models.htdemucs import HTDemucs, HTDemucsConfig, build_demucs
 from ..ops.demix import overlap_add_demix
+from ..ops.fn_cache import file_key, memoized_model
 from ..separator.common import BaseSeparator
 
 DEMUCS_4_SOURCE_MAPPER = {
@@ -62,11 +63,16 @@ class DemucsSeparator(BaseSeparator):
     # ------------------------------------------------------------------ model
 
     def _load_models(self) -> Tuple[List[HTDemucs], List[List[float]]]:
-        """The bag's modules on the device, loaded once per instance."""
+        """The bag's modules on the device, loaded once per instance and
+        shared process-wide, one cache entry per member file
+        (``ops/fn_cache``): a second separator over the same bag reads no
+        member file. (A member file is a pickled package whose class and
+        arguments build the module, so there is no converted form to keep
+        beside it; the JAX package keeps none either.)"""
         if self._models is not None:
             return self._models
         repo_dir = os.path.dirname(self.model_path)
-        loaded, weights, segment = load_demucs_model_or_bag(self.model_path, repo_dir)
+        paths, weights, segment = bag_members(self.model_path, repo_dir)
         # The caller's segment override, else the bag's.
         override = None
         if self.segment_size != "Default":
@@ -76,13 +82,19 @@ class DemucsSeparator(BaseSeparator):
                 pass
         elif segment is not None:
             override = float(segment)
-        models = []
-        for cfg, state in loaded:
+
+        def load_member(th_path):
+            cfg, state = load_demucs_member(th_path)
             if override is not None:
                 cfg = dataclasses.replace(cfg, segment=override)
             model = build_demucs(cfg)
             model.load_state_dict(state, strict=True)
-            models.append(model.to(self.device).eval())
+            return model.to(self.device).eval()
+
+        models = [memoized_model(("demucs", file_key(p), override, str(self.device)),
+                                 lambda p=p: load_member(p)) for p in paths]
+        if weights is None:
+            weights = [[1.0] * len(models[0].cfg.sources) for _ in models]
         self._models = (models, weights)
         return self._models
 

@@ -27,6 +27,7 @@ import torch
 from ..models.onnx_torch import onnx_to_torch
 from ..ops import spec as spec_ops
 from ..ops.demix import demix_jobs_layout, overlap_add_demix
+from ..ops.fn_cache import file_key, memoized_model
 from ..ops.precision import full_float32
 from ..ops.stft import hann_window, istft_real_packed, stft_real_packed
 from ..separator.common import BaseSeparator
@@ -57,9 +58,13 @@ class MDXSeparator(BaseSeparator):
 
     def load_model(self):
         """The ONNX graph as a function of tensors, its initializers on the
-        separator's device."""
-        self._onnx_fn, self._onnx_params, _, _ = onnx_to_torch(self.model_path,
-                                                               device=self.device)
+        separator's device; shared process-wide (``ops/fn_cache``), so a
+        second separator over the same file parses and uploads nothing. (The
+        graph is parsed for its function anyway, and that parse gives the
+        parameters: a converted ``.npz`` beside the file would save nothing.)"""
+        self._onnx_fn, self._onnx_params = memoized_model(
+            ("mdx", file_key(self.model_path), str(self.device)),
+            lambda: onnx_to_torch(self.model_path, device=self.device)[:2])
 
     # ------------------------------------------------------------- model fn
 

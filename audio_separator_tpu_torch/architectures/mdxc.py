@@ -17,16 +17,17 @@ import numpy as np
 import torch
 
 from ..models.convert import (
+    cached_convert,
     convert_roformer,
     convert_tfc_tdf,
     load_jax_params,
     load_jax_tfc_tdf_params,
-    load_torch_state_dict,
 )
 from ..models.roformer import Roformer
 from ..models.tfc_tdf import TFCTDFNet, build_tfc_tdf_config
 from ..ops import spec as spec_ops
 from ..ops.demix import demix_jobs, overlap_add_demix
+from ..ops.fn_cache import file_key, memoized_model
 from ..ops.resample import change_pitch_semitones_np
 from ..ops.stft import hamming_window
 from ..separator.common import BaseSeparator
@@ -38,6 +39,11 @@ from ..separator.roformer_config import (
     flatten_model_config,
     normalize_roformer_params,
 )
+
+
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class MDXCSeparator(BaseSeparator):
@@ -60,6 +66,7 @@ class MDXCSeparator(BaseSeparator):
         self.model_cfg = None
         self.model: Optional[torch.nn.Module] = None
         self.loading_result = None
+        self.load_split: Dict[str, float] = {}
         self.load_model()
 
         training = self.model_data.get("training") or {}
@@ -73,21 +80,45 @@ class MDXCSeparator(BaseSeparator):
     # ----------------------------------------------------------------- model
 
     def load_model(self):
-        """checkpoint → parameter tree → the module on the separator's device,
-        in the compute dtype: ``convert_roformer`` → ``load_jax_params`` for a
-        RoFormer, ``convert_tfc_tdf`` → ``load_jax_tfc_tdf_params`` for
-        TFC-TDF."""
-        if not self.is_roformer:
-            self.model_cfg = build_tfc_tdf_config(self.model_data)
-            tree = convert_tfc_tdf(load_torch_state_dict(self.model_path), self.model_cfg)
-            model = load_jax_tfc_tdf_params(TFCTDFNet(self.model_cfg), tree)
-            self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
-            return
+        """checkpoint → parameter tree (``cached_convert``: ``convert_roformer``
+        for a RoFormer, ``convert_tfc_tdf`` for TFC-TDF) → the module
+        (``load_jax_params`` / ``load_jax_tfc_tdf_params``) on the
+        separator's device in the compute dtype, with a RoFormer's 3xTF32
+        weight forms made. The module is shared process-wide
+        (``ops/fn_cache``): a second separator over the same file, device,
+        dtype and configuration reads nothing. ``load_split`` has the seconds
+        of each part of a build, or ``{"cached": seconds}``."""
         t0 = time.perf_counter()
-        self.model_cfg = build_roformer_config(self.model_data, self.model_path or "")
-        tree = convert_roformer(load_torch_state_dict(self.model_path), self.model_cfg)
-        model = load_jax_params(Roformer(self.model_cfg), tree)
-        self.model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+        if self.is_roformer:
+            self.model_cfg = build_roformer_config(self.model_data, self.model_path or "")
+            family, convert, build, load = ("roformer", convert_roformer, Roformer,
+                                            load_jax_params)
+        else:
+            self.model_cfg = build_tfc_tdf_config(self.model_data)
+            family, convert, build, load = ("tfc_tdf", convert_tfc_tdf, TFCTDFNet,
+                                            load_jax_tfc_tdf_params)
+        split = {}
+
+        def load_module():
+            tree = cached_convert(self.model_path, self.model_cfg, convert, times=split)
+            t1 = time.perf_counter()
+            model = load(build(self.model_cfg), tree)
+            t2 = time.perf_counter()
+            model = model.to(device=self.device, dtype=self.compute_dtype).eval()
+            _synchronize(self.device)
+            t3 = time.perf_counter()
+            if self.is_roformer:
+                model.tf32_forms()  # float32 on the card: made once, here
+                _synchronize(self.device)
+            split.update(build=t2 - t1, upload=t3 - t2, forms=time.perf_counter() - t3)
+            return model
+
+        self.model = memoized_model(
+            (f"mdxc-{family}", file_key(self.model_path), str(self.device),
+             str(self.compute_dtype), repr(self.model_cfg)), load_module)
+        self.load_split = split or {"cached": time.perf_counter() - t0}
+        if not self.is_roformer:
+            return
         flat = normalize_roformer_params(flatten_model_config(self.model_data))
         self.loading_result = ModelLoadingResult(
             success=True,

@@ -37,6 +37,7 @@ from ..models.convert import load_torch_state_dict
 from ..models.vr_nets import load_vr_net
 from ..ops import vr_chain
 from ..ops.demix import tiled_mask_predict
+from ..ops.fn_cache import file_key, memoized_model
 from ..ops.resample import resample_poly_np
 from ..ops.vr_bands import merge_artifacts
 from ..separator.common import BaseSeparator
@@ -115,9 +116,18 @@ class VRSeparator(BaseSeparator):
         else:
             self._offset = 128
         self._arch_size = arch_size
-        net = load_vr_net(load_torch_state_dict(self.model_path), self.mp["bins"] * 2,
-                          arch_size, self.is_vr_51_model, self._offset, device=self.device)
-        self.net = net.to_compute_dtype(torch.bfloat16) if self.use_autocast else net
+
+        def load_net():
+            net = load_vr_net(load_torch_state_dict(self.model_path), self.mp["bins"] * 2,
+                              arch_size, self.is_vr_51_model, self._offset, device=self.device)
+            return net.to_compute_dtype(torch.bfloat16) if self.use_autocast else net
+
+        # Shared process-wide (ops/fn_cache): a second separator over the same
+        # file and settings reads nothing. The state dict is used as it is, so
+        # no converted .npz is kept beside it.
+        self.net = memoized_model(
+            ("vr", file_key(self.model_path), str(self.device), self.mp["bins"], arch_size,
+             self.is_vr_51_model, self._offset, bool(self.use_autocast)), load_net)
         self.logger.debug(f"VR model loaded: arch_size={arch_size}, v51={self.is_vr_51_model}")
 
     def _predict(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,11 @@ for trees produced elsewhere alike.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import hashlib
+import os
+import threading
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -247,6 +251,89 @@ def save_params(path: str, params: Any) -> None:
     ``models/convert.save_params`` writes (``/``-joined keys, ``__len__``
     entries for lists), which its ``load_params`` reads."""
     np.savez(path, **_flatten(params))
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if "__len__" in node:
+            return [lists(node[str(i)]) for i in range(int(node["__len__"]))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def load_params(path: str) -> Any:
+    """Read the ``.npz`` that :func:`save_params` (or the JAX package's
+    ``save_params``) writes back into the parameter tree."""
+    with np.load(path, allow_pickle=False) as data:
+        return _unflatten({k: data[k] for k in data.files})
+
+
+_writes: list = []  # threads writing cache files
+
+
+def _save_atomic(cache_path: str, params: Any) -> None:
+    tmp = f"{cache_path}.{os.getpid()}.{threading.get_ident()}.tmp.npz"
+    try:
+        save_params(tmp, params)
+        os.replace(tmp, cache_path)
+    except OSError:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def cached_convert(ckpt_path: str, cfg, converter,
+                   times: Optional[Dict[str, float]] = None) -> Any:
+    """``converter(load_torch_state_dict(ckpt_path), cfg)``, kept as an
+    ``.npz`` next to the checkpoint named for the file's size and
+    modification time and a digest of the converter and ``cfg``, so that a
+    later process reads the converted tree instead of unpickling and
+    converting the checkpoint again (the JAX package's
+    ``models/convert.cached_convert``). The file is written by a thread of
+    its own, off the caller's path, under a temporary name and renamed
+    (:func:`finish_cache_writes` waits for it); a cache that cannot be read
+    or written is skipped. ``times``, if given, gets the seconds spent
+    reading (``read``) and converting (``convert``)."""
+    times = {} if times is None else times
+    t0 = time.perf_counter()
+    st = os.stat(ckpt_path)
+    digest = hashlib.sha1(f"{converter.__name__} {cfg!r}".encode()).hexdigest()[:12]
+    cache_path = os.path.join(
+        os.path.dirname(ckpt_path),
+        f"{os.path.basename(ckpt_path)}.{st.st_size}.{st.st_mtime_ns}.{digest}.torch.npz")
+    if os.path.exists(cache_path):
+        try:
+            params = load_params(cache_path)
+            times.update(read=time.perf_counter() - t0, convert=0.0)
+            return params
+        except (OSError, ValueError, KeyError):
+            pass
+    sd = load_torch_state_dict(ckpt_path)
+    t1 = time.perf_counter()
+    params = converter(sd, cfg)
+    times.update(read=t1 - t0, convert=time.perf_counter() - t1)
+    writer = threading.Thread(target=_save_atomic, args=(cache_path, params),
+                              name="npz-cache-write")
+    writer.start()
+    _writes.append(writer)
+    return params
+
+
+def finish_cache_writes() -> None:
+    """Wait until every cache file that :func:`cached_convert` started is
+    written."""
+    while _writes:
+        _writes.pop().join()
 
 
 def _load_path_tree(module: nn.Module, tree: Any) -> nn.Module:

@@ -121,13 +121,14 @@ def load_demucs_checkpoint(path: str) -> Tuple[str, HTDemucsConfig, Dict[str, to
     return klass_name, cfg, tensors
 
 
-def load_demucs_model_or_bag(
+def bag_members(
     name_or_path: str, repo_dir: str
-) -> Tuple[List[Tuple[HTDemucsConfig, Dict[str, torch.Tensor]]], List[List[float]],
-           Optional[float]]:
-    """Resolve a model name (YAML bag or ``.th`` signature) inside ``repo_dir``.
+) -> Tuple[List[str], List[List[float]], Optional[float]]:
+    """Resolve a model name (YAML bag or ``.th`` signature) inside ``repo_dir``
+    to its member files, without reading them.
 
-    Returns (models, per-source weights per model, segment override)."""
+    Returns (member ``.th`` paths, per-source weights per member or None,
+    segment override)."""
     stem = os.path.splitext(os.path.basename(name_or_path))[0]
 
     def find_th(sig: str) -> Optional[str]:
@@ -138,27 +139,40 @@ def load_demucs_model_or_bag(
                 return os.path.join(repo_dir, fn)
         return None
 
-    def load(th_path: str):
-        check_checksum(th_path)
-        _, cfg, state = load_demucs_checkpoint(th_path)
-        return cfg, state
-
     yaml_path = os.path.join(repo_dir, f"{stem}.yaml")
     if os.path.exists(yaml_path):
         bag = read_yaml_config(yaml_path)
-        models = []
+        paths = []
         for sig in bag["models"]:
             th_path = find_th(sig)
             if th_path is None:
                 raise FileNotFoundError(f"model {sig}.th not found in {repo_dir}")
-            models.append(load(th_path))
-        weights = bag.get("weights")
-        if weights is None:
-            weights = [[1.0] * len(models[0][0].sources) for _ in models]
-        return models, weights, bag.get("segment")
+            paths.append(th_path)
+        return paths, bag.get("weights"), bag.get("segment")
 
     th_path = find_th(stem) or (name_or_path if os.path.exists(name_or_path) else None)
     if th_path is None:
         raise FileNotFoundError(f"no demucs model named {name_or_path} in {repo_dir}")
-    cfg, state = load(th_path)
-    return [(cfg, state)], [[1.0] * len(cfg.sources)], None
+    return [th_path], None, None
+
+
+def load_demucs_member(th_path: str) -> Tuple[HTDemucsConfig, Dict[str, torch.Tensor]]:
+    """One member file, its checksum checked: (config, state dict)."""
+    check_checksum(th_path)
+    _, cfg, state = load_demucs_checkpoint(th_path)
+    return cfg, state
+
+
+def load_demucs_model_or_bag(
+    name_or_path: str, repo_dir: str
+) -> Tuple[List[Tuple[HTDemucsConfig, Dict[str, torch.Tensor]]], List[List[float]],
+           Optional[float]]:
+    """Resolve a model name (YAML bag or ``.th`` signature) inside ``repo_dir``
+    and load its members.
+
+    Returns (models, per-source weights per model, segment override)."""
+    paths, weights, segment = bag_members(name_or_path, repo_dir)
+    models = [load_demucs_member(p) for p in paths]
+    if weights is None:
+        weights = [[1.0] * len(models[0][0].sources) for _ in models]
+    return models, weights, segment

@@ -300,6 +300,12 @@ class Separator:
             model_data["is_roformer"] = True
         return model_data
 
+    def load_model_data_using_hash(self, model_path: str) -> dict:
+        """The UVR registry's model data for the file at ``model_path``, keyed
+        by its hash (downloading the registry's data files if they are not in
+        ``model_file_dir``)."""
+        return self.registry.load_model_data_using_hash(model_path)
+
     def _resolve_model_data(self, model_path: str,
                             yaml_config_filename: Optional[str]) -> dict:
         """Model params by priority: companion/explicit YAML → local sidecar
@@ -311,7 +317,7 @@ class Separator:
             self.logger.debug(f"Loading model data from sidecar {sidecar}")
             with open(sidecar, encoding="utf-8") as f:
                 return json.load(f)
-        return self.registry.load_model_data_using_hash(model_path)
+        return self.load_model_data_using_hash(model_path)
 
     def load_model(self, model_filename: Union[str, List[str]] = DEFAULT_MODEL):
         """Resolve the model's files (downloading only what is missing from

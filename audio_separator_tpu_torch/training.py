@@ -29,6 +29,7 @@ from typing import Callable, Sequence
 import torch
 
 from .models.roformer import RoformerConfig
+from .ops.fn_cache import is_shared
 from .ops.losses import DEFAULT_RESOLUTIONS, roformer_training_loss
 from .ops.precision import full_float32
 
@@ -75,7 +76,12 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
     passes of convolutions and products stay float32 whatever the process's
     TF32 switches say. The model's parameters are made to require gradients
     and the model is put in training mode (cuDNN's LSTM has a backward pass
-    only there; no module of these families computes otherwise in it)."""
+    only there; no module of these families computes otherwise in it).
+
+    A module that a ``Separator`` loaded is shared process-wide by the model
+    cache (``ops/fn_cache``) and is refused: training changes it in place.
+    Train a module of its own, e.g. ``copy.deepcopy(sep.model_instance.model)``
+    or one built from the checkpoint."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): sharded training needs the device mesh, "
@@ -88,6 +94,10 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise NotImplementedError("training takes a float32 model (bf16 training is "
                                   "ROADMAP item 17b)")
+    if is_shared(model):
+        raise ValueError("make_train_step: this module is shared by the process's model cache "
+                         "(ops/fn_cache) and serves every Separator of its checkpoint; train "
+                         "a copy (copy.deepcopy) or a module built for training")
     model.requires_grad_(True)
     model.train()
     loss_fn = make_loss_fn(cfg, model, stft_n_fft=stft_n_fft, window_sizes=window_sizes,

@@ -101,11 +101,17 @@ result lines are printed):
    ``uvr_max_spec``: five stem groups, Vocals ensembled from both members and
    held against the CPU ``Ensembler`` on the members' solo stems, the rest
    passed through (floor 60 dB), and 24, 24 and 18 launches of B1, B2 and B3
-   in each call, with the warm ensemble wall beside the members' solo walls;
+   in each call, with the warm ensemble wall beside the members' solo walls
+   and beside the same call with the process's model cache emptied first,
+   and each member's load with the cache empty (the RoFormer's split: read,
+   convert, build, upload, 3xTF32 forms);
    then the remote service (``[remote]``): the full-width BS-RoFormer,
    HTDemucs, VR v5.1 and MDX23C in one model directory, a seeded 30 s and a 20 s float32 WAV,
    direct ``Separator`` calls of each job's file and settings on the card as
-   references; the port's HTTP server (``remote/server.serve``) with one
+   references, the model cache emptied before them (each model's first call
+   builds it and prints its load split, the next ones take it from the
+   cache, as does a second built-and-loaded 30 s RoFormer call); the port's
+   HTTP server (``remote/server.serve``) with one
    worker and ``AUDSEP_SERVER_COALESCE=2`` answering ``/health``,
    ``/models-json``, ``/presets``, a 404 and (with ``AUDSEP_API_KEY`` set) a
    401, and running an HTDemucs job, two float32 RoFormer jobs that must
@@ -125,12 +131,15 @@ result lines are printed):
    what the engine's window plan implies (24 B1 and B2 per RoFormer forward,
    6 B3 per HTDemucs forward); each job's latency, each server's wall and
    jobs/hour and the group's wall against two solo calls are printed;
-   then training (``[training]``, ``training.make_train_step``): each of
+   then training (``[training]``, ``training.make_train_step``), with the
+   model cache emptied first: each of
    the four backward kernels (K1 attention, K2 RMSNorm, K3 GELU, K4 RoPE
    and gate) against its plain version at the full-width shapes of batch 2,
-   with CUDA-event times, bounds and, where one exists, a library call
-   beside them (``scaled_dot_product_attention``'s backward,
-   ``aten.gelu_backward``); the three autograd Functions against autograd
+   with CUDA-event times, bounds (K1's 3xTF32 one beside its FMA one) and,
+   where one exists, a library call beside them
+   (``scaled_dot_product_attention``'s backward,
+   ``aten._fused_rms_norm_backward``, ``aten.gelu_backward``, which writes
+   less than K3); the three autograd Functions against autograd
    through their plain versions on the card; the flagship BS-RoFormer at
    depth 2, one step's gradients against the CPU plain path (>= 80 dB each,
    or within 6 dB of the CPU's own spread where the CPU does not reproduce
@@ -154,6 +163,7 @@ MDX23C forward of phase 4 turns the cuDNN switch back on for its card run.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib.util
 import json
 import logging
@@ -1934,8 +1944,11 @@ def phase_ensemble(seed, seconds, device_label):
     ensembled from both members and held against the CPU ``Ensembler`` on
     the members' solo stems, the other groups pass one member's stem through;
     every kernel's launches are counted over each ensemble call."""
+    import numpy as np
+
     from audio_separator_tpu_torch.io import audio as audio_io
-    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.models.convert import finish_cache_writes
+    from audio_separator_tpu_torch.ops import _build, fn_cache
     from audio_separator_tpu_torch.ops.spec import normalize
     from audio_separator_tpu_torch.separator import Separator
     from audio_separator_tpu_torch.separator.ensembler import Ensembler
@@ -1958,11 +1971,19 @@ def phase_ensemble(seed, seconds, device_label):
         def read(path):
             return audio_io.load_audio(path, sample_rate=sr)[0]
 
-        solo = {}
+        # The members load cold here (cache cleared), and from the cache in
+        # every ensemble call after.
+        fn_cache.clear()
+        solo, cold = {}, {}
         for member in members:
             out = os.path.join(tmp, "solo_" + member.split(".")[0])
             sep = Separator(model_file_dir=model_dir, output_dir=out, log_level=logging.WARNING)
+            t0 = time.perf_counter()
             sep.load_model(member)
+            if hasattr(sep.model_instance, "_load_models"):  # Demucs loads at separate
+                sep.model_instance._load_models()
+            cold[member] = (time.perf_counter() - t0,
+                            getattr(sep.model_instance, "load_split", None))
             files = sep.separate(wav)
             t0 = time.perf_counter()
             sep.separate(wav)
@@ -2013,11 +2034,31 @@ def phase_ensemble(seed, seconds, device_label):
             if algorithm == ENSEMBLE_ALGORITHMS[0]:
                 t0 = time.perf_counter()
                 sep.separate(wav)
-                warm = time.perf_counter() - t0
-                results["warm_wall_s"] = warm
+                results["warm_wall_s"] = time.perf_counter() - t0
+                # The same call with the model cache emptied: both members
+                # built and uploaded again, the RoFormer from its converted
+                # .npz (written by now), HTDemucs from its checkpoint. Its
+                # stems must match the first call's.
+                finish_cache_writes()
+                fn_cache.clear()
+                t0 = time.perf_counter()
+                sep.separate(wav)
+                results["cold_cache_wall_s"] = time.perf_counter() - t0
+                again = {g: read(os.path.join(out, f"mix_({g})_{slug}.wav")) for g in groups}
+                cold_sdrs = {g: round(sdr_db(got[g], again[g]), 2) for g in groups}
+                identical = all(np.array_equal(got[g], again[g]) for g in groups)
+                log(f"[ensemble] {device_label}: the call with the cache emptied against the "
+                    f"first call: {'bit-identical' if identical else cold_sdrs} "
+                    f"(floor {REMOTE_FLOOR_DB} dB)")
+                if not identical and min(cold_sdrs.values()) < REMOTE_FLOOR_DB:
+                    raise AssertionError(f"{algorithm}: stems after a cold cache {cold_sdrs}")
             del sep
+        log(f"[ensemble] {device_label}: member loads with the model cache empty (s, and "
+            f"the RoFormer's split: read, convert, build, upload, forms) "
+            f"{({m: (round(t, 3), {k: round(v, 3) for k, v in (sp or {}).items()}) for m, (t, sp) in cold.items()})}")
         log(f"[ensemble] {device_label}: warm ensemble separate {results['warm_wall_s']:.3f} s "
-            f"(each call loads both members) against the members' warm solo calls "
+            f"(both members from the model cache), {results['cold_cache_wall_s']:.3f} s with "
+            f"the cache emptied before the call, against the members' warm solo calls "
             f"{[round(w, 3) for _, w in solo.values()]} s, sum {solo_sum:.3f} s "
             f"(x{results['warm_wall_s'] / solo_sum:.2f}); checkpoint writes {write_s:.1f} s")
         return {"launches": results[ENSEMBLE_ALGORITHMS[0]]["launches"], "results": results}
@@ -2227,7 +2268,7 @@ def phase_remote(seed, seconds, device_label):
     import torch
 
     from audio_separator_tpu_torch.io import audio as audio_io
-    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops import _build, fn_cache
     from audio_separator_tpu_torch.remote import server as server_mod
     from audio_separator_tpu_torch.remote.asgi import create_app
     from audio_separator_tpu_torch.separator import DEFAULT_MODEL, Separator
@@ -2264,7 +2305,11 @@ def phase_remote(seed, seconds, device_label):
                       "roformer bf16": (DEFAULT_MODEL, True, ("long",)),
                       "vr": (VR51_MODEL, False, ("long",)),
                       "mdx23c": (MDX23C_MODEL, False, ("short",))}
-            direct, solo_s, seps = {}, {}, {}
+            # The model cache starts empty: each model's first direct call
+            # builds it, the second (and every server job) takes it from the
+            # cache.
+            fn_cache.clear()
+            direct, solo_s, seps, load_splits = {}, {}, {}, {}
             for key, (model, autocast, tracks) in models.items():
                 for track in tracks:
                     t0 = time.perf_counter()
@@ -2272,6 +2317,7 @@ def phase_remote(seed, seconds, device_label):
                                     output_dir=os.path.join(tmp, "direct", key),
                                     use_autocast=autocast, log_level=logging.WARNING)
                     sep.load_model(model)
+                    load_splits[key, track] = getattr(sep.model_instance, "load_split", None)
                     t1 = time.perf_counter()
                     files = sep.separate(wavs[track])
                     torch.cuda.synchronize()
@@ -2281,6 +2327,26 @@ def phase_remote(seed, seconds, device_label):
                         stem_label(f): audio_io.load_audio(os.path.join(sep.output_dir, f))[0]
                         for f in files}
                     seps[key] = sep
+            # A second built-and-loaded 30 s float32 RoFormer call: its model
+            # from the cache.
+            t0 = time.perf_counter()
+            sep = Separator(model_file_dir=model_dir, output_format="wav",
+                            output_dir=os.path.join(tmp, "direct", "again"),
+                            log_level=logging.WARNING)
+            sep.load_model(DEFAULT_MODEL)
+            again_split = sep.model_instance.load_split
+            sep.separate(wavs["long"])
+            torch.cuda.synchronize()
+            again_s = time.perf_counter() - t0
+            del sep
+            log(f"[remote] {device_label}: a second built-and-loaded {seconds:.0f} s float32 "
+                f"RoFormer call {again_s:.3f} s (load {again_split}), the first "
+                f"{solo_s['roformer', 'long'][0]:.3f} s")
+            log(f"[remote] {device_label}: direct calls, load + separate / separate alone "
+                f"(s), the first of each model with the model cache empty: "
+                f"{({f'{k} {t}': (round(a, 3), round(b, 3)) for (k, t), (a, b) in solo_s.items()})}"
+                f"; MDXC load split (read, convert, build, upload, forms; or cached) "
+                f"{({f'{k} {t}': {n: round(v, 3) for n, v in sp.items()} for (k, t), sp in load_splits.items() if sp})}")
             cfg = seps["roformer"].model_instance.model_cfg  # one B1 and one B2 a layer
             per_forward = {"roformer": cfg.depth * (cfg.time_transformer_depth
                                                     + cfg.freq_transformer_depth),
@@ -2596,10 +2662,12 @@ def training_category(name: str) -> str:
 
 
 def check_backward_case(records, name, axis, shape, kernel, plain, cost, library=None,
-                        n_valid=None):
+                        n_valid=None, library_note=None, tensor_cores=False):
     """One backward kernel against its plain version: every output within
     the float32 tolerance of its own scale; CUDA-event times of both and of
-    the library call beside them."""
+    the library call beside them. ``tensor_cores``: the kernel's products run
+    as 3xTF32, so its bound is that of its own design (the TF32 peak over
+    three), with the float32 FMA bound kept beside it as ``bound_fma_ms``."""
     import torch
 
     got = kernel()
@@ -2613,22 +2681,57 @@ def check_backward_case(records, name, axis, shape, kernel, plain, cost, library
     torch.cuda.empty_cache()
     library_ms = cuda_time_ms(library, iters=5) if library is not None else None
     bound_ms, bound_by = bound(cost, "float32")
+    bound_fma_ms = None
+    if tensor_cores:
+        t_ops, t_bytes = cost[0] / PEAK_3XTF32, cost[1] / PEAK_BYTES
+        bound_fma_ms = bound_ms
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
     rel = [e["max_abs_err"] / max(e["scale"], 1e-30) for e in errs]
     rec = dict(name=name, dtype="float32", axis=axis, shape=list(shape), n_valid=n_valid, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                flop=cost[0], bytes=cost[1], max_abs_err=max(e["max_abs_err"] for e in errs),
                mean_abs_err=max(e["mean_abs_err"] for e in errs),
-               scale=min(e["scale"] for e in errs), rel_errs=rel, split=device_split(kernel))
+               scale=min(e["scale"] for e in errs), rel_errs=rel, split=device_split(kernel),
+               library_note=library_note, bound_fma_ms=bound_fma_ms,
+               bound_3xtf32_ms=bound_ms if tensor_cores else None)
     records.append(rec)
     log(f"[training] {name} {axis} {tuple(shape)}"
         + (f" n_valid={n_valid}" if n_valid is not None else "")
         + f": max |kernel - plain| / scale per output {[f'{r:.2e}' for r in rel]} (tol "
         f"{TOLERANCE['float32']['max']:.0e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         + (f"library {library_ms:.3f} ms, " if library_ms is not None else "")
-        + f"bound {bound_ms:.3f} ms ({bound_by}); launches (device ms) "
+        + (f"({library_note}), " if library_note else "")
+        + (f"3xTF32 bound {bound_ms:.3f} ms ({bound_by}; 494.7 / 3 TFLOP/s), FMA bound "
+           f"{bound_fma_ms:.3f} ms (67 TFLOP/s)" if tensor_cores
+           else f"bound {bound_ms:.3f} ms ({bound_by})")
+        + "; launches (device ms) "
         + ", ".join(f"{k} {v:.3f}" for k, v in rec["split"].items()))
     if not all(e["ok"] for e in errs):
         raise AssertionError(f"{name} {axis}: kernel disagrees with its plain version: {errs}")
+
+
+def rms_norm_yardstick(x, gamma, dxn):
+    """K2's library yardstick, never called by the port: one
+    ``aten._fused_rms_norm_backward`` call (dx and dγ, no residual) on the
+    same inputs, its ``rstd`` from ``aten._fused_rms_norm``. Returns
+    ``(call or None, note)``. Its norm differs in eps: the port clamps Σx²
+    at 1e-24, aten adds eps to the mean of x² (1e-24 / d here)."""
+    import torch
+
+    d = x.shape[-1]
+    eps = 1e-24 / d
+    if not hasattr(torch.ops.aten, "_fused_rms_norm_backward"):
+        return None, "aten._fused_rms_norm_backward absent in this PyTorch"
+    try:
+        _, rstd = torch.ops.aten._fused_rms_norm(x, [d], gamma, eps)
+        call = (lambda: torch.ops.aten._fused_rms_norm_backward(dxn, x, [d], rstd, gamma,
+                                                                [True, True]))
+        call()
+    except (RuntimeError, TypeError) as exc:
+        return None, f"aten._fused_rms_norm_backward failed: {str(exc)[:120]}"
+    return call, (f"aten._fused_rms_norm_backward: rsqrt(mean(x²) + {eps:.1e}) where the "
+                  f"port clamps Σx² at 1e-24, and no residual gradient added")
 
 
 def phase_backward_kernels(seed):
@@ -2669,17 +2772,20 @@ def phase_backward_kernels(seed):
             lambda: att.attention_bwd_ref(q, k, v, merged, dm, 0.125, n_valid, gates=gates),
             (2.5 * 4 * b * h * n_valid * n_valid * dh, 4 * (8 * b * h * n_pad * dh
                                                           + 2 * b * h * n_pad)),
-            sdpa_backward((b, h, n_pad, dh)), n_valid)
+            sdpa_backward((b, h, n_pad, dh)), n_valid, tensor_cores=True)
         del q, k, v, gates, merged, dm
         torch.cuda.empty_cache()
         # K2 with the residual's gradient, padded tokens zero.
         x, dxn, dres = randn(b, n_pad, d), randn(b, n_pad, d), randn(b, n_pad, d)
         x[:, n_valid:] = 0
         gamma = 1 + randn(d, s=0.1)
+        rms_library, rms_note = rms_norm_yardstick(x, gamma, dxn)
         check_backward_case(records, "rmsnorm_backward", axis, (rows, d),
                             lambda: bb.rmsnorm_backward(x, gamma, dxn, dres),
                             lambda: bb.rmsnorm_bwd_ref(x, gamma, dxn, dres),
-                            (10 * rows * d, 4 * (4 * rows * d + 2 * d)))
+                            (10 * rows * d, 4 * (4 * rows * d + 2 * d)),
+                            rms_library, library_note=rms_note)
+        del rms_library
         del x, dxn, dres
         # K3 (12 operations a value besides erf and exp).
         pre, dh_ = randn(rows, hidden, s=2.0), randn(rows, hidden)
@@ -2687,7 +2793,9 @@ def phase_backward_kernels(seed):
                             lambda: bb.gelu_backward(pre, dh_),
                             lambda: bb.gelu_bwd_ref(pre, dh_),
                             (12 * rows * hidden, 4 * 4 * rows * hidden),
-                            lambda: torch.ops.aten.gelu_backward(dh_, pre))
+                            lambda: torch.ops.aten.gelu_backward(dh_, pre),
+                            library_note="aten.gelu_backward writes dpre only; K3 also writes "
+                                         "h, the GELU's output, for the W2 weight gradient")
         del pre, dh_
         torch.cuda.empty_cache()
         # K4 with the model's RoPE tables, zero past n_valid.
@@ -2711,7 +2819,7 @@ def phase_backward_kernels(seed):
                             lambda: att.attention_backward(q, k, v, o, do, dh_ ** -0.5),
                             lambda: att.attention_bwd_ref(q, k, v, o, do, dh_ ** -0.5),
                             (2.5 * 4 * b * h_ * n * n * dh_, 4 * 8 * b * h_ * n * dh_),
-                            sdpa_backward(shape))
+                            sdpa_backward(shape), tensor_cores=True)
         del q, k, v, do, o
         torch.cuda.empty_cache()
     return records
@@ -2901,6 +3009,15 @@ def phase_training(seed, device_label):
     from audio_separator_tpu_torch.ops.precision import full_float32
     from audio_separator_tpu_torch.training import make_loss_fn, make_train_step
 
+    from audio_separator_tpu_torch.ops import fn_cache
+
+    # The models the inference phases loaded stay on the card in the
+    # process-wide cache; training needs the memory.
+    dropped = fn_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[training] model cache cleared ({dropped} entries); "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated")
     t_phase = time.perf_counter()
     records = phase_backward_kernels(seed)
     t1 = time.perf_counter()
@@ -3213,7 +3330,9 @@ def main(argv=None) -> int:
             "bound_by": main[0]["bound_by"],
             "library_ms": sum(library) / len(library) if library else None,
             "cases": [{k: r.get(k) for k in ("dtype", "axis", "shape", "n_valid", "ms",
-                                              "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                              "plain_ms", "library_ms", "library_note",
+                                              "bound_ms", "bound_by", "bound_3xtf32_ms",
+                                              "bound_fma_ms",
                                               "max_abs_err", "rel_errs", "split")}
                       for r in cases],
             "launches_per_roformer_step": ROFORMER_STEP_LAUNCHES[name],

@@ -35,6 +35,7 @@ from audio_separator_tpu_torch.models.roformer import _rope_tables
 from audio_separator_tpu_torch.ops import attention as att
 from audio_separator_tpu_torch.ops import attention_block as ab
 from audio_separator_tpu_torch.ops import block_backward as bb
+from audio_separator_tpu_torch.ops.tf32 import matmul_3xtf32
 from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
@@ -185,6 +186,53 @@ def test_attention_backward_masks_keys_past_n_valid():
     for g, w in zip((dq, dk[:, :, :50], dv[:, :, :50]), want):
         _close(g, w)
     _close(delta, (do * out).sum(-1))
+
+
+def _attention_bwd_3xtf32(q, k, v, o, do, scale, n_valid):
+    """The arithmetic of the card's attention backward (csrc/attention_bwd.cu):
+    every product as three TF32 products summed in float32
+    (``ops/tf32.matmul_3xtf32``), the log-sum-exp recomputed from those
+    scores."""
+    s = matmul_3xtf32(q, k.transpose(-1, -2)) * scale
+    s[..., n_valid:] = -math.inf
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    delta = (do * o).sum(-1)
+    dv = matmul_3xtf32(p.transpose(-1, -2), do)
+    ds = p * (matmul_3xtf32(do, v.transpose(-1, -2)) - delta[..., None])
+    dq = matmul_3xtf32(ds, k) * scale
+    dk = matmul_3xtf32(ds.transpose(-1, -2), q) * scale
+    return dq, dk, dv, delta
+
+
+def test_attention_backward_in_3xtf32_meets_the_float32_tolerance(capsys):
+    """The kernel's 3xTF32 products, held to the float64 plain version with
+    the card's float32 tolerance (1e-4 max, 1e-5 mean of each output's
+    scale), with scores that reach ±20 and masked keys."""
+    rng = np.random.default_rng(11)
+    shape, n_valid, scale = (2, 2, 96, 64), 77, 0.125
+    q, k = (torch.from_numpy(_randn(rng, *shape, s=2.2)) for _ in range(2))
+    v, do = (torch.from_numpy(_randn(rng, *shape)) for _ in range(2))
+    o = att.attention_ref(q, k[:, :, :n_valid], v[:, :, :n_valid], scale)
+    s64 = torch.matmul(q.double(), k.double().transpose(-1, -2))[..., :n_valid] * scale
+    assert float(s64.abs().max()) >= 15.0
+    got = _attention_bwd_3xtf32(q, k, v, o, do, scale, n_valid)
+    # The float64 plain version (attention_bwd_ref computes in float32).
+    q64, k64, v64, o64, do64 = (t.double() for t in (q, k, v, o, do))
+    p = torch.softmax(s64, -1)
+    delta = (do64 * o64).sum(-1)
+    ds = p * (torch.matmul(do64, v64[:, :, :n_valid].transpose(-1, -2)) - delta[..., None])
+    dk, dv = (torch.zeros_like(q64) for _ in range(2))
+    dk[:, :, :n_valid] = torch.matmul(ds.transpose(-1, -2), q64) * scale
+    dv[:, :, :n_valid] = torch.matmul(p.transpose(-1, -2), do64)
+    want = (torch.matmul(ds, k64[:, :, :n_valid]) * scale, dk, dv, delta)
+    for name, g, w in zip(("dq", "dk", "dv", "delta"), got, want):
+        ref_scale = float(w.abs().max())
+        err = (g.double() - w).abs()
+        with capsys.disabled():
+            print(f"\n3xTF32 attention backward {name}: max {float(err.max()) / ref_scale:.2e}, "
+                  f"mean {float(err.mean()) / ref_scale:.2e} of scale")
+        assert float(err.max()) <= 1e-4 * ref_scale, name
+        assert float(err.mean()) <= 1e-5 * ref_scale, name
 
 
 @pytest.mark.parametrize("dres", [False, True])

@@ -469,6 +469,74 @@ def test_gated_attention_backward_kernel_matches_plain(cuda, b, n_valid):
         _close(a, w, torch.float32)
 
 
+def _attention_bwd_case(cuda, seed, b, h, n, dh, gated, s=0.7):
+    """Inputs of the attention backward in either layout; ``o`` None for the
+    head-major layout (the caller passes the forward's output)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, n, dh, generator=g, device=cuda) * s for _ in range(3))
+    if gated:
+        gates = torch.sigmoid(torch.randn(b, h, n, generator=g, device=cuda))
+        o, do = (torch.randn(b, n, h * dh, generator=g, device=cuda) for _ in range(2))
+        return q, k, v, o, do, gates
+    do = torch.randn(b, h, n, dh, generator=g, device=cuda)
+    return q, k, v, None, do, None
+
+
+# Both paths (one launch for n <= 64, two beyond) at and around the tile
+# edges, both layouts: two calls give the same bits, and each output is
+# within the float32 tolerance of the plain version. o is random here (the
+# kernel takes any o): with a single valid key and the forward's own output,
+# dS = P·(dO·v − Δ) is zero in exact arithmetic, and dq and dk are rounding
+# noise in both versions, with no scale to hold them to.
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n,n_valid", [(64, 64), (64, 1), (64, 37), (65, 65), (65, 1),
+                                       (129, 129), (129, 70), (300, 257)])
+def test_attention_backward_kernel_is_deterministic_at_the_tile_edges(cuda, gated, n, n_valid):
+    q, k, v, o, do, gates = _attention_bwd_case(cuda, 31 + n + n_valid, 2, 3, n, 64, gated)
+    scale = 0.125
+    if o is None:
+        o = torch.randn_like(do)
+    launched = _counted("attention_backward")
+    first = att.attention_backward(q, k, v, o, do, scale, n_valid, gates=gates)
+    second = att.attention_backward(q, k, v, o, do, scale, n_valid, gates=gates)
+    torch.cuda.synchronize()
+    assert launched() == 2
+    want = att.attention_bwd_ref(q, k, v, o, do, scale, n_valid, gates=gates)
+    for a, a2, w in zip(first, second, want):
+        assert torch.equal(a, a2)
+        _close(a, w, torch.float32)
+    assert not first[1][:, :, n_valid:].any() and not first[2][:, :, n_valid:].any()
+
+
+@pytest.mark.parametrize("n", [40, 64, 130])
+@pytest.mark.parametrize("d", [8, 128])
+def test_attention_backward_kernel_at_other_head_widths(cuda, n, d):
+    """D 128 runs its own instance; D 8 is padded to 64 by the wrapper."""
+    q, k, v, _, do, _ = _attention_bwd_case(cuda, 41 + n + d, 2, 2, n, d, False)
+    scale = d ** -0.5
+    o = att.attention_ref(q, k, v, scale)
+    first = att.attention_backward(q, k, v, o, do, scale)
+    second = att.attention_backward(q, k, v, o, do, scale)
+    for a, a2, w in zip(first, second, att.attention_bwd_ref(q, k, v, o, do, scale)):
+        assert a.shape == w.shape
+        assert torch.equal(a, a2)
+        _close(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("n,n_valid", [(64, 62), (832, 801)])
+def test_attention_backward_kernel_with_scores_near_twenty(cuda, n, n_valid):
+    """q and k scaled so that the scaled scores reach ±20: P is nearly one-hot
+    in places, and the log-sum-exp the kernel recomputes must be exact to the
+    float32 level."""
+    q, k, v, o, do, gates = _attention_bwd_case(cuda, 51 + n, 2, 4, n, 64, True, s=2.2)
+    s = torch.matmul(q, k.transpose(-1, -2))[..., :n_valid] * 0.125
+    assert float(s.abs().max()) >= 15.0
+    got = att.attention_backward(q, k, v, o, do, 0.125, n_valid, gates=gates)
+    want = att.attention_bwd_ref(q, k, v, o, do, 0.125, n_valid, gates=gates)
+    for a, w in zip(got, want):
+        _close(a, w, torch.float32)
+
+
 @pytest.mark.parametrize("rows,d,zero_rows", [(16 * 832, 512, 31), (96 * 64, 512, 2), (5, 64, 1)])
 @pytest.mark.parametrize("residual", [True, False])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, zero_rows, residual):

@@ -258,3 +258,28 @@ def test_yaml_config_reader_without_pyyaml(monkeypatch, tmp_path):
     bad.write_text("model:\n  dim: 8\n")
     with pytest.raises(RuntimeError, match="PyYAML is not installed"):
         read_yaml_config(str(bad))
+
+
+def test_load_model_data_using_hash_matches_jax(tmp_path):
+    """``Separator.load_model_data_using_hash`` returns the registry's model
+    data for the file's hash, as the JAX ``Separator``'s does (offline: the
+    model data files are in ``model_file_dir``)."""
+    from audio_separator_tpu.separator import Separator as JaxSeparator
+    from audio_separator_tpu_torch.separator.registry import get_model_hash
+
+    model_dir = str(tmp_path)
+    path = os.path.join(model_dir, "custom.onnx")
+    with open(path, "wb") as f:
+        f.write(np.random.default_rng(2).bytes(4096))
+    data = {"compensate": 1.035, "mdx_dim_f_set": 2048, "mdx_dim_t_set": 8,
+            "mdx_n_fft_scale_set": 6144, "primary_stem": "Vocals"}
+    with open(os.path.join(model_dir, "mdx_model_data.json"), "w") as f:
+        json.dump({get_model_hash(path): data}, f)
+    for name in ("vr_model_data.json", "download_checks.json"):
+        with open(os.path.join(model_dir, name), "w") as f:
+            f.write("{}")
+    got = Separator(model_file_dir=model_dir, device="cpu",
+                    log_level=logging.WARNING).load_model_data_using_hash(path)
+    want = JaxSeparator(model_file_dir=model_dir,
+                        log_level=logging.WARNING).load_model_data_using_hash(path)
+    assert got == want == data
