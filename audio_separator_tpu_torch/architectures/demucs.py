@@ -50,6 +50,20 @@ DEMUCS_6_SOURCE_MAPPER = {
 }
 
 
+class _MemberOnRows:
+    """A bag member as the engine's model function over a mesh: the module
+    on the separator's device, its replica on another row's device
+    (``BaseSeparator.model_on``)."""
+
+    def __init__(self, separator, model, key_for, build):
+        self.cfg = model.cfg
+        self._args = (separator, model, key_for, build)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        separator, model, key_for, build = self._args
+        return separator.model_on(x.device, model, key_for, build)(x)
+
+
 class DemucsSeparator(BaseSeparator):
     def __init__(self, common_config: Dict, arch_config: Dict):
         super().__init__(config=common_config)
@@ -83,16 +97,20 @@ class DemucsSeparator(BaseSeparator):
         elif segment is not None:
             override = float(segment)
 
-        def load_member(th_path):
+        def load_member(th_path, device):
             cfg, state = load_demucs_member(th_path)
             if override is not None:
                 cfg = dataclasses.replace(cfg, segment=override)
             model = build_demucs(cfg)
             model.load_state_dict(state, strict=True)
-            return model.to(self.device).eval()
+            return model.to(device).eval()
 
-        models = [memoized_model(("demucs", file_key(p), override, str(self.device)),
-                                 lambda p=p: load_member(p)) for p in paths]
+        # Per member: (cache key, build) for a device, also a mesh row's.
+        self._member_replicas = [
+            (lambda device, p=p: ("demucs", file_key(p), override, device),
+             lambda device, p=p: load_member(p, device)) for p in paths]
+        models = [memoized_model(key_for(str(self.device)), lambda b=build: b(self.device))
+                  for key_for, build in self._member_replicas]
         if weights is None:
             weights = [[1.0] * len(models[0].cfg.sources) for _ in models]
         self._models = (models, weights)
@@ -159,8 +177,9 @@ class DemucsSeparator(BaseSeparator):
         estimates = np.zeros((len(fetch), 2, mix.shape[-1]), dtype=np.float32)
         totals = [0.0] * len(fetch)
         rng = np.random.default_rng(0)  # one generator for the whole bag
-        for model, weight in zip(models, weights):
-            out = self._apply_one(model, norm, rng, fetch=fetch)
+        for model, weight, replicas in zip(models, weights, self._member_replicas):
+            member = model if self.mesh is None else _MemberOnRows(self, model, *replicas)
+            out = self._apply_one(member, norm, rng, fetch=fetch)
             for j, k in enumerate(fetch):
                 out[j] *= weight[k]
                 totals[j] += weight[k]
@@ -262,7 +281,7 @@ class DemucsSeparator(BaseSeparator):
             num_stems=n_sources, batch_size=self.batch_size, positions=positions,
             divider=np.tile(div_one, n_shifts),
             fetch_stems=fetch if len(fetch) < n_sources else None,
-            post_device_fn=post, device=self.device)
+            post_device_fn=post, device=self.device, mesh=self.mesh)
 
     @torch.no_grad()
     def _apply_split(self, model: HTDemucs, mix: np.ndarray,
@@ -295,7 +314,7 @@ class DemucsSeparator(BaseSeparator):
         out = overlap_add_demix(
             model, buf, segment, stride, rows, num_stems=n_sources,
             batch_size=self.batch_size, positions=positions, divider=divider,
-            fetch_stems=fetch if partial else None, device=self.device)
+            fetch_stems=fetch if partial else None, device=self.device, mesh=self.mesh)
         return out[..., pad_lead : pad_lead + length]
 
     @torch.no_grad()
@@ -324,7 +343,7 @@ class DemucsSeparator(BaseSeparator):
                 model, mix[:, :pad_len], segment, stride, tri, num_stems=n_sources,
                 batch_size=self.batch_size, positions=np.asarray(full),
                 divider=np.ones(pad_len, np.float32),
-                fetch_stems=fetch if partial else None, device=self.device)
+                fetch_stems=fetch if partial else None, device=self.device, mesh=self.mesh)
             for o in full:
                 sum_w[o : o + segment] += tri
         for o in offsets:

@@ -62,9 +62,11 @@ class MDXSeparator(BaseSeparator):
         second separator over the same file parses and uploads nothing. (The
         graph is parsed for its function anyway, and that parse gives the
         parameters: a converted ``.npz`` beside the file would save nothing.)"""
-        self._onnx_fn, self._onnx_params = memoized_model(
-            ("mdx", file_key(self.model_path), str(self.device)),
-            lambda: onnx_to_torch(self.model_path, device=self.device)[:2])
+        self._replica_args = (lambda device: ("mdx", file_key(self.model_path), device),
+                              lambda device: onnx_to_torch(self.model_path, device=device)[:2])
+        key_for, build = self._replica_args
+        self._onnx_fn, self._onnx_params = memoized_model(key_for(str(self.device)),
+                                                          lambda: build(self.device))
 
     # ------------------------------------------------------------- model fn
 
@@ -74,11 +76,13 @@ class MDXSeparator(BaseSeparator):
         iSTFT, cropped or zero-padded to the chunk."""
         n_fft, hop, dim_f = self.n_fft, self.hop_length, self.dim_f
         net_dtype = torch.bfloat16 if self.use_autocast else torch.float32
-        onnx_fn, params = self._onnx_fn, self._onnx_params
+        local = (self._onnx_fn, self._onnx_params)
         denoise = bool(self.enable_denoise)
         win = hann_window(n_fft, device=self.device)
 
         def run_net(spek):
+            # the graph's replica on the tensor's device (a mesh row's)
+            onnx_fn, params = self.model_on(spek.device, local, *self._replica_args)
             # optional denoise double pass (ref: mdx_separator.py:427-441)
             if denoise:
                 neg = onnx_fn(params, -spek)[0]
@@ -88,11 +92,11 @@ class MDXSeparator(BaseSeparator):
 
         def fn(chunks: torch.Tensor) -> torch.Tensor:
             with full_float32():
-                spek = stft_real_packed(chunks, n_fft, hop, win, dim_f)
+                spek = stft_real_packed(chunks, n_fft, hop, win.to(chunks.device), dim_f)
                 spek[:, :, :3, :] = 0.0  # low-bin suppression
                 spec_pred = (spek if is_match_mix
                              else run_net(spek.to(net_dtype)).float())
-                out = istft_real_packed(spec_pred, n_fft, hop, win)
+                out = istft_real_packed(spec_pred, n_fft, hop, win.to(chunks.device))
             out = out[..., : chunks.shape[-1]]
             if out.shape[-1] < chunks.shape[-1]:
                 out = torch.nn.functional.pad(out, (0, chunks.shape[-1] - out.shape[-1]))
@@ -149,7 +153,7 @@ class MDXSeparator(BaseSeparator):
         out = overlap_add_demix(
             self._model_fn(is_match_mix), mixture, chunk_size, step, windows,
             num_stems=1, batch_size=max(1, int(self.batch_size)),
-            positions=positions, divider=divider, device=self.device)
+            positions=positions, divider=divider, device=self.device, mesh=self.mesh)
         return out[0][:, self.trim : -self.trim][:, : mix.shape[-1]]
 
     def _demix_batch(self, mixes: list, is_match_mix: bool = False) -> list:
@@ -160,7 +164,7 @@ class MDXSeparator(BaseSeparator):
                 for m in mixes]
         outs = demix_jobs_layout(
             self._model_fn(is_match_mix), jobs, chunk_size, step, num_stems=1,
-            batch_size=max(1, int(self.batch_size)), device=self.device)
+            batch_size=max(1, int(self.batch_size)), device=self.device, mesh=self.mesh)
         return [o[0][:, self.trim : -self.trim][:, : m.shape[-1]]
                 for o, m in zip(outs, mixes)]
 

@@ -99,23 +99,27 @@ class MDXCSeparator(BaseSeparator):
                                             load_jax_tfc_tdf_params)
         split = {}
 
-        def load_module():
+        def load_module(device):
             tree = cached_convert(self.model_path, self.model_cfg, convert, times=split)
             t1 = time.perf_counter()
             model = load(build(self.model_cfg), tree)
             t2 = time.perf_counter()
-            model = model.to(device=self.device, dtype=self.compute_dtype).eval()
-            _synchronize(self.device)
+            model = model.to(device=device, dtype=self.compute_dtype).eval()
+            _synchronize(device)
             t3 = time.perf_counter()
             if self.is_roformer:
                 model.tf32_forms()  # float32 on the card: made once, here
-                _synchronize(self.device)
+                _synchronize(device)
             split.update(build=t2 - t1, upload=t3 - t2, forms=time.perf_counter() - t3)
             return model
 
-        self.model = memoized_model(
-            (f"mdxc-{family}", file_key(self.model_path), str(self.device),
-             str(self.compute_dtype), repr(self.model_cfg)), load_module)
+        def key_for(device: str):
+            return (f"mdxc-{family}", file_key(self.model_path), device,
+                    str(self.compute_dtype), repr(self.model_cfg))
+
+        self._replica_args = (key_for, load_module)
+        self.model = memoized_model(key_for(str(self.device)),
+                                    lambda: load_module(self.device))
         self.load_split = split or {"cached": time.perf_counter() - t0}
         if not self.is_roformer:
             return
@@ -245,9 +249,13 @@ class MDXCSeparator(BaseSeparator):
         return int(inference.get("dim_t", self.segment_size))
 
     def _model_fn(self):
-        model = self.model
+        """``(B, C, chunk)`` → ``(B, S, C, chunk)`` on the tensor's device
+        (the module's replica there, for a mesh row)."""
+        def model(x: torch.Tensor) -> torch.Tensor:
+            return self.model_on(x.device, self.model, *self._replica_args)(x)
+
         if not self.is_roformer:
-            return model  # (B, C, chunk) -> (B, S, C, chunk)
+            return model
         stereo = self.model_cfg.stereo
 
         def fn(chunks: torch.Tensor) -> torch.Tensor:  # (B, C, chunk) -> (B, S, C, chunk)
@@ -318,7 +326,7 @@ class MDXCSeparator(BaseSeparator):
         outs = demix_jobs(
             self._model_fn(), mixes, chunk, step, window, num_stems=num_stems,
             batch_size=max(1, int(self.batch_size)), fetch_stems=fetch_stems,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         return [self._sources_from_out(out, kept_names, num_stems, mix)
                 for out, mix in zip(outs, mixes)]
 
@@ -336,7 +344,7 @@ class MDXCSeparator(BaseSeparator):
             out = overlap_add_demix(
                 self._model_fn(), mix, chunk, step, window, num_stems=num_stems,
                 batch_size=max(1, int(self.batch_size)), fetch_stems=fetch_stems,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         else:
             audio_section = self.model_data.get("audio") or {}
             chunk = int(audio_section.get("hop_length", 1024)) * (self._segment_size() - 1)
@@ -362,7 +370,7 @@ class MDXCSeparator(BaseSeparator):
         out = overlap_add_demix(
             self._model_fn(), padded, chunk, hop_size, np.ones(chunk, np.float32),
             num_stems=num_stems, batch_size=max(1, int(self.batch_size)),
-            positions=positions, fetch_stems=fetch_stems, device=self.device)
+            positions=positions, fetch_stems=fetch_stems, device=self.device, mesh=self.mesh)
         return out[..., lead : lead + total]
 
     def _pitch_fix(self, source: np.ndarray, sr_pitched: int, orig_mix: np.ndarray):

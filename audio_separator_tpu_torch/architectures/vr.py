@@ -117,23 +117,27 @@ class VRSeparator(BaseSeparator):
             self._offset = 128
         self._arch_size = arch_size
 
-        def load_net():
+        def load_net(device):
             net = load_vr_net(load_torch_state_dict(self.model_path), self.mp["bins"] * 2,
-                              arch_size, self.is_vr_51_model, self._offset, device=self.device)
+                              arch_size, self.is_vr_51_model, self._offset, device=device)
             return net.to_compute_dtype(torch.bfloat16) if self.use_autocast else net
+
+        def key_for(device: str):
+            return ("vr", file_key(self.model_path), device, self.mp["bins"], arch_size,
+                    self.is_vr_51_model, self._offset, bool(self.use_autocast))
 
         # Shared process-wide (ops/fn_cache): a second separator over the same
         # file and settings reads nothing. The state dict is used as it is, so
         # no converted .npz is kept beside it.
-        self.net = memoized_model(
-            ("vr", file_key(self.model_path), str(self.device), self.mp["bins"], arch_size,
-             self.is_vr_51_model, self._offset, bool(self.use_autocast)), load_net)
+        self._replica_args = (key_for, load_net)
+        self.net = memoized_model(key_for(str(self.device)), lambda: load_net(self.device))
         self.logger.debug(f"VR model loaded: arch_size={arch_size}, v51={self.is_vr_51_model}")
 
     def _predict(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, 2, bins+1, window)`` float32 → ``(B, 2, bins+1, roi)`` mask,
-        float32."""
-        return self.net(x.to(self.net.out.weight.dtype)).float()
+        float32, on ``x``'s device (the net's replica there, for a mesh row)."""
+        net = self.model_on(x.device, self.net, *self._replica_args)
+        return net(x.to(net.out.weight.dtype)).float()
 
     # --------------------------------------------------------------- separate
 
@@ -252,11 +256,11 @@ class VRSeparator(BaseSeparator):
         mx = mag.max()  # the reference normalises by the raw maximum
         pad = torch.nn.functional.pad
         mask = tiled_mask_predict(self._predict, pad(mag, (offset, 0)) / mx, window, offset,
-                                  batch, n_tiles)
+                                  batch, n_tiles, mesh=self.mesh)
         mask_tta = None
         if self.enable_tta:
             mask_tta = tiled_mask_predict(self._predict, pad(mag, (offset + roi // 2, 0)) / mx,
-                                          window, offset, batch, n_tiles + 1)
+                                          window, offset, batch, n_tiles + 1, mesh=self.mesh)
         mask = vr_chain.finalize(mask, n_frame, roi, self.aggressiveness,
                                  self.primary_stem_name in self.NON_ACCOM_STEMS, mask_tta)
         if self.enable_post_process:

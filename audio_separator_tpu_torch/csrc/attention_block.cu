@@ -38,7 +38,9 @@
 //      heads (B, n_pad, heads*64). bf16 runs both products on wgmma with K
 //      and V by TMA; float32 runs FMA tiles; in both the scores and the
 //      output accumulator stay in registers.
-//   4. The output projection GEMM with the residual add in its epilogue.
+//   4. The output projection GEMM with the residual add in its epilogue; with
+//      partial set, the projection alone (a tensor-parallel shard of the
+//      layer: its caller adds x and the other heads' partial projections).
 // The TPU kernel keeps every intermediate in VMEM. Here xn, q, k, v, the
 // gates and the merged heads round-trip through device memory between
 // launches; fusing the chain is later work.
@@ -183,7 +185,8 @@ template <typename T>
 int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gate_b,
                         const T* wo, const T* norm, const T* cos_t, const T* sin_t, T* xn,
                         T* q, T* k, T* v, float* gates, T* merged, T* out, int batch,
-                        int n_pad, int d_model, int heads, int n_valid, cudaStream_t stream) {
+                        int n_pad, int d_model, int heads, int n_valid, bool partial,
+                        cudaStream_t stream) {
     const int rows = batch * n_pad, hd = heads * 64;
     cudaError_t err = run_rmsnorm_gates(x, norm, gate_w, gate_b, xn, gates, rows, d_model, heads,
                                         n_pad, stream);
@@ -214,7 +217,7 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
                     0.125f /* 64^-0.5 */, stream);
     if (err != cudaSuccess) return err;
 
-    const ResidualEpi<T> out_epi{x, nullptr, out, d_model};
+    const ResidualEpi<T> out_epi{partial ? nullptr : x, nullptr, out, d_model};
     return run_gemm(static_cast<const T*>(merged), wo, d_model, rows, hd, out_epi, stream);
 }
 
@@ -223,13 +226,14 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
 // dtype: 0 = float32, 1 = bfloat16. gate_w is (d_model, heads). wqkv and wo
 // are the (K, N) weights in bf16 and their prepared 3xTF32 forms (2, N, K) in
 // float32 (ops/tf32.py). xn, q, k, v, gates (fp32) and merged are scratch the
-// caller allocates. Returns 0 or the first CUDA error.
+// caller allocates. partial != 0 writes the out projection without the
+// residual. Returns 0 or the first CUDA error.
 extern "C" int asep_attention_block(int dtype, const void* x, const void* wqkv,
                                     const void* gate_w, const void* gate_b, const void* wo,
                                     const void* norm, const void* cos_t, const void* sin_t,
                                     void* xn, void* q, void* k, void* v, void* gates,
                                     void* merged, void* out, int batch, int n_pad, int d_model,
-                                    int heads, int n_valid, void* stream) {
+                                    int heads, int n_valid, int partial, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto run = [&](auto tag) {
         using T = decltype(tag);
@@ -240,7 +244,7 @@ extern "C" int asep_attention_block(int dtype, const void* x, const void* wqkv,
             static_cast<const T*>(sin_t), static_cast<T*>(xn), static_cast<T*>(q),
             static_cast<T*>(k), static_cast<T*>(v), static_cast<float*>(gates),
             static_cast<T*>(merged), static_cast<T*>(out), batch, n_pad, d_model, heads,
-            n_valid, s);
+            n_valid, partial != 0, s);
     };
     return dtype == 0 ? run(float{}) : run(asep::bf16{});
 }

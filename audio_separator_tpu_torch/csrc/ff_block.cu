@@ -18,7 +18,10 @@
 //      applies the exact-erf GELU and stores the hidden activation rounded to
 //      the input type, as the TPU kernel does. At K = 512 this epilogue, not
 //      the product, sets the launch's time in bf16, hence the cheap erf below.
-//   3. The second GEMM with the bias and the residual add in its epilogue.
+//   3. The second GEMM with the bias and the residual add in its epilogue; with
+//      partial set, the product alone (a tensor-parallel shard of the layer
+//      over a slice of the hidden columns: its caller adds x, b2 and the other
+//      shards' partial products).
 // xn and the hidden activation (B·n_pad x hidden) round-trip through device
 // memory; keeping the hidden activation on chip is later work.
 #include "tiles.cuh"
@@ -66,13 +69,15 @@ template <typename T> struct GeluEpi {
 
 template <typename T>
 int run_ff_block(const T* x, const T* norm, const T* w1, const T* b1, const T* w2, const T* b2,
-                 T* xn, T* h, T* out, int rows, int d_model, int hidden, cudaStream_t stream) {
+                 T* xn, T* h, T* out, int rows, int d_model, int hidden, bool partial,
+                 cudaStream_t stream) {
     cudaError_t err = run_rmsnorm(x, norm, xn, rows, d_model, stream);
     if (err != cudaSuccess) return err;
     const GeluEpi<T> gelu_epi{b1, h, hidden};
     err = run_gemm(static_cast<const T*>(xn), w1, hidden, rows, d_model, gelu_epi, stream);
     if (err != cudaSuccess) return err;
-    const ResidualEpi<T> out_epi{x, b2, out, d_model};
+    const ResidualEpi<T> out_epi = partial ? ResidualEpi<T>{nullptr, nullptr, out, d_model}
+                                           : ResidualEpi<T>{x, b2, out, d_model};
     return run_gemm(static_cast<const T*>(h), w2, d_model, rows, hidden, out_epi, stream);
 }
 
@@ -80,11 +85,13 @@ int run_ff_block(const T* x, const T* norm, const T* w1, const T* b1, const T* w
 
 // dtype: 0 = float32, 1 = bfloat16. rows = B * n_pad; w1 and w2 are the (K, N)
 // weights in bf16 and their prepared 3xTF32 forms (2, N, K) in float32
-// (ops/tf32.py); xn and h are scratch the caller allocates. Returns 0 or the
-// first CUDA error.
+// (ops/tf32.py); xn and h are scratch the caller allocates. partial != 0
+// writes h·W2 without b2 (which may be null then) and the residual. Returns 0
+// or the first CUDA error.
 extern "C" int asep_ff_block(int dtype, const void* x, const void* norm, const void* w1,
                              const void* b1, const void* w2, const void* b2, void* xn, void* h,
-                             void* out, int rows, int d_model, int hidden, void* stream) {
+                             void* out, int rows, int d_model, int hidden, int partial,
+                             void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto run = [&](auto tag) {
         using T = decltype(tag);
@@ -92,7 +99,7 @@ extern "C" int asep_ff_block(int dtype, const void* x, const void* norm, const v
             static_cast<const T*>(x), static_cast<const T*>(norm), static_cast<const T*>(w1),
             static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<const T*>(b2),
             static_cast<T*>(xn), static_cast<T*>(h), static_cast<T*>(out), rows, d_model,
-            hidden, s);
+            hidden, partial != 0, s);
     };
     return dtype == 0 ? run(float{}) : run(asep::bf16{});
 }

@@ -1002,7 +1002,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // out = x + round(C + bias): the residual epilogue of the output projection
-// (bias == nullptr) and of the feed-forward's second product.
+// (bias == nullptr) and of the feed-forward's second product. With x ==
+// nullptr too it writes the partial product round(C) alone, neither reading
+// nor adding a residual: the row-parallel shard of a tensor-parallel layer,
+// whose caller adds the residual, the bias and the other shards' partials.
 // Output column tiles are multiples of 8 wide here (d_model % 64 == 0), so
 // every call covers a full run of eight.
 template <typename T> struct ResidualEpi {
@@ -1010,9 +1013,10 @@ template <typename T> struct ResidualEpi {
     const T* bias;
     T* out;
     int cols;
-    using Pre = Vec8<T>;  // the residual's eight values
+    using Pre = Vec8<T>;  // the residual's eight values (zeros without one)
     static constexpr int PREFETCH = 4;
     __device__ Pre prefetch(int grow, int gcol0) const {
+        if (x == nullptr) return Pre{};
         return load_vec8(x + (size_t)grow * cols + gcol0);
     }
     __device__ void operator()(const float* row, int c0, int, int grow, int gcol0,

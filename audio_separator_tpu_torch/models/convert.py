@@ -212,8 +212,13 @@ def export_jax_params(module: nn.Module) -> Dict[str, Any]:
     ``Roformer`` (whose numbered levels are lists) and of
     ``load_jax_htdemucs_params`` / ``load_jax_hdemucs_params`` and the other
     path trees (numbered levels stay string keys), e.g. to hand trained
-    weights back to the JAX package or to ``save_params``."""
+    weights back to the JAX package or to ``save_params``. A module laid out
+    for a mesh (``parallel/mesh.shard_model``) has its shards gathered back
+    into the full tree."""
+    from ..parallel.mesh import gather_params
     from .roformer import Roformer
+
+    module = gather_params(module)
 
     tree = tree_from_state_dict({k: v.detach().float().cpu().numpy()
                                  for k, v in module.state_dict().items()})

@@ -472,6 +472,30 @@ def _group_norm_btc(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return norm(x.transpose(1, 2)).transpose(1, 2)
 
 
+class FeedForwardShard(nn.Module):
+    """One tensor-parallel shard of a cross-transformer feed-forward
+    (``parallel/mesh.shard_htdemucs_params``): ``linear1``'s rows of its
+    hidden units with their bias (column-parallel) and ``linear2``'s columns
+    of the same units, without its bias (row-parallel: a partial product)."""
+
+    def __init__(self, linear1: nn.Linear, linear2: nn.Linear):
+        super().__init__()
+        self.linear1 = linear1
+        self.linear2 = linear2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(F.gelu(self.linear1(x.to(self.linear1.weight.device))))
+
+
+class RowParallelBias(nn.Module):
+    """What a sharded layer keeps of ``linear2``: its bias, added once after
+    the shards' partial products are summed."""
+
+    def __init__(self, bias: torch.Tensor):
+        super().__init__()
+        self.bias = nn.Parameter(bias, requires_grad=bias.requires_grad)
+
+
 class _TransformerLayer(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -482,9 +506,17 @@ class _TransformerLayer(nn.Module):
         self.norm_out = nn.GroupNorm(1, dim)
         self.gamma_1 = LayerScale(dim, channel_last=True)
         self.gamma_2 = LayerScale(dim, channel_last=True)
+        # Set by parallel/mesh.shard_htdemucs_params (a ModuleList of
+        # FeedForwardShard; linear1 then goes and linear2 keeps its bias).
+        self.tp_shards = None
 
     def _feed_forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-        x = x + self.gamma_2(self.linear2(F.gelu(self.linear1(norm(x)))))
+        h = norm(x)
+        if self.tp_shards is None:
+            y = self.linear2(F.gelu(self.linear1(h)))
+        else:  # the all-reduce: the shards' partial products summed on h's device
+            y = self.linear2.bias + sum(shard(h).to(h.device) for shard in self.tp_shards)
+        x = x + self.gamma_2(y)
         return _group_norm_btc(self.norm_out, x)
 
 

@@ -14,6 +14,20 @@ axis is padded to a multiple of 64 once around each inner stack and the
 kernels mask key columns past the real length. The linear-attention
 pre-stage (``linear_transformer_depth > 0``) has no kernel in the JAX package
 and stays plain PyTorch here too.
+
+Tensor parallelism (``parallel/mesh.shard_roformer_params``): a sharded
+module keeps the Megatron-split weights in ``tp_shards``, one
+``ModuleDict`` tree a shard, each on its own device of a mesh row, under the
+names of the leaves it splits (``tp_shards.1.blocks.time.wqkv``), and the
+replicated leaves where they were. A sharded layer runs each shard's partial
+form of the two blocks (``partial=True``: its heads, its hidden columns) on
+the shard's device and adds the partial products, the residual and ``b2`` on
+the input's device (:func:`_sum_partials`, the all-reduce). The replicated
+gate weights and biases of the column-parallel products are sliced there per
+shard. The mask estimator's hidden layers are column-parallel (their outputs
+gathered before a next hidden layer) and its final value and gate products
+row-parallel. Activations go to a shard's weights and come back with
+``.to``, so autograd carries the gradients across devices.
 """
 
 from __future__ import annotations
@@ -154,9 +168,17 @@ def _linear_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """XCiT-style cross-covariance attention: the (dh × dh) attention matrix
     contracts over tokens, q/k l2-normalised along tokens, a learned per-head
     temperature on q, softmax scale 8."""
-    b, n, _ = x.shape
-    xn = _rmsnorm(x, p["attn_norm"])
-    qkv = xn @ p["wqkv"]
+    return _linear_attention_heads(_rmsnorm(x, p["attn_norm"]), p["wqkv"], p["temperature"],
+                                   p["wo"], heads)
+
+
+def _linear_attention_heads(xn: torch.Tensor, wqkv: torch.Tensor, temperature: torch.Tensor,
+                            wo: torch.Tensor, heads: int) -> torch.Tensor:
+    """The linear attention of ``heads`` heads from the normalised ``xn``:
+    all of them, or one shard's (its q, k and v columns, temperatures and
+    ``wo`` rows), whose projection is then a partial sum."""
+    b, n, _ = xn.shape
+    qkv = xn @ wqkv
     dh = qkv.shape[-1] // (3 * heads)
     qkv = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 4, 1)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (b, h, dh, n)
@@ -165,14 +187,14 @@ def _linear_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         t32 = t.float()
         return (t32 / t32.norm(dim=-1, keepdim=True).clamp_min(1e-12)).to(t.dtype)
 
-    temp = p["temperature"].float().exp().reshape(1, heads, 1, 1)
-    q = (l2(q).float() * temp).to(x.dtype)
+    temp = temperature.float().exp().reshape(1, heads, 1, 1)
+    q = (l2(q).float() * temp).to(xn.dtype)
     k = l2(k)
     sim = torch.einsum("bhdn,bhen->bhde", q.float(), k.float()) * 8.0
     attn = torch.softmax(sim, dim=-1).to(v.dtype)
     out = torch.einsum("bhde,bhen->bhdn", attn, v)
     out = out.permute(0, 3, 1, 2).reshape(b, n, heads * dh)
-    return out @ p["wo"]
+    return out @ wo
 
 
 def _feedforward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -181,15 +203,86 @@ def _feedforward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return h @ p["ff_w2"] + p["ff_b2"]
 
 
+def _sum_partials(x: torch.Tensor, parts, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x + Σ parts (+ bias)`` on ``x``'s device, in float32, rounded once
+    to ``x``'s type: the all-reduce of a row-parallel layer's partial
+    products, fused with its residual and bias."""
+    acc = x.float()
+    for part in parts:
+        acc = acc + part.to(x.device).float()
+    if bias is not None:
+        acc = acc + bias.to(x.device).float()
+    return acc.to(x.dtype)
+
+
+def _cols(t: torch.Tensor, s: int, tp: int, device) -> torch.Tensor:
+    """Shard ``s`` of ``tp`` of a replicated leaf's last axis, on ``device``."""
+    w = t.shape[-1] // tp
+    return t[..., s * w : (s + 1) * w].contiguous().to(device)
+
+
+def _attention_tp(x, stack, shards, j, rope, heads, n_valid, forms):
+    """One tensor-parallel attention layer: each shard's partial block on its
+    device, summed with the residual on ``x``'s."""
+    tp = len(shards)
+    parts = []
+    for s, (sh, f) in enumerate(zip(shards, forms)):
+        dev = sh["wqkv"].device
+        parts.append(fused_attention_block(
+            x.to(dev), sh["wqkv"][j], _cols(stack["gate_w"][j], s, tp, dev),
+            _cols(stack["gate_b"][j], s, tp, dev), sh["wo"][j], stack["attn_norm"][j].to(dev),
+            None if rope is None else (rope[0].to(dev), rope[1].to(dev)), heads // tp,
+            n_valid=n_valid, tf32_weights=(f["wqkv"][j], f["wo"][j]) if f else None,
+            partial=True))
+    return _sum_partials(x, parts)
+
+
+def _ff_tp(x, stack, shards, j, forms):
+    tp = len(shards)
+    parts = []
+    for s, (sh, f) in enumerate(zip(shards, forms)):
+        dev = sh["ff_w1"].device
+        parts.append(fused_ff_block(
+            x.to(dev), stack["ff_norm"][j].to(dev), sh["ff_w1"][j],
+            _cols(stack["ff_b1"][j], s, tp, dev), sh["ff_w2"][j], None,
+            tf32_weights=(f["ff_w1"][j], f["ff_w2"][j]) if f else None, partial=True))
+    return _sum_partials(x, parts, stack["ff_b2"][j])
+
+
+def _linear_layer_tp(layer, shard_layers, x, heads):
+    """One tensor-parallel linear-attention layer and its feed-forward, in
+    plain PyTorch (no kernel, as in the unsharded stack)."""
+    tp = len(shard_layers)
+    xn = _rmsnorm(x, layer["attn_norm"])
+    parts = []
+    for s, sh in enumerate(shard_layers):
+        dev = sh["wqkv"].device
+        parts.append(_linear_attention_heads(xn.to(dev), sh["wqkv"],
+                                             _cols(layer["temperature"], s, tp, dev), sh["wo"],
+                                             heads // tp))
+    x = _sum_partials(x, parts)
+    xn = _rmsnorm(x, layer["ff_norm"])
+    parts = []
+    for s, sh in enumerate(shard_layers):
+        dev = sh["ff_w1"].device
+        h = F.gelu(xn.to(dev) @ sh["ff_w1"] + _cols(layer["ff_b1"], s, tp, dev))
+        parts.append(h @ sh["ff_w2"])
+    return _sum_partials(x, parts, layer["ff_b2"])
+
+
 def _transformer(stack: Dict[str, torch.Tensor], x: torch.Tensor, heads: int,
                  inner_depth: int,
                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                  linear: bool = False,
-                 tf32: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                 tf32: Optional[Dict[str, torch.Tensor]] = None,
+                 shards: Optional[list] = None) -> torch.Tensor:
     """Inner transformer: ``inner_depth`` × (attention + feed-forward), then
     the optional output norm. ``stack`` tensors carry a leading
     ``(inner_depth, ...)`` axis; so do ``tf32``'s, the prepared 3xTF32 forms
     of ``wqkv``, ``wo``, ``ff_w1`` and ``ff_w2`` for a float32 stack on the card.
+    ``shards``: a tensor-parallel stack's split weights, one dict a shard
+    (``stack`` then holds the replicated leaves), and ``tf32`` one dict of
+    forms (or None) a shard.
 
     Softmax layers run as the two fused blocks over tokens padded once to a
     multiple of 64 (``n_valid`` masks the padded key columns); the padding is
@@ -197,21 +290,30 @@ def _transformer(stack: Dict[str, torch.Tensor], x: torch.Tensor, heads: int,
     if linear:
         for j in range(inner_depth):
             layer = {k: v[j] for k, v in stack.items() if k != "out_norm"}
+            if shards is not None:
+                x = _linear_layer_tp(layer, [{k: v[j] for k, v in sh.items()} for sh in shards],
+                                     x, heads)
+                continue
             x = x + _linear_attention(layer, x, heads)
             x = x + _feedforward(layer, x)
     else:
         n = x.shape[1]
         pad = (-n) % SEQ_GRANULARITY
-        if pad:
-            x = F.pad(x, (0, 0, 0, pad))
-        rope_p = rope
+        # A one-item batch whose token count is a multiple of 64 arrives as
+        # a permuted view; the blocks take contiguous tensors.
+        x = F.pad(x, (0, 0, 0, pad)) if pad else x.contiguous()
         if rope is not None and pad:
-            rope_p = (F.pad(rope[0], (0, 0, 0, pad)), F.pad(rope[1], (0, 0, 0, pad)))
+            rope = (F.pad(rope[0], (0, 0, 0, pad)), F.pad(rope[1], (0, 0, 0, pad)))
         for j in range(inner_depth):
+            if shards is not None:
+                forms = tf32 if tf32 is not None else [None] * len(shards)
+                x = _attention_tp(x, stack, shards, j, rope, heads, n, forms)
+                x = _ff_tp(x, stack, shards, j, forms)
+                continue
             forms = {k: v[j] for k, v in tf32.items()} if tf32 is not None else None
             x = fused_attention_block(
                 x, stack["wqkv"][j], stack["gate_w"][j], stack["gate_b"][j],
-                stack["wo"][j], stack["attn_norm"][j], rope_p, heads, n_valid=n,
+                stack["wo"][j], stack["attn_norm"][j], rope, heads, n_valid=n,
                 tf32_weights=(forms["wqkv"], forms["wo"]) if forms else None)
             x = fused_ff_block(x, stack["ff_norm"][j], stack["ff_w1"][j],
                                stack["ff_b1"][j], stack["ff_w2"][j],
@@ -259,6 +361,37 @@ def _band_split(p: nn.Module, feats: torch.Tensor, layout: BandLayout) -> torch.
         xn = (xn * gp["gamma"].float()).to(dt)
         outs.append(torch.einsum("btni,nid->btnd", xn, gp["w"]))
     return torch.cat(outs, dim=-2) + p.b
+
+
+def _mask_estimate_tp(p: nn.Module, shards: list, x: torch.Tensor, layout: BandLayout) -> list:
+    """:func:`_mask_estimate` with the hidden layers column-parallel and the
+    final value and gate products row-parallel (over the hidden width, or
+    over ``dim`` when there is no hidden layer)."""
+    tp = len(shards)
+    h, hs = x[:, :, None], None
+    for i, layer in enumerate(p.hidden):
+        if hs is not None:  # a second hidden layer reads the whole width: gather
+            h = torch.cat([t.to(x.device) for t in hs], dim=-1)
+        hs = []
+        for s, sh in enumerate(shards):
+            w = sh["mask_est"]["hidden"][str(i)]["w"]
+            hs.append(torch.tanh(torch.einsum("btsnd,sndh->btsnh", h.to(w.device), w)
+                                 + _cols(layer["b"], s, tp, w.device)))
+    if hs is None:
+        hs = list(h.chunk(tp, dim=-1))
+    outs = []
+    for g, (run, gp) in enumerate(zip(layout.runs, p.groups)):
+        s0, e0 = run[0], run[1]
+        vals, gates = [], []
+        for s, sh in enumerate(shards):
+            sg = sh["mask_est"]["groups"][str(g)]
+            hg = hs[s].to(sg["val_w"].device).float()[..., s0:e0, :]
+            vals.append(torch.einsum("btsnd,sndo->btsno", hg, sg["val_w"].float()))
+            gates.append(torch.einsum("btsnd,sndo->btsno", hg, sg["gate_w"].float()))
+        val = _sum_partials(gp["val_b"].float(), vals)
+        gate = _sum_partials(gp["gate_b"].float(), gates)
+        outs.append(val * torch.sigmoid(gate))
+    return outs
 
 
 def _mask_estimate(p: nn.Module, x: torch.Tensor, layout: BandLayout) -> list:
@@ -345,26 +478,35 @@ class Roformer(nn.Module):
             [_params(val_w=(ns, e0 - s0, final_in, w), val_b=(ns, e0 - s0, w),
                      gate_w=(ns, e0 - s0, final_in, w), gate_b=(ns, e0 - s0, w))
              for (s0, e0, w, _dense) in layout.runs])
+        # Set by parallel/mesh.shard_roformer_params: the split weights, one
+        # ModuleDict tree a shard (a ModuleList), and the mesh of their layout.
+        self.tp_shards = None
+        self.mesh = None
 
     TF32_WEIGHTS = ("wqkv", "wo", "ff_w1", "ff_w2")
 
-    def tf32_forms(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+    def tf32_forms(self):
         """The prepared 3xTF32 forms (``ops/tf32.prepare_tf32_weight``) of the
         softmax stacks' product weights, ``{branch: {name: (depth, inner, 2,
-        N, K)}}``, for float32 parameters on the card (None otherwise). Made at
-        first use and kept until a weight changes (in place or moved): 0.6 GB
-        for the flagship's 24 layers."""
-        params = {br: self.blocks[br] for br in ("time", "freq")}
-        first = params["time"]["wqkv"]
+        N, K)}}``, for float32 parameters on the card (None otherwise); for a
+        sharded module a list of them, one a shard, each on its shard's
+        device. Made at first use and kept until a weight changes (in place or
+        moved): 0.6 GB for the flagship's 24 layers."""
+        if self.tp_shards is None:
+            sets = [{br: self.blocks[br] for br in ("time", "freq")}]
+        else:
+            sets = [{br: sh["blocks"][br] for br in ("time", "freq")} for sh in self.tp_shards]
+        first = sets[0]["time"]["wqkv"]
         if first.device.type != "cuda" or first.dtype != torch.float32:
             return None
-        key = tuple((p.data_ptr(), p._version) for st in params.values()
+        key = tuple((p.data_ptr(), p._version) for params in sets for st in params.values()
                     for name, p in st.items() if name in self.TF32_WEIGHTS)
         cached = getattr(self, "_tf32_cache", None)
         if cached is None or cached[0] != key:
             with torch.no_grad():  # the forms are no part of a training graph
-                cached = (key, {br: tf32_stack_forms(st, self.TF32_WEIGHTS)
-                                for br, st in params.items()})
+                forms = [{br: tf32_stack_forms(st, self.TF32_WEIGHTS)
+                          for br, st in params.items()} for params in sets]
+            cached = (key, forms[0] if self.tp_shards is None else forms)
             self._tf32_cache = cached
         return cached[1]
 
@@ -396,30 +538,43 @@ class Roformer(nn.Module):
         freq_rope = _rope_tables(layout.n_bands, cfg.dim_head, dt, dev)
         nb, dim, heads = layout.n_bands, cfg.dim, cfg.heads
         forms = self.tf32_forms()
+        sharded = self.tp_shards is not None
+
+        def at_depth(blocks, d):
+            return {br: {k: v[d] for k, v in params.items()} for br, params in blocks.items()}
+
         for d in range(cfg.depth):
-            lp = {branch: {k: v[d] for k, v in params.items()}
-                  for branch, params in self.blocks.items()}
-            tf32 = ({br: {k: v[d] for k, v in f.items()} for br, f in forms.items()}
-                    if forms is not None else {"time": None, "freq": None})
+            lp = at_depth(self.blocks, d)
+            shards = {br: None for br in lp}
+            tf32 = {"time": None, "freq": None}
+            if sharded:
+                per_shard = [at_depth(sh["blocks"], d) for sh in self.tp_shards]
+                shards = {br: [ps[br] for ps in per_shard] for br in lp}
+                if forms is not None:
+                    tf32 = {br: [at_depth(f, d)[br] for f in forms] for br in tf32}
+            elif forms is not None:
+                tf32 = at_depth(forms, d)
             if "linear" in lp:
                 flat = _transformer(lp["linear"], x.reshape(b, tf * nb, dim), heads,
-                                    cfg.linear_transformer_depth, None, linear=True)
+                                    cfg.linear_transformer_depth, None, linear=True,
+                                    shards=shards["linear"])
                 x = flat.reshape(b, tf, nb, dim)
             # time attention: tokens = frames, bands folded into batch
             xt = x.permute(0, 2, 1, 3).reshape(b * nb, tf, dim)
             xt = _transformer(lp["time"], xt, heads, cfg.time_transformer_depth,
-                              time_rope, tf32=tf32["time"])
+                              time_rope, tf32=tf32["time"], shards=shards["time"])
             x = xt.reshape(b, nb, tf, dim).permute(0, 2, 1, 3)
             # freq attention: tokens = bands, frames folded into batch
             xf = x.reshape(b * tf, nb, dim)
             xf = _transformer(lp["freq"], xf, heads, cfg.freq_transformer_depth,
-                              freq_rope, tf32=tf32["freq"])
+                              freq_rope, tf32=tf32["freq"], shards=shards["freq"])
             x = xf.reshape(b, tf, nb, dim)
 
         if cfg.kind == "bs":
             x = _rmsnorm(x, self.final_norm["gamma"])
 
-        banded_runs = _mask_estimate(self.mask_est, x, layout)
+        banded_runs = (_mask_estimate_tp(self.mask_est, list(self.tp_shards), x, layout)
+                       if sharded else _mask_estimate(self.mask_est, x, layout))
 
         # Band → feature recombination: BS bands are disjoint (dense runs are
         # reshaped concats); Mel bands overlap, sum and are averaged by counts.

@@ -24,7 +24,8 @@ import torch
 # Launch counters: each wrapper adds one where it launches its kernel (chain),
 # through count(), under one lock: jobs of a server launch from several threads.
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
-                            "fused_attention": 0, "attention_backward": 0,
+                            "fused_attention_block_partial": 0,
+                            "fused_ff_block_partial": 0, "fused_attention": 0, "attention_backward": 0,
                             "rmsnorm_backward": 0, "gelu_backward": 0,
                             "rope_gate_backward": 0}
 _count_lock = threading.Lock()
@@ -60,8 +61,8 @@ KERNEL_SOURCES = {"attention_block": "attention_block.cu",
                   "rope_gate_bwd": "rope_gate_bwd.cu"}
 _SIGNATURES = {
     "attention_block": ("asep_attention_block",
-                        [_I] + [_P] * 15 + [_I] * 5 + [_P]),
-    "ff_block": ("asep_ff_block", [_I] + [_P] * 9 + [_I] * 3 + [_P]),
+                        [_I] + [_P] * 15 + [_I] * 6 + [_P]),
+    "ff_block": ("asep_ff_block", [_I] + [_P] * 9 + [_I] * 4 + [_P]),
     "attention": ("asep_attention",
                   [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
     "attention_bwd": ("asep_attention_bwd",

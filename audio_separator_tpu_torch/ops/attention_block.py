@@ -13,6 +13,16 @@ counters are ``ops/_build.py``'s).
 
     x + GELU_erf(rmsnorm(x)·γ·W1 + b1)·W2 + b2
 
+Both have a partial-sum form (``partial=True``), the row-parallel shard of a
+tensor-parallel layer (``parallel/mesh.py``): the attention block on a subset
+of the heads writes ``Wo_s·concat_{h∈s}[...]`` and the feed-forward block on a
+slice of the hidden columns writes ``GELU(...)_s·W2_s``, each rounded to the
+input type, without the residual and without ``b2``; the layer adds ``x``,
+``b2`` and every shard's partial product. The kernels are the same launches
+with the residual left out of the last product's epilogue
+(``csrc/tiles.cuh``, ``ResidualEpi``); they count as
+``fused_attention_block_partial`` and ``fused_ff_block_partial``.
+
 Dispatch is by the device of ``x``: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (``csrc/attention_block.cu``,
 ``csrc/ff_block.cu``) or raises. Nothing falls back.
@@ -173,10 +183,11 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads: int,
-                               n_valid: int):
+                               n_valid: int, partial: bool = False):
     """The plain attention block and what its backward pass reads: ``out``
     and ``(xn, q, k, v, gates, merged)``, the rotated ``q``, ``k`` and ``v``
-    as ``(b, h, n, dh)``, the gates as ``(b, h, n)``."""
+    as ``(b, h, n, dh)``, the gates as ``(b, h, n)``. ``partial``: ``out`` is
+    the rounded projection alone, without the residual."""
     dt = x.dtype
     b, n, d = x.shape
     dh = wqkv.shape[-1] // (3 * heads)
@@ -196,26 +207,30 @@ def _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, hea
     o = (p @ v) * gates[..., None]
     merged = _rnd(o.permute(0, 2, 1, 3).reshape(b, n, heads * dh), dt)
     proj = _rnd(merged @ wo.float(), dt)
-    return (x.float() + proj).to(dt), (xn, q, k, v, gates, merged)
+    out = proj if partial else x.float() + proj
+    return out.to(dt), (xn, q, k, v, gates, merged)
 
 
 def fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
-                              heads: int, n_valid: int) -> torch.Tensor:
+                              heads: int, n_valid: int, partial: bool = False) -> torch.Tensor:
     return _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads,
-                                      n_valid)[0]
+                                      n_valid, partial)[0]
 
 
 def _ff_block_ref_parts(x, ff_norm, w1, b1, w2, b2):
-    """The plain feed-forward block and the ``xn`` its backward pass reads."""
+    """The plain feed-forward block and the ``xn`` its backward pass reads;
+    ``b2 is None``: the partial form, the rounded product alone."""
     dt = x.dtype
     xn = _rmsnorm_rounded(x, ff_norm)
     h = _rnd(torch.nn.functional.gelu(xn @ w1.float() + b1.float()), dt)
+    if b2 is None:
+        return _rnd(h @ w2.float(), dt).to(dt), xn
     y = _rnd(h @ w2.float() + b2.float(), dt)
     return (x.float() + y).to(dt), xn
 
 
-def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2) -> torch.Tensor:
-    return _ff_block_ref_parts(x, ff_norm, w1, b1, w2, b2)[0]
+def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2, partial: bool = False) -> torch.Tensor:
+    return _ff_block_ref_parts(x, ff_norm, w1, b1, w2, None if partial else b2)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +238,7 @@ def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n_valid,
-                          tf32_weights):
+                          tf32_weights, partial):
     """The kernel's launch: ``out`` and the intermediates it writes, ``(xn, q,
     k, v, gates, merged)``, which the backward pass reads."""
     b, n_pad, d = x.shape
@@ -250,31 +265,34 @@ def _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n
             sin.data_ptr() if sin is not None else None, xn.data_ptr(),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(),
             merged.data_ptr(), out.data_ptr(),
-            b, n_pad, d, heads, n_valid, stream(x))
+            b, n_pad, d, heads, n_valid, int(partial), stream(x))
     check_rc(lib, rc, "fused_attention_block")
-    count("fused_attention_block")
+    count("fused_attention_block_partial" if partial else "fused_attention_block")
     return out, (xn, q, k, v, gates, merged)
 
 
 def _ff_block_cuda(x, ff_norm, w1, b1, w2, b2, tf32_weights):
     """The kernel's launch: ``out`` and ``xn``, which the backward pass reads
-    (the hidden activation is scratch, dropped here)."""
+    (the hidden activation is scratch, dropped here); ``b2 is None``: the
+    partial form."""
     b, n_pad, d = x.shape
     hidden = w1.shape[-1]
     check_kernel_dims(d, hidden=hidden)
     h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
     xn, out = torch.empty_like(x), torch.empty_like(x)
-    check_cuda_layout(x, w1, b1, w2, b2, xn, h, out)
+    partial = b2 is None
+    check_cuda_layout(x, w1, b1, w2, xn, h, out, *(() if partial else (b2,)))
     if x.dtype == torch.float32:
         w1, w2 = _tf32_forms(tf32_weights, (w1, w2), x)
     lib = load("ff_block")
     with torch.cuda.device(x.device):
         rc = lib.asep_ff_block(
             DTYPE_CODES[x.dtype], x.data_ptr(), ff_norm.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
-            h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, stream(x))
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), None if partial else b2.data_ptr(),
+            xn.data_ptr(), h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, int(partial),
+            stream(x))
     check_rc(lib, rc, "fused_ff_block")
-    count("fused_ff_block")
+    count("fused_ff_block_partial" if partial else "fused_ff_block")
     return out, xn
 
 
@@ -282,22 +300,24 @@ def _ff_block_cuda(x, ff_norm, w1, b1, w2, b2, tf32_weights):
 # Autograd: the blocks' only route, on both devices. The forward is the plain
 # version (CPU) or the kernel (CUDA) and keeps what it computed on the way;
 # the backward is ops/block_backward.py's composition, whose kernels take the
-# same dispatch. The prepared 3xTF32 forms are not differentiated.
+# same dispatch. The prepared 3xTF32 forms are not differentiated. The
+# partial forms pass no residual gradient to the norm's backward and give no
+# gradient of b2 (the layer that adds them differentiates its own sum).
 
 
 class _AttentionBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wqkv, gate_w, gate_b, wo, attn_norm, cos, sin, heads, n_valid,
-                tf32_weights):
+                tf32_weights, partial):
         rope = (cos, sin) if cos is not None else None
         if device_kind(x) == "cpu":
             out, saved = _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm,
-                                                    rope, heads, n_valid)
+                                                    rope, heads, n_valid, partial)
         else:
             out, saved = _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
-                                               heads, n_valid, tf32_weights)
+                                               heads, n_valid, tf32_weights, partial)
         ctx.save_for_backward(x, wqkv, gate_w, wo, attn_norm, cos, sin, *saved)
-        ctx.heads, ctx.n_valid = heads, n_valid
+        ctx.heads, ctx.n_valid, ctx.partial = heads, n_valid, partial
         return out
 
     @staticmethod
@@ -305,8 +325,8 @@ class _AttentionBlock(torch.autograd.Function):
         x, wqkv, gate_w, wo, attn_norm, cos, sin, *saved = ctx.saved_tensors
         rope = (cos, sin) if cos is not None else None
         grads = attention_block_backward(dy, x, wqkv, gate_w, wo, attn_norm, rope, ctx.heads,
-                                         ctx.n_valid, *saved)
-        return (*grads, None, None, None, None, None)
+                                         ctx.n_valid, *saved, partial=ctx.partial)
+        return (*grads, None, None, None, None, None, None)
 
 
 class _FFBlock(torch.autograd.Function):
@@ -317,11 +337,13 @@ class _FFBlock(torch.autograd.Function):
         else:
             out, xn = _ff_block_cuda(x, ff_norm, w1, b1, w2, b2, tf32_weights)
         ctx.save_for_backward(x, ff_norm, w1, b1, w2, xn)
+        ctx.partial = b2 is None
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        dx, dnorm, dw1, db1, dw2, db2 = ff_block_backward(dy, *ctx.saved_tensors)
+        dx, dnorm, dw1, db1, dw2, db2 = ff_block_backward(dy, *ctx.saved_tensors,
+                                                          partial=ctx.partial)
         return dx, dnorm, dw1, db1, dw2, db2, None
 
 
@@ -334,14 +356,17 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
                           wo: torch.Tensor, attn_norm: torch.Tensor,
                           rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                           heads: int, n_valid: int, *,
-                          tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                          ) -> torch.Tensor:
+                          tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                          partial: bool = False) -> torch.Tensor:
     """``x (B, n_pad, d)`` → same shape; ``n_pad % 64 == 0``, key columns
     ``≥ n_valid`` masked. ``rope`` is ``(cos, sin)``, each ``(n_pad, dh)``.
     ``tf32_weights``: the prepared forms of ``(wqkv, wo)``
     (:func:`~audio_separator_tpu_torch.ops.tf32.prepare_tf32_weight`) for a
     float32 call on the card; made for the call where not given.
-    Differentiable in ``x`` and every weight (float32)."""
+    ``partial``: the out projection alone, without the residual (the weights
+    are then one shard's heads: ``wqkv``'s q, k and v columns of those heads,
+    their gate columns and ``wo``'s rows). Differentiable in ``x`` and every
+    weight (float32)."""
     b, n_pad, d = x.shape if x.dim() == 3 else (0, 0, 0)
     hd3 = wqkv.shape[-1] if wqkv.dim() == 2 else 0
     dh = hd3 // (3 * heads)
@@ -354,19 +379,27 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
     _check_tensors(x, n_valid, **expected)
     cos, sin = rope if rope is not None else (None, None)
     return _AttentionBlock.apply(x, wqkv, gate_w, gate_b, wo, attn_norm, cos, sin, heads,
-                                 n_valid, tf32_weights)
+                                 n_valid, tf32_weights, partial)
 
 
 def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
-                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, *,
-                   tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                   ) -> torch.Tensor:
+                   b1: torch.Tensor, w2: torch.Tensor, b2: Optional[torch.Tensor], *,
+                   tf32_weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   partial: bool = False) -> torch.Tensor:
     """``x + FeedForward(rmsnorm(x))`` over ``x (B, n_pad, d)``.
     ``tf32_weights``: the prepared forms of ``(w1, w2)`` for a float32 call on
-    the card; made for the call where not given. Differentiable in ``x`` and
+    the card; made for the call where not given. ``partial``: the second
+    product alone, ``GELU(...)·W2`` without ``b2`` (pass ``b2=None``) and the
+    residual, over one shard's hidden columns. Differentiable in ``x`` and
     every weight (float32)."""
     d = x.shape[-1] if x.dim() == 3 else 0
     hidden = w1.shape[-1] if w1.dim() == 2 else 0
-    _check_tensors(x, None, ff_norm=(ff_norm, (d,)), w1=(w1, (d, hidden)),
-                   b1=(b1, (hidden,)), w2=(w2, (hidden, d)), b2=(b2, (d,)))
+    if partial != (b2 is None):
+        raise ValueError("fused_ff_block: pass b2=None exactly when partial=True "
+                         "(the partial form adds no bias)")
+    expected = dict(ff_norm=(ff_norm, (d,)), w1=(w1, (d, hidden)), b1=(b1, (hidden,)),
+                    w2=(w2, (hidden, d)))
+    if b2 is not None:
+        expected["b2"] = (b2, (d,))
+    _check_tensors(x, None, **expected)
     return _FFBlock.apply(x, ff_norm, w1, b1, w2, b2, tf32_weights)

@@ -192,12 +192,13 @@ def rope_gate_backward(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
 
 
 def attention_block_backward(dy, x, wqkv, gate_w, wo, attn_norm, rope, heads: int,
-                             n_valid: int, xn, q, k, v, gates, merged):
+                             n_valid: int, xn, q, k, v, gates, merged, partial: bool = False):
     """The attention block's gradients ``(dx, dwqkv, dgate_w, dgate_b, dwo,
     dattn_norm)`` from the output's gradient ``dy (B, n_pad, d)`` and what
     the forward kept: ``xn``, the rotated ``q``, ``k`` and ``v`` ``(B, H,
     n_pad, dh)``, the gates ``(B, H, n_pad)`` and the gated merged heads
-    ``(B, n_pad, H·dh)``."""
+    ``(B, n_pad, H·dh)``. ``partial``: the block's output had no residual,
+    so ``dx`` is the path through the norm alone."""
     b, n, d = x.shape
     hd = merged.shape[-1]
     dy2 = dy.reshape(-1, d)
@@ -213,16 +214,18 @@ def attention_block_backward(dy, x, wqkv, gate_w, wo, attn_norm, rope, heads: in
         dwqkv = xn2.t() @ dqkv2
         dgate_w = xn2.t() @ dz2
         dgate_b = dz2.sum(0)
-    dx, dnorm = rmsnorm_backward(x, attn_norm, dxn.reshape(b, n, d), dres=dy)
+    dx, dnorm = rmsnorm_backward(x, attn_norm, dxn.reshape(b, n, d),
+                                 dres=None if partial else dy)
     return dx, dwqkv, dgate_w, dgate_b, dwo, dnorm
 
 
-def ff_block_backward(dy, x, ff_norm, w1, b1, w2, xn):
+def ff_block_backward(dy, x, ff_norm, w1, b1, w2, xn, partial: bool = False):
     """The feed-forward block's gradients ``(dx, dff_norm, dw1, db1, dw2,
     db2)`` from ``dy (B, n_pad, d)``, its input ``x`` and the normalised
     ``xn`` the forward kept. The pre-activation ``xn·W1 + b1`` is recomputed
     (the forward keeps no (rows, hidden) activation); K3 gives its gradient
-    and the activation the second weight's gradient needs."""
+    and the activation the second weight's gradient needs. ``partial``: the
+    output had neither residual nor ``b2``; ``db2`` is None."""
     d = x.shape[-1]
     dy2, xn2 = dy.reshape(-1, d), xn.reshape(-1, d)
     with full_float32():
@@ -232,10 +235,10 @@ def ff_block_backward(dy, x, ff_norm, w1, b1, w2, xn):
     del pre, dh
     with full_float32():
         dw2 = h.t() @ dy2
-        db2 = dy2.sum(0)
+        db2 = None if partial else dy2.sum(0)
         del h
         dw1 = xn2.t() @ dpre
         db1 = dpre.sum(0)
         dxn = dpre @ w1.t()
-    dx, dnorm = rmsnorm_backward(x, ff_norm, dxn.reshape(x.shape), dres=dy)
+    dx, dnorm = rmsnorm_backward(x, ff_norm, dxn.reshape(x.shape), dres=None if partial else dy)
     return dx, dnorm, dw1, db1, dw2, db2

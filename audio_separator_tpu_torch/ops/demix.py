@@ -1,7 +1,6 @@
-"""Windowed overlap-add demixing on one device.
+"""Windowed overlap-add demixing on one device or over a device mesh.
 
-Port of the single-device path of
-``audio_separator_tpu/ops/demix.overlap_add_demix``: the mix is uploaded once,
+Port of ``audio_separator_tpu/ops/demix.overlap_add_demix``: the mix is uploaded once,
 each window batch is gathered on the device, run through the model, weighted
 by its window and accumulated, and the result is normalised and fetched once.
 The window is either one ``(chunk,)`` vector shared by every position (the
@@ -10,6 +9,17 @@ rows; an explicit ``divider`` replaces the accumulated window sum, and
 ``post_device_fn`` runs on the normalised device tensor before the fetch. The
 window count is padded only to a multiple of ``batch_size`` (padding rows
 carry zero weight).
+
+With a ``mesh`` (``parallel/mesh.Mesh``) the windows are independent work on
+its data axis, as in the JAX package: the batch is rounded up to a multiple
+of the mesh's local rows, each row's slice is copied to that row's first
+device and run there, and the outputs come back to the mesh's first device,
+where the overlap-add, the normalisation and ``post_device_fn`` run. The
+slices are enqueued one after another with no host sync between them.
+``model_fn`` is called with each row's slice on that row's device and must
+compute there (the architectures pick the model's replica for the tensor's
+device). The model axis is the model's business: a tensor-parallel module
+runs its shards where they lie.
 """
 
 from __future__ import annotations
@@ -18,6 +28,26 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+
+def _mesh_geometry(mesh, batch_size: int, device):
+    """``(batch_size, device, rows)``: the batch rounded up to a multiple of the
+    mesh's local rows (JAX ``ops/demix.py``), the device where the results
+    meet and each row's device; without a mesh, the arguments and None."""
+    if mesh is None:
+        return batch_size, device, None
+    rows = mesh.row_devices()
+    return -(-batch_size // len(rows)) * len(rows), mesh.first, rows
+
+
+def _run_rows(model_fn: Callable, batch: torch.Tensor, rows) -> torch.Tensor:
+    """``model_fn`` over ``batch`` split into one slice a mesh row (none:
+    one call), each on its row's device, the outputs joined on ``batch``'s."""
+    if rows is None:
+        return model_fn(batch)
+    outs = [model_fn(part.to(dev, non_blocking=True)).to(batch.device, non_blocking=True)
+            for part, dev in zip(batch.tensor_split(len(rows)), rows) if len(part)]
+    return torch.cat(outs)
 
 
 def window_positions(total: int, chunk: int, step: int) -> np.ndarray:
@@ -43,9 +73,11 @@ def overlap_add_demix(
     fetch_stems: Optional[tuple] = None,
     post_device_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Demix ``mix (C, T)`` → ``(num_stems, C, T)`` (or ``len(fetch_stems)``
-    stems, in that order).
+    stems, in that order). ``mesh``: split every window batch over its data
+    axis (the module docstring); ``device`` is then the mesh's first.
 
     ``model_fn`` maps ``(B, C, chunk)`` float32 on ``device`` to
     ``(B, num_stems, C, chunk)``. ``window`` is the ``(chunk,)`` weight shared
@@ -60,6 +92,7 @@ def overlap_add_demix(
         positions = window_positions(total, chunk, step)
     positions = np.asarray(positions, dtype=np.int64)
     n = len(positions)
+    batch_size, device, rows = _mesh_geometry(mesh, batch_size, device)
     n_pad = -(-n // batch_size) * batch_size
     t_buf = max(total, int(positions.max()) + chunk)
     window = np.asarray(window, np.float32)
@@ -86,7 +119,7 @@ def overlap_add_demix(
     for i in range(0, n_pad, batch_size):
         idx = (pos_dev[i : i + batch_size, None] + offsets).reshape(-1)  # (B*chunk,)
         chunks = mix_dev[:, idx].reshape(c, batch_size, chunk).transpose(0, 1)
-        out = model_fn(chunks.contiguous())  # (B, S, C, chunk)
+        out = _run_rows(model_fn, chunks.contiguous(), rows)  # (B, S, C, chunk)
         if shared_window:
             win_b = win_dev * row_scale[i : i + batch_size, None]  # (B, chunk)
         else:
@@ -118,6 +151,7 @@ def demix_jobs(
     batch_size: int,
     fetch_stems: Optional[tuple] = None,
     device="cuda",
+    mesh=None,
 ) -> list:
     """Cross-job window batching: demix K same-geometry mixes ``(C, T_i)`` in
     one engine pass and return per-job ``(num_stems, C, T_i)`` stems.
@@ -152,7 +186,7 @@ def demix_jobs(
     out = overlap_add_demix(
         model_fn, mix_cat, chunk, step, window, num_stems=num_stems,
         batch_size=batch_size, positions=np.concatenate(pos_parts),
-        fetch_stems=fetch_stems, device=device)
+        fetch_stems=fetch_stems, device=device, mesh=mesh)
     return [out[..., off : off + t] for off, t in zip(offs, lens)]
 
 
@@ -165,6 +199,7 @@ def demix_jobs_layout(
     batch_size: int,
     fetch_stems: Optional[tuple] = None,
     device="cuda",
+    mesh=None,
 ) -> list:
     """Cross-job window batching for architectures whose demix uses an
     explicit per-job layout: ``jobs`` is a list of ``(mixture (C, total_i),
@@ -203,7 +238,7 @@ def demix_jobs_layout(
     out = overlap_add_demix(
         model_fn, mix_cat, chunk, step, np.concatenate(win_parts, axis=0),
         num_stems=num_stems, batch_size=batch_size, positions=np.concatenate(pos_parts),
-        divider=np.concatenate(div_parts), fetch_stems=fetch_stems, device=device)
+        divider=np.concatenate(div_parts), fetch_stems=fetch_stems, device=device, mesh=mesh)
     return [out[..., off : off + t] for off, t in zip(offs, lens)]
 
 
@@ -215,6 +250,7 @@ def tiled_mask_predict(
     offset: int,
     batch_size: int,
     n_tiles: int,
+    mesh=None,
 ) -> torch.Tensor:
     """The VR mask engine, device in and device out: ``spec (C, F, T)``
     padded magnitudes → mask ``(C', F', n_tiles · roi)``, ``roi = window −
@@ -225,15 +261,19 @@ def tiled_mask_predict(
     frames of its mask, ``(B, C', F', roi)``. ``batch_size`` tiles go through
     a forward, the last batch holds what is left: only the ``n_tiles`` tiles
     the track needs are computed (the JAX package's
-    ``tiled_mask_predict_dev`` without its length buckets and device mesh)."""
+    ``tiled_mask_predict_dev`` without its length buckets). ``mesh``: each
+    batch split over its data axis, the mask joined on ``spec``'s device
+    (the mesh's first)."""
     roi = window - 2 * offset
+    batch_size, _, rows = _mesh_geometry(mesh, batch_size, spec.device)
     need = (n_tiles - 1) * roi + window
     if spec.shape[-1] >= need:
         spec = spec[..., :need]
     else:
         spec = torch.nn.functional.pad(spec, (0, need - spec.shape[-1]))
     tiles = spec.unfold(-1, window, roi)  # (C, F, n_tiles, window)
-    outs = [model_fn(tiles[:, :, i : i + batch_size].permute(2, 0, 1, 3).contiguous())
+    outs = [_run_rows(model_fn, tiles[:, :, i : i + batch_size].permute(2, 0, 1, 3).contiguous(),
+                      rows)
             for i in range(0, n_tiles, batch_size)]
     mask = torch.cat(outs, dim=0)  # (n_tiles, C', F', roi)
     b, oc, of, _ = mask.shape

@@ -4,7 +4,9 @@ Port of ``audio_separator_tpu/separator/common.py``: stem pair resolution
 including the target-instrument swap, the (channels, samples) PCM convention,
 ``{base}_({Stem})_{model}.{ext}`` output naming, bit-depth preservation and
 the near-silent guard. ``config["device"]`` is the torch device the
-architecture computes on.
+architecture computes on, ``config["mesh"]`` an optional
+``parallel/mesh.Mesh`` whose data axis the engine splits window batches
+over (the model replicated on each row's first device, :meth:`model_on`).
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ from __future__ import annotations
 import logging
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Hashable, List, Optional
 
 import numpy as np
 
 from ..io import audio as audio_io
 from ..ops import spec as spec_ops
+from ..ops.fn_cache import memoized_model
+from ..parallel.mesh import canonical_device
 
 
 class BaseSeparator:
@@ -74,6 +78,7 @@ class BaseSeparator:
         self.use_soundfile = config.get("use_soundfile", False)
         self.use_autocast = config.get("use_autocast", False)
         self.device = config.get("device", "cuda")
+        self.mesh = config.get("mesh")
 
         # Stem resolution (ref: common_separator.py:103-125).
         self.primary_stem_name: Optional[str] = None
@@ -105,6 +110,17 @@ class BaseSeparator:
         self.primary_source: Optional[np.ndarray] = None
         self.secondary_source: Optional[np.ndarray] = None
         self.input_bit_depth: Optional[int] = None
+
+    def model_on(self, device, local, key_for: Callable[[str], Hashable],
+                 build: Callable):
+        """The model for ``device``: ``local`` on the separator's own device;
+        on another row device of the mesh, the same model built there by
+        ``build(device)``, shared process-wide (``ops/fn_cache``) under
+        ``key_for(str(device))``."""
+        dev = canonical_device(device)
+        if dev == canonical_device(self.device):
+            return local
+        return memoized_model(key_for(str(dev)), lambda: build(dev))
 
     # ------------------------------------------------------------------ stems
 

@@ -9,9 +9,10 @@ preset: each model separates the file, the stems are grouped by their
 canonical name and each group is ensembled, ``separator/ensembler.py``). The
 four families are ported: MDX (ONNX Conv-TDF), VR (CascadedASPPNet v5 and
 CascadedNet v5.1 over the multiband chain), MDXC (BS/Mel RoFormer and
-TFC-TDF, MDX23C) and Demucs (v4 HTDemucs and v3 HDemucs bags). The device
-mesh is not ported yet (ROADMAP, Queue A item 16): asking for it raises
-``NotImplementedError``.
+TFC-TDF, MDX23C) and Demucs (v4 HTDemucs and v3 HDemucs bags).
+``use_mesh`` spreads each window batch over a device mesh's data axis
+(``parallel/mesh.py``, ``ops/demix.py``), with the model replicated on each
+row, as in the JAX package.
 
 Computation runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, ``device=None`` raises.
@@ -158,10 +159,7 @@ class Separator:
         self.use_autocast = use_autocast
         if use_directml:
             self.logger.warning("use_directml is ignored: this build runs on CUDA or the CPU")
-        if use_mesh:
-            raise NotImplementedError(
-                "multi-device execution (use_mesh) is not ported to PyTorch yet "
-                "(ROADMAP, Queue A item 16)")
+        self.use_mesh = use_mesh
         self.chunk_duration = chunk_duration
         self.trace_dir = trace_dir
 
@@ -222,6 +220,33 @@ class Separator:
             self.logger.info(f"CUDA device: {torch.cuda.get_device_name(dev)}")
         self.device = dev
         return dev
+
+    def _resolve_mesh(self):
+        """The device mesh the engine splits window batches over, or None.
+
+        ``use_mesh=True``: every local CUDA device on a pure-data mesh; on the
+        CPU, or with one card, None (the plain path, said in a debug log). A
+        ``parallel.mesh.Mesh`` passes through; its first device must be the
+        separator's, and a model axis wider than one is not used for tensor
+        parallelism (the model is replicated on each row, as the JAX
+        ``Separator`` does)."""
+        if not self.use_mesh:
+            return None
+        from ..parallel.mesh import canonical_device, make_mesh
+
+        if self.use_mesh is not True:
+            mesh = self.use_mesh
+            if canonical_device(mesh.first) != canonical_device(self.device):
+                raise ValueError(f"use_mesh: the mesh's first device {mesh.first} is not the "
+                                 f"separator's device {self.device}")
+            return mesh
+        if self.device.type != "cuda" or torch.cuda.device_count() <= 1:
+            self.logger.debug("use_mesh requested but only one device present: "
+                              "demixing on the plain path")
+            return None
+        mesh = make_mesh()
+        self.logger.info(f"demixing over device mesh {dict(mesh.shape)}")
+        return mesh
 
     # --------------------------------------------------------------- registry
 
@@ -375,6 +400,7 @@ class Separator:
             "use_soundfile": self.use_soundfile,
             "use_autocast": self.use_autocast,
             "device": self.device,
+            "mesh": self._resolve_mesh(),
         }
         self.model_instance = separator_class(
             common_config=common_params,

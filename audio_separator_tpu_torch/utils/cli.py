@@ -14,8 +14,9 @@ Differences from the JAX package's CLI:
 * ``--env_info`` prints the torch, CUDA and card facts;
 * ``--list_models``, ``--list_presets`` and ``--download_model_only`` honour
   ``--model_file_dir``;
-* ``--use_mesh``, not ported yet (ROADMAP, Queue A item 16), exits with
-  status 2 and names the item.
+* ``--use_mesh`` spreads each window batch over every local CUDA device
+  (a data-parallel mesh, ``parallel/mesh.py``); with one card, or with
+  ``--device cpu``, it takes the plain path.
 
 Ensembles: ``-m A --extra_models B ...`` (with ``--ensemble_algorithm`` and
 ``--ensemble_weights``), or ``--ensemble_preset NAME`` (``--list_presets``
@@ -30,8 +31,6 @@ import logging
 import sys
 
 from ..separator.separator import DEFAULT_MODEL
-
-_UNPORTED_FLAGS = (("use_mesh", "--use_mesh", 16),)
 
 
 def _build_parser(version: str) -> argparse.ArgumentParser:
@@ -93,7 +92,8 @@ def _build_parser(version: str) -> argparse.ArgumentParser:
     common.add_argument("--chunk_duration", type=float, default=None,
                         help="Split audio into chunks of this many seconds for processing.")
     common.add_argument("--use_mesh", action="store_true",
-                        help="Shard demix batches across devices (not ported yet).")
+                        help="Split demix window batches across all local CUDA devices "
+                             "(data-parallel device mesh).")
     common.add_argument("--trace_dir", default=None,
                         help="Write a torch.profiler Chrome trace of each separation "
                              "into this directory.")
@@ -208,10 +208,6 @@ def main(argv=None):
     log_level = logging.DEBUG if args.debug else getattr(logging, args.log_level.upper())
     logger.setLevel(log_level)
 
-    for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr):
-            parser.exit(2, f"{flag} is not ported to PyTorch yet (ROADMAP, Queue A item {item})\n")
-
     from ..separator import Separator
 
     if args.env_info:
@@ -262,6 +258,7 @@ def main(argv=None):
         use_soundfile=args.use_soundfile,
         use_autocast=args.use_autocast,
         chunk_duration=args.chunk_duration,
+        use_mesh=args.use_mesh,
         trace_dir=args.trace_dir,
         ensemble_algorithm=args.ensemble_algorithm,
         ensemble_weights=args.ensemble_weights,

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (audio_separator_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--seconds S] [--phase all|remote|training]
+    python3 chip_smoke.py [--seed N] [--seconds S] [--phase all|remote|training|mesh]
 
-(``--phase remote`` or ``--phase training`` builds the kernels and runs that
-phase alone, and prints no result line.)
+(``--phase remote``, ``training`` or ``mesh`` builds the kernels and runs
+that phase alone, and prints no result line.)
 
 Phases, each of which must pass (any failure exits non-zero before the
 result lines are printed):
@@ -150,9 +150,25 @@ result lines are printed):
    forms remade, forward, backward and optimiser, peak memory and device
    time by category; the published HTDemucs against the CPU and 3 Adam
    steps on batch 2 (B3 6, K1 6 a step); one HDemucs step on 10 s;
+   then the device mesh (``[mesh]``, ``parallel/mesh.py``) over repeated
+   handles of the one card, the model cache emptied first: the partial-sum
+   forms of B1 and B2 (no residual, no ``b2``: a tensor-parallel shard's
+   launch) against their plain versions at the flagship's shard shapes for
+   tp 2 and 4 (4 and 2 heads, 1024 and 512 hidden columns), float32 and
+   bf16, timed beside their bounds; the flagship BS-RoFormer forward
+   tensor-parallel at tp 2 and 4 against its tp 1 forward (float32 >= 100
+   dB, bf16 reported against a 40 dB bar), each partial form launched
+   exactly 24 · tp times a forward and no full form; ``Separator`` over a
+   dp 2 × tp 2 mesh for the flagship and HTDemucs on the 30 s WAV (stems
+   >= 100 dB against the plain call, warm walls side by side, the full
+   forms launched by each row); ``Separator(use_mesh=True)`` on the one card
+   taking the plain path and saying so; one flagship step at depth 2 on
+   batch 2 over the dp 2 × tp 2 mesh, its gradients gathered against the
+   tp 1 step's (>= 80 dB);
 6. one JSON line describing each kernel (with its launches on the ensemble
    path, over the remote servers and over the training steps; the backward
-   kernels' launches are those of the training steps), then the last line
+   kernels' launches are those of the training steps; the partial forms'
+   those of the float32 tensor-parallel forward at tp 2), then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every float32 comparison (``torch.backends.cuda.matmul`` and
@@ -1932,8 +1948,10 @@ ENSEMBLE_ALGORITHMS = ("avg_wave", "avg_fft", "uvr_max_spec")
 # The backward kernels (training's) run on no inference path.
 NO_BACKWARD = {"attention_backward": 0, "rmsnorm_backward": 0, "gelu_backward": 0,
                "rope_gate_backward": 0}
+# The partial-sum forms of B1 and B2 run only on tensor-parallel layers ([mesh]).
+NO_PARTIAL = {"fused_attention_block_partial": 0, "fused_ff_block_partial": 0}
 ENSEMBLE_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24, "fused_attention": 18,
-                     **NO_BACKWARD}
+                     **NO_BACKWARD, **NO_PARTIAL}
 ENSEMBLE_FLOOR_DB = 60.0  # card ensemble against the CPU Ensembler on the same member stems
 
 
@@ -2361,7 +2379,7 @@ def phase_remote(seed, seconds, device_label):
                 return {"fused_attention_block": per_forward["roformer"] * b1_forwards,
                         "fused_ff_block": per_forward["roformer"] * b1_forwards,
                         "fused_attention": per_forward["demucs"] * b3_forwards,
-                        **NO_BACKWARD}
+                        **NO_BACKWARD, **NO_PARTIAL}
 
             def score(tag, job_key, stems, track):
                 """The served stems against the direct call's: SDR per stem,
@@ -2615,7 +2633,8 @@ BACKWARD_KERNELS = {
 # and B2 forward; B1's backward K1, K4 and K2, B2's K3 and K2.
 ROFORMER_STEP_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24,
                           "fused_attention": 0, "attention_backward": 24,
-                          "rmsnorm_backward": 48, "gelu_backward": 24, "rope_gate_backward": 24}
+                          "rmsnorm_backward": 48, "gelu_backward": 24, "rope_gate_backward": 24,
+                          **NO_PARTIAL}
 # One HTDemucs step: 6 self-attention layers, B3 forward and K1 backward.
 HTDEMUCS_STEP_LAUNCHES = {**dict.fromkeys(ROFORMER_STEP_LAUNCHES, 0), "fused_attention": 6,
                           "attention_backward": 6}
@@ -3202,13 +3221,386 @@ def phase_separator(ab, seed, seconds, device_label):
         return {"launches": launches, "wall_s": wall, "wall2_s": wall2, "surface": surface}
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the device mesh on the one card, as a 2 × 2 grid of cuda:0 handles.
+
+MESH_FLOOR_DB = 100.0  # TP forward (float32) and meshed separate against the plain call
+MESH_BF16_BAR_DB = 40.0  # the bf16 TP forward against the bf16 tp = 1 forward
+PARTIAL_KERNELS = {
+    "fused_attention_block_partial": ("audio_separator_tpu_torch/csrc/attention_block.cu",
+                                      "audio_separator_tpu/ops/attention_block.py:35"),
+    "fused_ff_block_partial": ("audio_separator_tpu_torch/csrc/ff_block.cu",
+                               "audio_separator_tpu/ops/attention_block.py:119"),
+}
+
+
+def card_mesh(tp, handles=4):
+    """A (handles / tp, tp) mesh over repeated handles of the one card."""
+    import torch
+
+    from audio_separator_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[torch.device("cuda", 0)] * handles, tp=tp)
+
+
+def phase_mesh_kernels(ab, seed):
+    """The partial-sum forms of B1 and B2 against their plain versions at the
+    flagship's shard shapes (8 / tp heads, 2048 / tp hidden columns) for tp 2
+    and 4, float32 (3xTF32, held to BLOCK_TOLERANCE) and bf16, timed as in
+    phase 3."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_separator_tpu_torch.models.roformer import _rope_tables
+    from audio_separator_tpu_torch.ops.tf32 import prepare_tf32_weight
+    from audio_separator_tpu_torch.parallel.mesh import wqkv_shard_columns
+
+    dev = torch.device("cuda")
+    d, h, dh, hidden = 512, 8, 64, 2048
+    axes = {"time": (4 * 62, 801), "freq": (4 * 801, 62)}
+    records = []
+    for tp in (2, 4):
+        hs, ws = h // tp, hidden // tp
+        cols = torch.as_tensor(wqkv_shard_columns(h, dh, tp, 0), device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            elt = torch.finfo(dtype).bits // 8
+            for axis, (b, n_valid) in axes.items():
+                n_pad = -(-n_valid // 64) * 64
+                g = torch.Generator(device=dev).manual_seed(seed)
+
+                def randn(*shape, s=1.0):
+                    return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype)
+
+                x = randn(b, n_pad, d)
+                x[:, n_valid:] = 0
+                # Shard 0 of a full layer: its heads' q, k, v columns and gates,
+                # its rows of wo; its hidden columns of w1 and rows of w2.
+                attn = dict(wqkv=randn(d, 3 * h * dh, s=0.05)[:, cols].contiguous(),
+                            gate_w=randn(d, h, s=0.05)[:, :hs].contiguous(),
+                            gate_b=randn(h, s=0.05)[:hs].contiguous(),
+                            wo=randn(h * dh, d, s=0.05)[: hs * dh].contiguous(),
+                            attn_norm=(1 + randn(d, s=0.1).float()).to(dtype))
+                cos, sin = _rope_tables(n_valid, dh, dtype, dev)
+                rope = (F.pad(cos, (0, 0, 0, n_pad - n_valid)),
+                        F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+                ff = dict(ff_norm=(1 + randn(d, s=0.1).float()).to(dtype),
+                          w1=randn(d, hidden, s=0.05)[:, :ws].contiguous(),
+                          b1=randn(hidden, s=0.05)[:ws].contiguous(),
+                          w2=randn(hidden, d, s=0.05)[:ws].contiguous(), b2=None)
+                forms = {"fused_attention_block_partial": None, "fused_ff_block_partial": None}
+                if dtype == torch.float32:
+                    forms = {"fused_attention_block_partial": (prepare_tf32_weight(attn["wqkv"]),
+                                                               prepare_tf32_weight(attn["wo"])),
+                             "fused_ff_block_partial": (prepare_tf32_weight(ff["w1"]),
+                                                        prepare_tf32_weight(ff["w2"]))}
+                runs = {
+                    "fused_attention_block_partial": (
+                        lambda: ab.fused_attention_block(
+                            x, rope=rope, heads=hs, n_valid=n_valid, partial=True,
+                            tf32_weights=forms["fused_attention_block_partial"], **attn),
+                        lambda: ab.fused_attention_block_ref(x, rope=rope, heads=hs,
+                                                             n_valid=n_valid, partial=True,
+                                                             **attn),
+                        attention_cost(b, n_pad, n_valid, d, hs, dh, elt)),
+                    "fused_ff_block_partial": (
+                        lambda: ab.fused_ff_block(
+                            x, partial=True, tf32_weights=forms["fused_ff_block_partial"], **ff),
+                        lambda: ab.fused_ff_block_ref(x, partial=True, **ff),
+                        ff_cost(b, n_pad, n_valid, d, ws, elt)),
+                }
+                for name, (kernel, plain, cost) in runs.items():
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    err = compare(got[:, :n_valid], want[:, :n_valid], dname, BLOCK_TOLERANCE)
+                    del got, want
+                    ms = cuda_time_ms(kernel, iters=5)
+                    plain_ms = cuda_time_ms(plain, iters=2)
+                    bound_ms, bound_by = bound(cost, dname)
+                    rec = dict(name=name, tp=tp, dtype=dname, axis=axis, shape=[b, n_pad, d],
+                               n_valid=n_valid, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, flop=cost[0], bytes=cost[1], **err)
+                    extra = ""
+                    if dtype == torch.float32:
+                        t_ops, t_bytes = cost[0] / PEAK_3XTF32, cost[1] / PEAK_BYTES
+                        rec["bound_3xtf32_ms"] = max(t_ops, t_bytes) * 1e3
+                        rec["bound_3xtf32_by"] = "operations" if t_ops >= t_bytes else "bytes"
+                        extra = (f"; 3xTF32 bound {rec['bound_3xtf32_ms']:.3f} ms "
+                                 f"({rec['bound_3xtf32_by']})")
+                    records.append(rec)
+                    tol = BLOCK_TOLERANCE[dname]
+                    log(f"[mesh] {name} tp {tp} ({hs} heads, {ws} hidden) {dname} {axis} "
+                        f"x{(b, n_pad, d)} n_valid={n_valid}: max_abs_err={err['max_abs_err']:.3e} "
+                        f"(rel {err['max_abs_err'] / err['scale']:.3e}, tol {tol['max']:.3e}) "
+                        f"mean rel {err['mean_abs_err'] / err['scale']:.3e} (tol "
+                        f"{tol['mean']:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                        f"{bound_ms:.3f} ms ({bound_by}){extra}")
+                    if not err["ok"]:
+                        raise AssertionError(f"{name} tp {tp} {dname} {axis}: kernel disagrees "
+                                             f"with its plain version: {err}")
+                del x, attn, ff, rope, forms
+                torch.cuda.empty_cache()
+    return records
+
+
+def phase_mesh_forward(ab, seed):
+    """The flagship BS-RoFormer at full width, tensor-parallel over the
+    model axis of a mesh of the one card (tp 2 and 4), against its tp = 1
+    forward: float32 >= MESH_FLOOR_DB, bf16 reported against a 40 dB bar;
+    the partial forms launch 24 · tp times a forward and the full forms not
+    at all. Returns the float32 tp = 2 launches (the kernels line's)."""
+    import numpy as np
+    import torch
+
+    from audio_separator_tpu_torch.models.convert import load_jax_params
+    from audio_separator_tpu_torch.models.init_params import flagship_config, init_roformer_params
+    from audio_separator_tpu_torch.models.roformer import Roformer
+    from audio_separator_tpu_torch.parallel.mesh import shard_roformer_params
+
+    cfg = flagship_config()
+    tree = init_roformer_params(cfg, seed=seed)
+    chunk = cfg.stft_hop_length * 800
+    audio = torch.from_numpy((np.random.default_rng(seed).standard_normal((1, 2, chunk)) * 0.2)
+                             .astype(np.float32)).cuda()
+    layers = cfg.depth * (cfg.time_transformer_depth + cfg.freq_transformer_depth)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        model = load_jax_params(Roformer(cfg), tree).to(device="cuda", dtype=dtype).eval()
+        with torch.no_grad():
+            base = model(audio).float()
+            base_ms = cuda_time_ms(lambda: model(audio), iters=2)
+            for tp in (2, 4):
+                sharded = shard_roformer_params(model, card_mesh(tp))
+                sharded(audio)  # the shards' 3xTF32 forms are made at first use
+                torch.cuda.synchronize()
+                ab.reset_launch_counts()
+                out = sharded(audio).float()
+                torch.cuda.synchronize()
+                launches = dict(ab.LAUNCHES)
+                tp_ms = cuda_time_ms(lambda: sharded(audio), iters=2)
+                db = sdr_db(base.cpu(), out.cpu())
+                want = {"fused_attention_block_partial": layers * tp,
+                        "fused_ff_block_partial": layers * tp,
+                        "fused_attention_block": 0, "fused_ff_block": 0}
+                log(f"[mesh] flagship BS-RoFormer {dname}, tp {tp} over {tp} handles of the "
+                    f"card, one 8 s window: {db:.2f} dB against the tp 1 forward ("
+                    + (f"floor {MESH_FLOOR_DB}" if dtype == torch.float32
+                       else f"bar {MESH_BF16_BAR_DB}, reported") + f"); forward {tp_ms:.1f} ms "
+                    f"against {base_ms:.1f} ms at tp 1; launches "
+                    + ", ".join(f"{k} {launches[k]}" for k in want) + f" (expected {want})")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"tp {tp} {dname} forward is not finite")
+                if dtype == torch.float32 and db < MESH_FLOOR_DB:
+                    raise AssertionError(f"tp {tp} float32 forward {db:.2f} dB below "
+                                         f"{MESH_FLOOR_DB} against tp 1")
+                if any(launches[k] != v for k, v in want.items()):
+                    raise AssertionError(f"tp {tp} {dname} launches {launches}, expected {want}")
+                result[dname, tp] = {"db": db, "ms": tp_ms, "base_ms": base_ms,
+                                     "launches": launches}
+                del sharded, out
+                torch.cuda.empty_cache()
+        del model, base
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_mesh_separate(ab, seed, seconds, device_label):
+    """``Separator(use_mesh=<2 × 2 mesh of the card>)`` against the plain
+    ``Separator`` on the same 30 s WAV, for the flagship BS-RoFormer and the
+    published HTDemucs: stems >= MESH_FLOOR_DB, walls side by side, the
+    mesh's rows launching the full forms; then ``use_mesh=True`` on the one
+    card takes the plain path and says so."""
+    import numpy as np
+
+    from audio_separator_tpu_torch.io import audio as audio_io
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.separator import Separator
+
+    work = os.path.join(REPO, "build")
+    os.makedirs(work, exist_ok=True)
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=work) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        os.makedirs(model_dir)
+        write_synthetic_model(model_dir, seed)
+        write_synthetic_demucs_bag(model_dir, seed)
+        wav = os.path.join(tmp, "mix.wav")
+        mix = write_seeded_wav(wav, seed, seconds, bit_depth=32)
+        mesh = card_mesh(2)
+        for label, model, count in (("flagship BS-RoFormer", None, 2),
+                                    ("HTDemucs", "htdemucs.yaml", 4)):
+            stems, walls, launches = {}, {}, {}
+            for run, use_mesh in (("plain", False), ("mesh", mesh)):
+                out_dir = os.path.join(tmp, f"{run}_{len(result)}")
+                sep = Separator(model_file_dir=model_dir, output_dir=out_dir,
+                                use_mesh=use_mesh, log_level=logging.WARNING)
+                sep.load_model(*(() if model is None else (model,)))
+                sep.separate(wav)  # warm
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                files = sep.separate(wav)
+                walls[run] = time.perf_counter() - t0
+                launches[run] = {k: v for k, v in _build.LAUNCHES.items() if v}
+                check_stems(out_dir, files, count, mix, 44100)
+                stems[run] = {os.path.basename(f): audio_io.load_audio(os.path.join(out_dir, f))[0]
+                              for f in files}
+                del sep
+            worst = min(sdr_db(stems["plain"][f], stems["mesh"][f]) for f in stems["plain"])
+            same = all(np.array_equal(stems["plain"][f], stems["mesh"][f]) for f in stems["plain"])
+            log(f"[mesh] {device_label}: Separator over a dp 2 x tp 2 mesh of the card, "
+                f"{label}, {seconds:.0f} s WAV: worst stem "
+                + ("bit-identical to" if same else f"{worst:.2f} dB against")
+                + f" the plain call (floor {MESH_FLOOR_DB}); warm wall {walls['mesh']:.3f} s against "
+                f"{walls['plain']:.3f} s plain; launches {launches['mesh']} (plain "
+                f"{launches['plain']})")
+            if sorted(stems["mesh"]) != sorted(stems["plain"]) or worst < MESH_FLOOR_DB:
+                raise AssertionError(f"{label}: meshed stems differ from the plain call "
+                                     f"({worst:.2f} dB)")
+            # Each row's slice is a forward of its own: up to one more forward a
+            # batch than the plain call's, and never a partial form.
+            rows = mesh.local_rows
+            if (set(launches["mesh"]) != set(launches["plain"])
+                    or any(not launches["plain"][k] <= n <= rows * launches["plain"][k]
+                           for k, n in launches["mesh"].items())):
+                raise AssertionError(f"{label}: the mesh launched {launches['mesh']}, the plain "
+                                     f"call {launches['plain']}")
+            result[label] = {"db": worst, "identical": same, "walls": walls,
+                             "launches": launches["mesh"]}
+
+        records = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                records.append(record.getMessage())
+
+        keep = Keep(level=logging.DEBUG)
+        sep = Separator(model_file_dir=model_dir, output_dir=os.path.join(tmp, "true"),
+                        use_mesh=True, log_level=logging.DEBUG)
+        sep.logger.addHandler(keep)
+        try:
+            sep.load_model()
+        finally:
+            sep.logger.removeHandler(keep)
+            sep.logger.setLevel(logging.WARNING)
+        said = [r for r in records if "only one device present" in r]
+        log(f"[mesh] Separator(use_mesh=True) on {device_label}: mesh "
+            f"{sep.model_instance.mesh}; said: {said}")
+        if sep.model_instance.mesh is not None or not said:
+            raise AssertionError("use_mesh=True on one card did not take the plain path "
+                                 "or did not say so")
+        del sep
+    return result
+
+
+def phase_mesh_training(ab, seed):
+    """One flagship step at depth 2 on a dp 2 × tp 2 mesh of the card (batch
+    2 of 8 s windows), its gradients, gathered, against the tp 1 step's on
+    the same batch (>= GRADIENT_FLOOR_DB each, or within 6 dB of the card's
+    own spread, the same step on the batch twice, where a gradient is not
+    reproducible to the floor)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from audio_separator_tpu_torch.models.convert import load_jax_params
+    from audio_separator_tpu_torch.models.init_params import flagship_config, init_roformer_params
+    from audio_separator_tpu_torch.models.roformer import Roformer
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.parallel.mesh import gather_params, shard_model
+    from audio_separator_tpu_torch.training import make_train_step
+
+    cfg = dataclasses.replace(flagship_config(), depth=2)
+    tree = init_roformer_params(cfg, seed=seed)
+    rng = np.random.default_rng(seed)
+    chunk = cfg.stft_hop_length * 800
+    mix = rng.standard_normal((2, 2, chunk)).astype(np.float32) * 0.2
+    tgt = 0.5 * rng.standard_normal((2, 2, 2, chunk)).astype(np.float32) * 0.2 + 0.5 * mix[:, None]
+    mix, tgt = torch.from_numpy(mix).cuda(), torch.from_numpy(tgt).cuda()
+
+    def grads(mesh, batch=1):
+        model = load_jax_params(Roformer(cfg), tree).cuda()
+        if mesh is not None:
+            model = shard_model(model, mesh)
+        step = make_train_step(cfg, model, torch.optim.SGD(model.parameters(), lr=0.0),
+                               mesh=mesh)
+        _build.reset_launch_counts()
+        with tf32_switches_on():
+            t0 = time.perf_counter()
+            loss = float(step(torch.cat([mix] * batch), torch.cat([tgt] * batch)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        holder = copy.deepcopy(model)  # the gradients in the parameters' places, then gathered
+        with torch.no_grad():
+            for p_holder, p in zip(holder.parameters(), model.parameters()):
+                p_holder.copy_(p.grad)
+        full = gather_params(holder)
+        out = {n: p.detach().cpu() for n, p in full.named_parameters()}
+        del model, step, holder, full
+        torch.cuda.empty_cache()
+        return loss, out, ms, launches
+
+    loss1, g1, ms1, _ = grads(None)
+    loss_tp, g_tp, ms_tp, launches = grads(card_mesh(2))
+    dbs = {k: grad_db(g1[k], g_tp[k]) for k in g1}
+    low = {k: v for k, v in dbs.items() if v < GRADIENT_FLOOR_DB}
+    failed = []
+    if low:
+        _, twice, _, _ = grads(None, batch=2)
+        for k, v in low.items():
+            spread = grad_db(g1[k], twice[k])
+            if v < min(GRADIENT_FLOOR_DB, spread - 6.0):
+                failed.append((k, v, spread))
+    log(f"[mesh] flagship BS-RoFormer depth 2, one step on batch 2 of 8 s over a dp 2 x tp 2 "
+        f"mesh of the card: loss {loss_tp:.6f} against {loss1:.6f} at tp 1; {len(dbs)} "
+        f"gradients against the tp 1 step: min {min(dbs.values()):.2f} dB, median "
+        f"{sorted(dbs.values())[len(dbs) // 2]:.2f} dB (floor {GRADIENT_FLOOR_DB}); below it "
+        f"{low}; step {ms_tp:.0f} ms against {ms1:.0f} ms (first steps, with set-up); "
+        f"launches {launches}")
+    if not (math.isfinite(loss_tp) and abs(loss_tp - loss1) <= 1e-4 * abs(loss1)):
+        raise AssertionError(f"sharded loss {loss_tp} against {loss1}")
+    if failed:
+        raise AssertionError(f"sharded gradients below {GRADIENT_FLOOR_DB} dB: {failed}")
+    if not (launches.get("fused_attention_block_partial") and launches.get("fused_ff_block_partial")
+            and not launches.get("fused_attention_block")):
+        raise AssertionError(f"the sharded step did not run the partial forms: {launches}")
+    return {"min_db": min(dbs.values()), "launches": launches}
+
+
+def phase_mesh(ab, seed, seconds, device_label):
+    """[mesh]: the partial forms, the TP forward, the meshed Separator and the
+    sharded step, with the model cache emptied first."""
+    import torch
+
+    from audio_separator_tpu_torch.ops import fn_cache
+
+    fn_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = phase_mesh_kernels(ab, seed)
+    t1 = time.perf_counter()
+    forward = phase_mesh_forward(ab, seed)
+    t2 = time.perf_counter()
+    separate = phase_mesh_separate(ab, seed, seconds, device_label)
+    t3 = time.perf_counter()
+    training = phase_mesh_training(ab, seed)
+    log(f"[mesh] parts: kernels {t1 - t0:.1f} s, TP forward {t2 - t1:.1f} s, Separator "
+        f"{t3 - t2:.1f} s, training {time.perf_counter() - t3:.1f} s")
+    return {"records": records, "forward": forward, "separate": separate, "training": training}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--seconds", type=float, default=30.0)
-    parser.add_argument("--phase", choices=("all", "remote", "training"), default="all",
-                        help="'remote' or 'training' builds the kernels and runs that phase "
-                             "alone; it prints no result line")
+    parser.add_argument("--phase", choices=("all", "remote", "training", "mesh"), default="all",
+                        help="'remote', 'training' or 'mesh' builds the kernels and runs that "
+                             "phase alone; it prints no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -3251,6 +3643,11 @@ def main(argv=None) -> int:
         phase_training(args.seed, f"{kind} ({smi})")
         log("[training] no other phase was run")
         return 0
+    if args.phase == "mesh":
+        t0 = time.perf_counter()
+        phase_mesh(ab, args.seed, args.seconds, f"{kind} ({smi})")
+        log(f"[mesh] phase {time.perf_counter() - t0:.1f} s; no other phase was run")
+        return 0
 
     records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
     model = phase_model(ab, args.seed)
@@ -3274,6 +3671,9 @@ def main(argv=None) -> int:
     remote = phase_remote(args.seed, args.seconds, f"{kind} ({smi})")
     log(f"[remote] phase {time.perf_counter() - t0:.1f} s")
     training = phase_training(args.seed, f"{kind} ({smi})")
+    t0 = time.perf_counter()
+    mesh = phase_mesh(ab, args.seed, args.seconds, f"{kind} ({smi})")
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
 
     # name -> (source, TPU kernel, its main path's run, that path's dtype,
     #          launches per forward of its model)
@@ -3337,6 +3737,31 @@ def main(argv=None) -> int:
                       for r in cases],
             "launches_per_roformer_step": ROFORMER_STEP_LAUNCHES[name],
             "launches_per_htdemucs_step": HTDEMUCS_STEP_LAUNCHES[name],
+        })
+    # The partial-sum forms: the main path is [mesh]'s float32 flagship
+    # forward at tp 2; headline numbers at tp 2 in float32 over both axes,
+    # against the 3xTF32 bound of the products they run (the FMA bound, 67
+    # TFLOP/s, is each case's bound_ms).
+    for name, (source, replaces) in PARTIAL_KERNELS.items():
+        cases = [r for r in mesh["records"] if r["name"] == name]
+        main = [r for r in cases if r["tp"] == 2 and r["dtype"] == "float32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": mesh["forward"]["float32", 2]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in main),
+            "ms": sum(r["ms"] for r in main) / len(main),
+            "plain_ms": sum(r["plain_ms"] for r in main) / len(main),
+            "bound_ms": sum(r["bound_3xtf32_ms"] for r in main) / len(main),
+            "bound_by": main[0]["bound_3xtf32_by"],
+            "library_ms": None,
+            "cases": [{k: r.get(k) for k in ("tp", "dtype", "axis", "shape", "n_valid", "ms",
+                                              "plain_ms", "bound_ms", "bound_by",
+                                              "bound_3xtf32_ms", "bound_3xtf32_by",
+                                              "max_abs_err", "mean_abs_err", "scale")}
+                      for r in cases],
+            "launches_per_forward": {f"{d} tp {tp}": v["launches"][name]
+                                     for (d, tp), v in mesh["forward"].items()},
+            "training_launches": mesh["training"]["launches"].get(name, 0),
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from audio_separator_tpu_torch.io import audio as audio_io
-from audio_separator_tpu_torch.separator import Separator
+from audio_separator_tpu_torch.separator import DEFAULT_MODEL, Separator
 from audio_separator_tpu_torch.utils import cli
 
 from test_torch_ensemble_separator import PRESET, PRESET_FILES
@@ -119,29 +119,28 @@ _CUSTOM = "custom_ensemble_ep_317_sdr_1_vocals_b"  # the members' slugs
       "--ensemble_weights", "1", "2"], _CUSTOM),
     (["--ensemble_preset", PRESET], f"preset_{PRESET}"),
     (["--list_presets"], 0),
-    (["--use_mesh"], 2),
+    (["--use_mesh"], DEFAULT_MODEL.split(".")[0]),
 ], ids=["flags0-14", "flags1-14", "flags2-14", "flags3-14", "flags4-16"])  # ROADMAP items
 def test_unported_flags_exit_naming_roadmap(model_dir, wav, tmp_path, capsys, flags, expect):
-    """The ensemble flags run on the CPU: ``--extra_models`` (with an
-    algorithm and weights) and ``--ensemble_preset`` write one file for each
-    stem group, named after the members or the preset; ``--list_presets``
-    lists the presets and exits 0. ``--use_mesh`` is not ported: it exits 2
-    naming its ROADMAP item."""
+    """The flags of ROADMAP items once refused run on the CPU: ``--extra_models``
+    (with an algorithm and weights) and ``--ensemble_preset`` write one file
+    for each stem group, named after the members or the preset;
+    ``--list_presets`` lists the presets and exits 0; ``--use_mesh`` (item 16)
+    takes the plain path with one device and writes the model's stems."""
     out_dir = str(tmp_path / "out")
     argv = [wav, "--device", "cpu", "--model_file_dir", model_dir, "--output_dir", out_dir,
             "--log_level", "warning"] + flags
     if isinstance(expect, int):
         assert _main(argv) == expect
         captured = capsys.readouterr()
-        if expect == 2:
-            assert "ROADMAP, Queue A item 16" in captured.err
-        else:
-            assert "Preset ID" in captured.out and PRESET in captured.out
+        assert "Preset ID" in captured.out and PRESET in captured.out
         return
     cli.main(argv)
     mix, _ = audio_io.load_audio(wav)
     names = sorted(os.listdir(out_dir))
-    assert names == [f"song_({stem})_{expect}.flac" for stem in ("Instrumental", "Vocals")]
+    # an ensemble writes its stem groups, one model its own stems
+    stems = ("other", "vocals") if flags == ["--use_mesh"] else ("Instrumental", "Vocals")
+    assert names == [f"song_({stem})_{expect}.flac" for stem in stems]
     for name in names:
         pcm, _ = audio_io.load_audio(os.path.join(out_dir, name))
         assert pcm.shape == mix.shape and np.isfinite(pcm).all()

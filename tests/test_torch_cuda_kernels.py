@@ -316,6 +316,7 @@ def test_model_forward_on_card_matches_cpu(cuda):
     ab.reset_launch_counts()
     got = load_jax_params(Roformer(cfg), tree).to(cuda)(audio.to(cuda)).cpu()
     assert ab.LAUNCHES == {"fused_attention_block": 2, "fused_ff_block": 2,
+                           "fused_attention_block_partial": 0, "fused_ff_block_partial": 0,
                            "fused_attention": 0, "attention_backward": 0,
                            "rmsnorm_backward": 0, "gelu_backward": 0,
                            "rope_gate_backward": 0}
@@ -651,3 +652,91 @@ def test_backward_kernels_refuse_bf16(cuda):
     q = torch.randn(1, 1, 64, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="17b"):
         att.dot_product_attention(q, q, q).sum().backward()
+
+
+# ------------------------------------------------- partial-sum forms (the mesh)
+
+
+def _partial_case(cuda, dtype, tp, b, n_valid, seed=31):
+    """Shard 0 of a flagship layer at tp: its heads' q, k, v columns, gates
+    and wo rows; its hidden columns of w1 and b1 and rows of w2."""
+    from audio_separator_tpu_torch.parallel.mesh import wqkv_shard_columns
+
+    d, h, dh, hidden = 512, 8, 64, 2048
+    hs, ws = h // tp, hidden // tp
+    n_pad = -(-n_valid // 64) * 64
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * s).to(dtype)
+
+    x = randn(b, n_pad, d)
+    x[:, n_valid:] = 0
+    cols = torch.as_tensor(wqkv_shard_columns(h, dh, tp, 0), device=cuda)
+    attn = dict(wqkv=randn(d, 3 * h * dh, s=0.05)[:, cols].contiguous(),
+                gate_w=randn(d, h, s=0.05)[:, :hs].contiguous(),
+                gate_b=randn(h, s=0.05)[:hs].contiguous(),
+                wo=randn(h * dh, d, s=0.05)[: hs * dh].contiguous(),
+                attn_norm=(1 + randn(d, s=0.1).float()).to(dtype))
+    cos, sin = _rope_tables(n_valid, dh, dtype, cuda)
+    rope = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    ff = dict(ff_norm=(1 + randn(d, s=0.1).float()).to(dtype),
+              w1=randn(d, hidden, s=0.05)[:, :ws].contiguous(),
+              b1=randn(hidden, s=0.05)[:ws].contiguous(),
+              w2=randn(hidden, d, s=0.05)[:ws].contiguous())
+    return x, attn, dict(rope=rope, heads=hs, n_valid=n_valid), ff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("b,n_valid", [(16, 801), (96, 62)])
+def test_partial_block_kernels_match_plain(cuda, dtype, tp, b, n_valid):
+    """B1 and B2 without their residual (and b2) at the flagship's shard
+    shapes, counted as their partial forms."""
+    x, attn, kw, ff = _partial_case(cuda, dtype, tp, b, n_valid)
+    before = dict(ab.LAUNCHES)
+    got = ab.fused_attention_block(x, partial=True, **kw, **attn)
+    got_ff = ab.fused_ff_block(x, b2=None, partial=True, **ff)
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES["fused_attention_block_partial"] == before[
+        "fused_attention_block_partial"] + 1
+    assert ab.LAUNCHES["fused_ff_block_partial"] == before["fused_ff_block_partial"] + 1
+    assert ab.LAUNCHES["fused_attention_block"] == before["fused_attention_block"]
+    want = ab.fused_attention_block_ref(x, partial=True, **kw, **attn)
+    _close(got[:, :n_valid], want[:, :n_valid], dtype, BLOCK_TOL)
+    _close(got_ff, ab.fused_ff_block_ref(x, b2=None, partial=True, **ff), dtype, BLOCK_TOL)
+
+
+def test_full_blocks_are_their_partial_forms_plus_the_residual(cuda):
+    """In float32 the full launch is x + the partial launch's product, to
+    the float32 level; the full form's output is unchanged by the flag."""
+    x, attn, kw, ff = _partial_case(cuda, torch.float32, 1, 16, 801)
+    full = ab.fused_attention_block(x, **kw, **attn)
+    part = ab.fused_attention_block(x, partial=True, **kw, **attn)
+    _close((x + part)[:, :801], full[:, :801], torch.float32, BLOCK_TOL)
+    b2 = torch.randn(x.shape[-1], device=cuda) * 0.05
+    _close(x + ab.fused_ff_block(x, b2=None, partial=True, **ff) + b2,
+           ab.fused_ff_block(x, b2=b2, **ff), torch.float32, BLOCK_TOL)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("b,n_valid", [(16, 801), (96, 62)])
+def test_partial_block_functions_backward_match_plain_autograd(cuda, tp, b, n_valid):
+    """The partial forms' gradients (kernels forward and backward, float32;
+    no residual gradient into K2, no b2) against autograd through the plain
+    partial forms."""
+    x, attn, kw, ff = _partial_case(cuda, torch.float32, tp, b, n_valid, seed=32)
+    g = torch.Generator(device=cuda).manual_seed(33)
+    dy = torch.randn(x.shape, generator=g, device=cuda)
+    dy[:, n_valid:] = 0
+    xs = x.requires_grad_(True)
+    for fn, ref, fkw, block_weights in (
+            (ab.fused_attention_block, ab.fused_attention_block_ref, kw, attn),
+            (ab.fused_ff_block, ab.fused_ff_block_ref, {"b2": None}, ff)):
+        weights = {k: t.clone().requires_grad_(True) for k, t in block_weights.items()}
+        inputs = [xs, *weights.values()]
+        got = _grads(fn(xs, partial=True, **fkw, **weights), inputs, dy)
+        want = _grads(ref(xs, partial=True, **fkw, **weights), inputs, dy)
+        for name, a, b_ in zip(["x", *weights], got, want):
+            _close(a[:, :n_valid] if name == "x" else a, b_[:, :n_valid] if name == "x" else b_,
+                   torch.float32)

@@ -147,8 +147,9 @@ def test_separator_without_cuda_raises(model_dir):
 
 def test_separator_rejects_unported_model_types(model_dir, tmp_path):
     """Every model type the registry lists now separates: a Demucs v3 bag
-    (ROADMAP item 12b, refused before it was ported) writes its two stems. Only the
-    device mesh (item 16) is still refused."""
+    (ROADMAP item 12b, refused before it was ported) writes its two stems.
+    The device mesh (item 16, refused before it was ported) is taken too:
+    ``use_mesh=True`` on the CPU gives the plain path and the same stems."""
     from audio_separator_tpu_torch.models.convert import flatten_tree
     from audio_separator_tpu_torch.models.htdemucs import HTDemucsConfig
     from audio_separator_tpu_torch.models.init_params import (htdemucs_kwargs,
@@ -169,8 +170,14 @@ def test_separator_rejects_unported_model_types(model_dir, tmp_path):
     sep.load_model("v3bag.yaml")  # the bag's models load at the first separation
     files = sep.separate(wav)
     assert len(files) == 2 and all(os.path.exists(tmp_path / "out" / f) for f in files)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Separator(model_file_dir=str(tmp_path), device="cpu", use_mesh=True)
+    meshed = Separator(model_file_dir=str(tmp_path), output_dir=str(tmp_path / "mesh"),
+                       device="cpu", use_mesh=True, log_level=logging.WARNING)
+    meshed.load_model("v3bag.yaml")
+    assert meshed.model_instance.mesh is None
+    assert sorted(meshed.separate(wav)) == sorted(files)
+    for f in files:
+        np.testing.assert_array_equal(audio_io.load_audio(str(tmp_path / "mesh" / f))[0],
+                                      audio_io.load_audio(str(tmp_path / "out" / f))[0])
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -205,13 +212,14 @@ def test_no_file_of_the_port_imports_jax():
     assert len(files) > 10
     # The Demucs v3, ensembling, remote-service and metrics modules are among them.
     files.append(os.path.join(REPO, "tools", "finetune_torch.py"))
-    # The training slice's modules are among them too.
+    # The training and device-mesh slices' modules are among them too.
     for module in ("training.py", "ops/losses.py", "ops/block_backward.py",
                    "models/filtering.py", "separator/ensembler.py", "ops/align.py",
                    "ops/stretch.py", "models/htdemucs.py", "remote/server.py",
                    "remote/asgi.py", "remote/api_client.py", "remote/cli.py",
                    "remote/job_store.py", "remote/output_store.py", "utils/metrics.py",
-                   "utils/audio_verification.py"):
+                   "utils/audio_verification.py", "parallel/mesh.py",
+                   "parallel/dcn_dryrun.py"):
         assert os.path.join(PORT, module) in files, module
     for path in files:
         roots = set(_imported_roots(path))

@@ -15,7 +15,8 @@
   the port runs its blocks' autograd Functions, whose CPU forward and
   backward are the kernels' plain versions.
 * Adam: the loss decreases, as in tests/test_training.py.
-* Refusals (``mesh=``, bf16) and inference building no graph.
+* ``mesh=`` takes a module laid out for the mesh (tests/test_torch_mesh_training.py
+  holds the sharded step), bf16 is refused, and inference builds no graph.
 """
 
 import dataclasses
@@ -207,10 +208,18 @@ def test_trained_parameters_round_trip_the_npz(tmp_path):
 
 
 def test_mesh_and_bf16_are_refused_with_their_items():
+    """``mesh=`` (item 16) takes a module laid out for that mesh and refuses
+    any other; bf16 (item 17b) is refused."""
+    from audio_separator_tpu_torch.parallel.mesh import make_mesh, shard_model
+
     model = Roformer(_port_config(JAX_BS_CFG))
     opt = torch.optim.SGD(model.parameters(), lr=1e-2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_train_step(model.cfg, model, opt, mesh=object())
+    mesh = make_mesh(devices=[torch.device("cpu")] * 4, tp=2)
+    with pytest.raises(ValueError, match="lay the module out"):
+        make_train_step(model.cfg, model, opt, mesh=mesh)
+    sharded = shard_model(model, mesh)
+    assert callable(make_train_step(sharded.cfg, sharded,
+                                    torch.optim.SGD(sharded.parameters(), lr=1e-2), mesh=mesh))
     with pytest.raises(NotImplementedError, match="item 17b"):
         make_train_step(model.cfg, model, opt, compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="item 17b"):

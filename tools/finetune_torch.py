@@ -11,6 +11,12 @@ backward.
     python tools/finetune_torch.py --steps 20                  # on the card
     python tools/finetune_torch.py --device cpu --steps 3      # plain versions
     python tools/finetune_torch.py --save tuned.npz            # the .npz of models.convert.save_params
+    python tools/finetune_torch.py --mesh --tp 2               # sharded over the local cards
+
+``--mesh`` lays the model out on a ``(dp, tp)`` device mesh
+(``parallel/mesh.py``): every local card, ``tp`` of them a tensor-parallel
+row (``--tp``), the batch split over the rows. With ``--device cpu`` the
+mesh is ``2 × tp`` CPU handles. ``--batch`` must be a multiple of the rows.
 """
 
 import argparse
@@ -33,6 +39,9 @@ def main(argv=None):
     parser.add_argument("--dim", type=int, default=64)
     parser.add_argument("--depth", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard over a (dp, tp) device mesh (data rows x --tp)")
+    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel width of --mesh")
     parser.add_argument("--save", default=None,
                         help="write the fine-tuned parameter tree here (.npz, the layout "
                              "models.convert.save_params writes and load_params reads)")
@@ -44,6 +53,7 @@ def main(argv=None):
                                                           save_params)
     from audio_separator_tpu_torch.models.init_params import init_roformer_params
     from audio_separator_tpu_torch.models.roformer import Roformer, RoformerConfig
+    from audio_separator_tpu_torch.parallel.mesh import make_mesh, shard_model
     from audio_separator_tpu_torch.training import make_train_step
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -58,8 +68,15 @@ def main(argv=None):
         stft_win_length=512, mask_estimator_depth=1)
     chunk = cfg.stft_hop_length * 31
     model = load_jax_params(Roformer(cfg), init_roformer_params(cfg, seed=args.seed)).to(device)
+    mesh = None
+    if args.mesh:
+        # every local card; on the CPU two rows of tp handles
+        mesh = make_mesh(tp=args.tp, devices=[device] * 2 * args.tp
+                         if device.type == "cpu" else None)
+        model = shard_model(model, mesh)  # before the optimizer: it takes the shards
+        print(f"mesh={mesh.shape}", flush=True)
     step = make_train_step(cfg, model, torch.optim.Adam(model.parameters(), lr=args.lr),
-                           stft_n_fft=256, window_sizes=(256, 128), hop_length=64)
+                           mesh=mesh, stft_n_fft=256, window_sizes=(256, 128), hop_length=64)
     rng = np.random.default_rng(args.seed)
 
     def batch():

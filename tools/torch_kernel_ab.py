@@ -262,12 +262,12 @@ def ff_table():
     print(f"feed-forward block, bf16, x {tuple(x.shape)}, hidden {hidden}: device ms per launch")
     for name, started_variant in started.items():
         lib = ctypes.CDLL(finish(name, started_variant))
-        lib.asep_ff_block.argtypes = [integer] + [pointer] * 9 + [integer] * 3 + [pointer]
+        lib.asep_ff_block.argtypes = [integer] + [pointer] * 9 + [integer] * 4 + [pointer]
 
         def call():
             rc = lib.asep_ff_block(1, x.data_ptr(), *(w.data_ptr() for w in weights),
                                    xn.data_ptr(), h.data_ptr(), out.data_ptr(), rows, d, hidden,
-                                   torch.cuda.current_stream().cuda_stream)
+                                   0, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"variant {name!r}: CUDA error {rc}")
 
@@ -311,12 +311,12 @@ def tf32_table():
     scale = float(reference.abs().max())
     for name, started_variant in started.items():
         lib = ctypes.CDLL(finish(name, started_variant))
-        lib.asep_ff_block.argtypes = [integer] + [pointer] * 9 + [integer] * 3 + [pointer]
+        lib.asep_ff_block.argtypes = [integer] + [pointer] * 9 + [integer] * 4 + [pointer]
 
         def call():
             rc = lib.asep_ff_block(0, x.data_ptr(), *(w.data_ptr() for w in weights),
                                    xn.data_ptr(), h.data_ptr(), out.data_ptr(), rows, d, hidden,
-                                   torch.cuda.current_stream().cuda_stream)
+                                   0, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"variant {name!r}: CUDA error {rc}")
 
@@ -370,7 +370,7 @@ def gates_table():
                 1, x.data_ptr(), wqkv.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
                 wqkv.data_ptr(), norm.data_ptr(), None, None, xn.data_ptr(), xn.data_ptr(),
                 xn.data_ptr(), xn.data_ptr(), gates.data_ptr(), xn.data_ptr(), xn.data_ptr(), b,
-                n_pad, d, heads, 801, torch.cuda.current_stream().cuda_stream)
+                n_pad, d, heads, 801, 0, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"variant {name!r}: CUDA error {rc}")
 
@@ -487,7 +487,7 @@ def qkv_power_table():
                 gate_b.data_ptr(), wo.data_ptr(), norm.data_ptr(), cos.data_ptr(),
                 sin.data_ptr(), xn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 gates.data_ptr(), merged.data_ptr(), out.data_ptr(), b, n_pad, d, heads, 801,
-                torch.cuda.current_stream().cuda_stream)
+                0, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"qkv only: CUDA error {rc}")
 
