@@ -1,4 +1,5 @@
-// Attention backward (K1) for Hopper (sm_90a), float32:
+// Attention backward (K1) for Hopper (sm_90a), float32 (this file) and bf16
+// in the gated layout (attention_bwd_bf16.cuh, the bf16 training step's):
 //   given o = softmax(q·kᵀ·scale, keys >= n_valid masked)·v and dO,
 //   dv = Pᵀ·dO,  dS = P ⊙ (dO·vᵀ − Δ),  dq = dS·k·scale,  dk = dSᵀ·q·scale,
 //   Δ_i = Σ_c dO_ic·O_ic.
@@ -1126,19 +1127,37 @@ cudaError_t run_attention_bwd(const float* q, const float* k, const float* v, co
 
 }  // namespace asep
 
-// layout 0: o and dout are (bh, n, dh), dh 64 or 128. layout 1: o and dout are
-// the merged heads (bh / heads, n, heads·64), gates (bh, n), dh 64. q, k, v,
-// dq, dk, dv are (bh, n, dh); lse and delta (bh, n) are written: lse is the
-// row log-sum-exp of the scaled scores in base 2 (scratch for the second
-// launch), delta is Δ (which the attention block's gate gradient reads). All
-// float32, contiguous. n <= 64 takes one launch, longer sequences two.
-// Returns 0 or the first CUDA error.
-extern "C" int asep_attention_bwd(int layout, const void* q, const void* k, const void* v,
-                                  const void* o, const void* dout, const void* gates, void* dq,
-                                  void* dk, void* dv, void* lse, void* delta, int bh, int n,
-                                  int n_valid, int dh, int heads, float scale, void* stream) {
+#include "attention_bwd_bf16.cuh"
+
+// dtype: 0 = float32, 1 = bfloat16 (layout 1 only). layout 0: o and dout are
+// (bh, n, dh), dh 64 or 128. layout 1: o and dout are the merged heads (bh /
+// heads, n, heads·64), gates (bh, n), dh 64. q, k, v, dq, dk, dv are (bh, n,
+// dh) and, with o and dout, of type dtype; gates float32; lse and delta (bh,
+// n) are written, float32: lse is the row log-sum-exp of the scaled scores in
+// base 2 (scratch for the second launch), delta is Δ (which the attention
+// block's gate gradient reads). Contiguous. float32: n <= 64 takes one
+// launch, longer sequences two; bf16 takes two. Returns 0 or the first CUDA
+// error.
+extern "C" int asep_attention_bwd(int dtype, int layout, const void* q, const void* k,
+                                  const void* v, const void* o, const void* dout,
+                                  const void* gates, void* dq, void* dk, void* dv, void* lse,
+                                  void* delta, int bh, int n, int n_valid, int dh, int heads,
+                                  float scale, void* stream) {
     if (bh < 1 || n < 1 || n_valid < 1 || n_valid > n) return cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 1) {
+        if (layout != 1 || dh != 64 || heads < 1 || bh % heads) return cudaErrorInvalidValue;
+        using asep::bf16;
+        const asep::bwd_bf16::MergedGated g{static_cast<const bf16*>(o),
+                                            static_cast<const bf16*>(dout),
+                                            static_cast<const float*>(gates), n, heads};
+        return asep::bwd_bf16::run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                   static_cast<const bf16*>(v), g, static_cast<bf16*>(dq),
+                                   static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                   static_cast<float*>(lse), static_cast<float*>(delta), bh, n,
+                                   n_valid, scale, s);
+    }
+    if (dtype != 0) return cudaErrorInvalidValue;
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v);
     float *dqf = static_cast<float*>(dq), *dkf = static_cast<float*>(dk),

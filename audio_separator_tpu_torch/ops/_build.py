@@ -23,11 +23,14 @@ import torch
 
 # Launch counters: each wrapper adds one where it launches its kernel (chain),
 # through count(), under one lock: jobs of a server launch from several threads.
+# The backward kernels' bf16 forms count under names of their own (``_bf16``).
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
                             "fused_attention_block_partial": 0,
                             "fused_ff_block_partial": 0, "fused_attention": 0, "attention_backward": 0,
                             "rmsnorm_backward": 0, "gelu_backward": 0,
-                            "rope_gate_backward": 0}
+                            "rope_gate_backward": 0, "attention_backward_bf16": 0,
+                            "rmsnorm_backward_bf16": 0, "gelu_backward_bf16": 0,
+                            "rope_gate_backward_bf16": 0}
 _count_lock = threading.Lock()
 
 
@@ -66,10 +69,10 @@ _SIGNATURES = {
     "attention": ("asep_attention",
                   [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
     "attention_bwd": ("asep_attention_bwd",
-                      [_I] + [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]),
-    "norm_bwd": ("asep_norm_bwd", [_P] * 7 + [_I] * 3 + [_P]),
-    "gelu_bwd": ("asep_gelu_bwd", [_P] * 4 + [ctypes.c_longlong, _P]),
-    "rope_gate_bwd": ("asep_rope_gate_bwd", [_P] * 9 + [_I] * 3 + [_P]),
+                      [_I, _I] + [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]),
+    "norm_bwd": ("asep_norm_bwd", [_I] + [_P] * 7 + [_I] * 3 + [_P]),
+    "gelu_bwd": ("asep_gelu_bwd", [_I] + [_P] * 4 + [ctypes.c_longlong, _P]),
+    "rope_gate_bwd": ("asep_rope_gate_bwd", [_I] + [_P] * 9 + [_I] * 3 + [_P]),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -43,11 +43,14 @@ operands, which the wrapper checks before the launch.
 
 Gradients: ``dot_product_attention`` is a ``torch.autograd.Function`` on both
 devices. Its backward is ``attention_backward``: on a CUDA tensor the kernel
-of ``csrc/attention_bwd.cu`` (float32; the JAX package has no backward kernel
-to port, as it cannot differentiate through ``pl.pallas_call``), on a CPU
-tensor its plain version ``attention_bwd_ref``, so CPU autograd runs the
-composition the card runs. The same backward serves the RoFormer attention
-block, whose output is the gated merged heads (``gates=``).
+of ``csrc/attention_bwd.cu`` (the JAX package has no backward kernel to port,
+as it cannot differentiate through ``pl.pallas_call``), on a CPU tensor its
+plain version ``attention_bwd_ref``, so CPU autograd runs the composition the
+card runs. The same backward serves the RoFormer attention block, whose
+output is the gated merged heads (``gates=``): float32, or bf16 for the bf16
+training of the RoFormer family (``csrc/attention_bwd_bf16.cuh``). The
+whole-sequence layout is float32 only: its one caller is HTDemucs training,
+which the JAX package cannot run in bf16 (ROADMAP C16).
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, 
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "attention_ref", "fused_attention",
            "dot_product_attention", "padded_head_dim", "attention_bwd_ref",
-           "attention_backward", "check_float32_backward"]
+           "attention_backward", "check_backward_dtype"]
 
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -125,12 +128,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :d] if dh != d else out
 
 
-def check_float32_backward(t: torch.Tensor) -> None:
-    """The backward kernels are float32 only: bf16 training is its own item."""
-    if t.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the backward pass takes float32, got {t.dtype}: bf16 training (bf16 backward "
-            f"kernels, float32 master weights) is ROADMAP item 17b")
+def check_backward_dtype(t: torch.Tensor) -> None:
+    """The backward kernels take float32, and bf16 for the bf16 training of
+    the RoFormer family."""
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"the backward pass takes float32 or bfloat16, got {t.dtype}")
 
 
 def _heads_of(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -149,7 +151,15 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torc
     merged heads ``merged = O·g`` and their gradient, ``(B, N, H·D)``, so
     that ``dO = d_merged·g``. ``delta`` ``(B, H, N)`` is ``Σ dO ⊙ O``
     (``Σ d_merged ⊙ merged`` for the merged heads). Keys ``≥ n_valid`` are
-    masked as in the forward."""
+    masked as in the forward.
+
+    bf16 (the gated layout): q, k, v and the merged heads are bf16, the gates
+    float32. The scores, softmax, Δ and every sum are float32; ``P·g`` and
+    ``dS`` are rounded to bf16 before the products that read them, as the
+    forward rounds P before its PV product; dq, dk and dv are bf16, Δ
+    float32."""
+    if q.dtype == torch.bfloat16 and gates is not None:
+        return _attention_bwd_ref_bf16(q, k, v, o, do, scale, n_valid, gates)
     q, k, v = q.float(), k.float(), v.float()
     if gates is not None:
         heads = q.shape[1]
@@ -170,13 +180,38 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torc
     return dq, dk, dv, delta
 
 
+def _attention_bwd_ref_bf16(q, k, v, merged, d_merged, scale, n_valid, gates):
+    heads = q.shape[1]
+    q, k, v = q.float(), k.float(), v.float()
+    o, do = _heads_of(merged.float(), heads), _heads_of(d_merged.float(), heads)
+    delta = (do * o).sum(-1)
+    gain = gates.float()[..., None]
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if n_valid is not None and n_valid < s.shape[-1]:
+        s[..., n_valid:] = -1e30
+    p = torch.softmax(s, dim=-1)
+    pg = (p * gain).to(torch.bfloat16).float()
+    dv = torch.matmul(pg.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2)) * gain
+    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    bf = torch.bfloat16
+    return dq.to(bf), dk.to(bf), dv.to(bf), delta
+
+
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                        do: torch.Tensor, scale: float, n_valid: Optional[int] = None,
                        gates: Optional[torch.Tensor] = None):
     """The attention backward's wrapper: the plain version for CPU tensors,
     the kernel (``csrc/attention_bwd.cu``) for CUDA tensors. Arguments and
-    result as :func:`attention_bwd_ref`; float32 only."""
-    check_float32_backward(q)
+    result as :func:`attention_bwd_ref`: float32 in both layouts, bf16 in the
+    gated one."""
+    check_backward_dtype(q)
+    if q.dtype != torch.float32 and gates is None:
+        raise NotImplementedError(
+            "the whole-sequence attention backward takes float32: its one caller is HTDemucs "
+            "training, which the JAX package cannot run in bf16 (ROADMAP C16)")
     b, h, n, d = q.shape
     n_valid = n if n_valid is None else n_valid
     if not 1 <= n_valid <= n:
@@ -187,7 +222,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
         if d != 64:
             raise ValueError(f"the gated backward takes 64-wide heads, got {d}")
         dh = d
-        gates = gates.contiguous()
+        gates = gates.float().contiguous()
         if tuple(o.shape) != (b, n, h * d) or tuple(gates.shape) != (b, h, n):
             raise ValueError(f"merged heads {tuple(o.shape)} / gates {tuple(gates.shape)} "
                              f"do not match q {tuple(q.shape)}")
@@ -195,21 +230,22 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
         dh = padded_head_dim(d)
         if dh != d:
             q, k, v, o, do = (torch.nn.functional.pad(t, (0, dh - d)) for t in (q, k, v, o, do))
-    q, k, v, o, do = (t.float().contiguous() for t in (q, k, v, o, do))
-    dq, dk, dv = (torch.empty((b, h, n, dh), dtype=torch.float32, device=q.device)
-                  for _ in range(3))
+    dt = q.dtype
+    q, k, v, o, do = (t.to(dt).contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty((b, h, n, dh), dtype=dt, device=q.device) for _ in range(3))
     lse, delta = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
                   for _ in range(2))
     check_cuda_layout(q, k, v, o, do, dq, dk, dv)
     lib = load("attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.asep_attention_bwd(
-            0 if gates is None else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), gates.data_ptr() if gates is not None else None, dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, n_valid,
-            dh, h, float(scale), stream(q))
+            DTYPE_CODES[dt], 0 if gates is None else 1, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            gates.data_ptr() if gates is not None else None, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, n_valid, dh, h,
+            float(scale), stream(q))
     check_rc(lib, rc, "attention_backward")
-    count("attention_backward")
+    count("attention_backward" if dt == torch.float32 else "attention_backward_bf16")
     if dh != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv, delta

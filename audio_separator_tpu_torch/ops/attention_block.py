@@ -31,9 +31,10 @@ Both blocks are ``torch.autograd.Function``s on both devices, their only
 route: the forward keeps the intermediates it computes anyway (the attention
 block's xn, rotated q and k, v, gates and merged heads; the feed-forward
 block's xn, its hidden activation being recomputed), and the backward is
-``ops/block_backward.py``'s composition of hand-written kernels (float32):
-the attention backward, the RoPE and gate backward, the GELU backward and
-the RMSNorm backward, with plain products between them.
+``ops/block_backward.py``'s composition of hand-written kernels, in float32
+or bf16 (the bf16 training step): the attention backward, the RoPE and gate
+backward, the GELU backward and the RMSNorm backward, with plain products
+between them.
 
 Both sides round to the input dtype where the TPU kernels do: ``qkv`` before
 RoPE, the rotated q/k, the softmax weights before the PV product, the merged
@@ -186,8 +187,9 @@ def _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, hea
                                n_valid: int, partial: bool = False):
     """The plain attention block and what its backward pass reads: ``out``
     and ``(xn, q, k, v, gates, merged)``, the rotated ``q``, ``k`` and ``v``
-    as ``(b, h, n, dh)``, the gates as ``(b, h, n)``. ``partial``: ``out`` is
-    the rounded projection alone, without the residual."""
+    as ``(b, h, n, dh)``, the gates as ``(b, h, n)`` (float32), the rest in
+    ``x``'s type, as the kernel writes them. ``partial``: ``out`` is the
+    rounded projection alone, without the residual."""
     dt = x.dtype
     b, n, d = x.shape
     dh = wqkv.shape[-1] // (3 * heads)
@@ -208,7 +210,7 @@ def _attention_block_ref_parts(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, hea
     merged = _rnd(o.permute(0, 2, 1, 3).reshape(b, n, heads * dh), dt)
     proj = _rnd(merged @ wo.float(), dt)
     out = proj if partial else x.float() + proj
-    return out.to(dt), (xn, q, k, v, gates, merged)
+    return out.to(dt), (*(t.to(dt) for t in (xn, q, k, v)), gates, merged.to(dt))
 
 
 def fused_attention_block_ref(x, wqkv, gate_w, gate_b, wo, attn_norm, rope,
@@ -224,9 +226,9 @@ def _ff_block_ref_parts(x, ff_norm, w1, b1, w2, b2):
     xn = _rmsnorm_rounded(x, ff_norm)
     h = _rnd(torch.nn.functional.gelu(xn @ w1.float() + b1.float()), dt)
     if b2 is None:
-        return _rnd(h @ w2.float(), dt).to(dt), xn
+        return _rnd(h @ w2.float(), dt).to(dt), xn.to(dt)
     y = _rnd(h @ w2.float() + b2.float(), dt)
-    return (x.float() + y).to(dt), xn
+    return (x.float() + y).to(dt), xn.to(dt)
 
 
 def fused_ff_block_ref(x, ff_norm, w1, b1, w2, b2, partial: bool = False) -> torch.Tensor:
@@ -366,7 +368,7 @@ def fused_attention_block(x: torch.Tensor, wqkv: torch.Tensor,
     ``partial``: the out projection alone, without the residual (the weights
     are then one shard's heads: ``wqkv``'s q, k and v columns of those heads,
     their gate columns and ``wo``'s rows). Differentiable in ``x`` and every
-    weight (float32)."""
+    weight, in float32 and in bf16 (the backward's bf16 kernel forms)."""
     b, n_pad, d = x.shape if x.dim() == 3 else (0, 0, 0)
     hd3 = wqkv.shape[-1] if wqkv.dim() == 2 else 0
     dh = hd3 // (3 * heads)
@@ -391,7 +393,7 @@ def fused_ff_block(x: torch.Tensor, ff_norm: torch.Tensor, w1: torch.Tensor,
     the card; made for the call where not given. ``partial``: the second
     product alone, ``GELU(...)·W2`` without ``b2`` (pass ``b2=None``) and the
     residual, over one shard's hidden columns. Differentiable in ``x`` and
-    every weight (float32)."""
+    every weight, in float32 and in bf16 (the backward's bf16 kernel forms)."""
     d = x.shape[-1] if x.dim() == 3 else 0
     hidden = w1.shape[-1] if w1.dim() == 2 else 0
     if partial != (b2 is None):

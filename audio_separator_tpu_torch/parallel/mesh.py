@@ -453,15 +453,16 @@ def _row_devices_for(model: nn.Module, mesh: Mesh, r: int) -> Dict[str, torch.de
     return {n: mesh.devices[r, _shard_index(n) or 0] for n in names}
 
 
-def call_on_row(model: nn.Module, mesh: Mesh, r: int, *args):
+def call_on_row(model: nn.Module, mesh: Mesh, r: int, *args, dtype: Optional[torch.dtype] = None):
     """``model(*args)`` with the parameters laid out on row ``r`` of the mesh:
     the module itself where the row's devices are row 0's (repeated
     handles), else copies made for the call (``.to``, differentiable, so
-    autograd sums their gradients onto ``model``'s own parameters)."""
-    if all(a == b for a, b in zip(mesh.row(r), mesh.row(0))):
+    autograd sums their gradients onto ``model``'s own parameters).
+    ``dtype``: the parameters cast to it for the call (the bf16 training
+    step), on the row's devices, differentiably as well."""
+    if dtype is None and all(a == b for a, b in zip(mesh.row(r), mesh.row(0))):
         return model(*args)
     where = _row_devices_for(model, mesh, r)
-    tensors = dict(model.named_parameters())
-    tensors.update(model.named_buffers())
-    moved = {n: t.to(where[n]) for n, t in tensors.items()}
+    moved = {n: p.to(where[n], dtype) for n, p in model.named_parameters()}
+    moved.update((n, b.to(where[n])) for n, b in model.named_buffers())
     return torch.func.functional_call(model, moved, args)

@@ -13,6 +13,18 @@ hand-written kernels forward and backward (``ops/attention_block.py``,
 versions, in the same composition. Nothing falls back: a CUDA step that
 cannot build or launch a kernel raises.
 
+bf16 (``compute_dtype=torch.bfloat16``, the RoFormer family): the module and
+the optimiser keep float32 master weights, as the JAX step does. Each step
+casts the parameters to bf16 once, differentiably, and runs the module on
+the cast copies (``torch.func.functional_call``), the counterpart of the JAX
+step's ``jax.tree.map(lambda a: jnp.asarray(a, compute_dtype), params)``.
+The blocks then run their bf16 kernels forward and backward, autograd
+returns float32 gradients on the masters (the bf16 gradients, upcast, as
+JAX's cast transposes), and the optimiser updates the masters. The output
+and the loss stay float32. No loss scaling: bf16 has float32's exponent
+range, and the JAX step has none. HTDemucs and HDemucs train in float32
+only: the JAX package cannot differentiate them in bf16 (ROADMAP C16).
+
 Typical use (``tools/finetune_torch.py`` is a runnable loop)::
 
     model = load_jax_params(Roformer(cfg), tree).to("cuda")
@@ -45,6 +57,8 @@ tree.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Sequence
 
 import torch
@@ -53,9 +67,9 @@ from .models.roformer import RoformerConfig
 from .ops.fn_cache import is_shared
 from .parallel.mesh import call_on_row
 from .ops.losses import DEFAULT_RESOLUTIONS, roformer_training_loss
-from .ops.precision import full_float32
+from .ops.precision import float32_bf16_reductions, full_float32
 
-__all__ = ["make_loss_fn", "make_train_step"]
+__all__ = ["make_loss_fn", "make_train_step", "cast_call"]
 
 
 def make_loss_fn(cfg, model: torch.nn.Module, stft_n_fft: int = 2048,
@@ -108,12 +122,20 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
     batch, whose size the local rows must divide, is split over its data
     axis (the module docstring).
 
+    ``compute_dtype``: ``torch.float32``, or ``torch.bfloat16`` for the
+    RoFormer family, whose float32 parameters are then cast to bf16 inside
+    each step (the module docstring). The module's parameters must be
+    float32 either way: they are the master weights.
+
     The whole step runs inside one ``ops/precision.full_float32`` scope:
     forward, loss, ``backward()`` and ``optimizer.step()``, so the backward
     passes of convolutions and products stay float32 whatever the process's
-    TF32 switches say. The model's parameters are made to require gradients
-    and the model is put in training mode (cuDNN's LSTM has a backward pass
-    only there; no module of these families computes otherwise in it).
+    TF32 switches say; a bf16 step also inside
+    ``ops/precision.float32_bf16_reductions``, so that its bf16 products sum
+    in float32 as the JAX package's do. The model's parameters are made to
+    require gradients and the model is put in training mode (cuDNN's LSTM
+    has a backward pass only there; no module of these families computes
+    otherwise in it).
 
     A module that a ``Separator`` loaded is shared process-wide by the model
     cache (``ops/fn_cache``) and is refused: training changes it in place.
@@ -123,25 +145,31 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
         raise ValueError("make_train_step(mesh=...): lay the module out for the mesh first "
                          "(parallel.mesh.shard_model(model, mesh)) and build the optimizer "
                          "over the result's parameters")
-    if compute_dtype != torch.float32:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"make_train_step(compute_dtype={compute_dtype}): float32 or bfloat16")
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16 and not isinstance(cfg, RoformerConfig):
         raise NotImplementedError(
-            f"make_train_step(compute_dtype={compute_dtype}): training is float32 only; "
-            f"bf16 training (bf16 backward kernels, float32 master weights) is ROADMAP "
-            f"item 17b")
+            f"make_train_step(compute_dtype=torch.bfloat16) trains the RoFormer family only: "
+            f"the JAX package cannot differentiate {getattr(cfg, 'arch', 'HTDemucs')} in bf16 "
+            f"(its transposed convolutions mix bf16 and float32; ROADMAP C16)")
     if any(p.dtype != torch.float32 for p in model.parameters()):
-        raise NotImplementedError("training takes a float32 model (bf16 training is "
-                                  "ROADMAP item 17b)")
+        raise NotImplementedError(
+            "training takes a float32 model: its parameters are the master weights (for bf16 "
+            "training keep the module float32 and pass compute_dtype=torch.bfloat16)")
     if is_shared(model):
         raise ValueError("make_train_step: this module is shared by the process's model cache "
                          "(ops/fn_cache) and serves every Separator of its checkpoint; train "
                          "a copy (copy.deepcopy) or a module built for training")
     model.requires_grad_(True)
     model.train()
-    loss_fn = make_loss_fn(cfg, model, stft_n_fft=stft_n_fft, window_sizes=window_sizes,
-                           hop_length=hop_length, multi_stft_weight=multi_stft_weight)
+    loss_kw = dict(stft_n_fft=stft_n_fft, window_sizes=window_sizes, hop_length=hop_length,
+                   multi_stft_weight=multi_stft_weight)
+    forward = functools.partial(cast_call, model, dtype=compute_dtype) if bf16 else model
+    loss_fn = make_loss_fn(cfg, forward, **loss_kw)
 
     def step(mix: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        with full_float32():
+        with full_float32(), (float32_bf16_reductions() if bf16 else contextlib.nullcontext()):
             optimizer.zero_grad(set_to_none=True)
             if mesh is None:
                 loss = loss_fn(mix, target)
@@ -159,9 +187,9 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
         loss = torch.zeros((), device=mesh.first)
         for r, (m, t) in enumerate(zip(mix.chunk(len(rows)), target.chunk(len(rows)))):
             row_loss = make_loss_fn(
-                cfg, lambda x, r=r: call_on_row(model, mesh, r, x), stft_n_fft=stft_n_fft,
-                window_sizes=window_sizes, hop_length=hop_length,
-                multi_stft_weight=multi_stft_weight)(m.to(rows[r]), t.to(rows[r]))
+                cfg, lambda x, r=r: call_on_row(model, mesh, r, x,
+                                                dtype=compute_dtype if bf16 else None),
+                **loss_kw)(m.to(rows[r]), t.to(rows[r]))
             row_loss = row_loss * (m.shape[0] / mix.shape[0])
             row_loss.backward()  # each row's graph is freed before the next is built
             loss = loss + row_loss.detach().to(mesh.first)
@@ -174,3 +202,12 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
         return loss
 
     return step
+
+
+def cast_call(model: torch.nn.Module, x: torch.Tensor,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``model(x)`` on copies of its parameters cast to ``dtype``: one
+    differentiable cast of each, so the gradients land, upcast, on the
+    module's own (master) parameters."""
+    cast = {n: p.to(dtype) for n, p in model.named_parameters()}
+    return torch.func.functional_call(model, cast, (x,))

@@ -148,7 +148,19 @@ result lines are printed):
    ``full_float32`` scope keeps it float32), each with its launches against
    the plan (B1 24, B2 24, K1 24, K2 48, K3 24, K4 24), the step split into
    forms remade, forward, backward and optimiser, peak memory and device
-   time by category; the published HTDemucs against the CPU and 3 Adam
+   time by category; then bf16 training (``compute_dtype=torch.bfloat16``,
+   float32 master weights): the bf16 form of each backward kernel against
+   its plain bf16 version at the same full-width shapes (the bf16
+   tolerance), timed beside its bf16 bound and its bf16 yardstick; the
+   flagship at depth 2, the card's bf16 step gradients against its float32
+   step, each within 6 dB of the CPU plain bf16 step's distance to the CPU
+   float32 step, and the same bf16 step with cuBLAS allowed to reduce bf16
+   products in bf16 (``allow_bf16_reduced_precision_reduction``), reported
+   against the switch held off; at depth 12, 3 SGD and 3 Adam bf16 steps on
+   batch 2 of 8 s, each launching B1 24, B2 24 and the bf16 forms K1 24, K2
+   48, K3 24, K4 24 times, with the split cast, forward + loss, backward,
+   optimiser, peak memory and device time by category; the published
+   HTDemucs against the CPU and 3 Adam
    steps on batch 2 (B3 6, K1 6 a step); one HDemucs step on 10 s;
    then the device mesh (``[mesh]``, ``parallel/mesh.py``) over repeated
    handles of the one card, the model cache emptied first: the partial-sum
@@ -164,11 +176,14 @@ result lines are printed):
    forms launched by each row); ``Separator(use_mesh=True)`` on the one card
    taking the plain path and saying so; one flagship step at depth 2 on
    batch 2 over the dp 2 × tp 2 mesh, its gradients gathered against the
-   tp 1 step's (>= 80 dB);
+   tp 1 step's (>= 80 dB), and the same in bf16: the sharded bf16 step's
+   gradients against the tp 1 float32 step's, each within 6 dB of the tp 1
+   bf16 step's distance to it;
 6. one JSON line describing each kernel (with its launches on the ensemble
    path, over the remote servers and over the training steps; the backward
-   kernels' launches are those of the training steps; the partial forms'
-   those of the float32 tensor-parallel forward at tp 2), then the last line
+   kernels' launches are those of the training steps, their bf16 forms'
+   (``*_bf16``) those of the bf16 flagship steps; the partial forms' those
+   of the float32 tensor-parallel forward at tp 2), then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every float32 comparison (``torch.backends.cuda.matmul`` and
@@ -1946,8 +1961,10 @@ ENSEMBLE_ALGORITHMS = ("avg_wave", "avg_fft", "uvr_max_spec")
 # fused block once a layer (24), the HTDemucs member's 3 forwards the
 # whole-sequence attention 6 times each.
 # The backward kernels (training's) run on no inference path.
+NO_BF16_BACKWARD = {"attention_backward_bf16": 0, "rmsnorm_backward_bf16": 0,
+                    "gelu_backward_bf16": 0, "rope_gate_backward_bf16": 0}
 NO_BACKWARD = {"attention_backward": 0, "rmsnorm_backward": 0, "gelu_backward": 0,
-               "rope_gate_backward": 0}
+               "rope_gate_backward": 0, **NO_BF16_BACKWARD}
 # The partial-sum forms of B1 and B2 run only on tensor-parallel layers ([mesh]).
 NO_PARTIAL = {"fused_attention_block_partial": 0, "fused_ff_block_partial": 0}
 ENSEMBLE_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24, "fused_attention": 18,
@@ -2634,7 +2651,25 @@ BACKWARD_KERNELS = {
 ROFORMER_STEP_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24,
                           "fused_attention": 0, "attention_backward": 24,
                           "rmsnorm_backward": 48, "gelu_backward": 24, "rope_gate_backward": 24,
-                          **NO_PARTIAL}
+                          **NO_PARTIAL, **NO_BF16_BACKWARD}
+# The same step in bf16 (compute_dtype=torch.bfloat16): B1 and B2 forward in
+# bf16, and the backward kernels' bf16 forms in place of their float32 ones.
+ROFORMER_BF16_STEP_LAUNCHES = {**ROFORMER_STEP_LAUNCHES, "attention_backward": 0,
+                               "rmsnorm_backward": 0, "gelu_backward": 0,
+                               "rope_gate_backward": 0, "attention_backward_bf16": 24,
+                               "rmsnorm_backward_bf16": 48, "gelu_backward_bf16": 24,
+                               "rope_gate_backward_bf16": 24}
+# The bf16 forms: name -> (the float32 kernel's name, the source of the bf16
+# form). K1's bf16 form is its own pair of kernels, included by
+# attention_bwd.cu; K2-K4 are their sources' kernels templated on the type.
+BF16_BACKWARD_KERNELS = {
+    "attention_backward_bf16": ("attention_backward",
+                                "audio_separator_tpu_torch/csrc/attention_bwd_bf16.cuh"),
+    "rmsnorm_backward_bf16": ("rmsnorm_backward", "audio_separator_tpu_torch/csrc/norm_bwd.cu"),
+    "gelu_backward_bf16": ("gelu_backward", "audio_separator_tpu_torch/csrc/gelu_bwd.cu"),
+    "rope_gate_backward_bf16": ("rope_gate_backward",
+                                "audio_separator_tpu_torch/csrc/rope_gate_bwd.cu"),
+}
 # One HTDemucs step: 6 self-attention layers, B3 forward and K1 backward.
 HTDEMUCS_STEP_LAUNCHES = {**dict.fromkeys(ROFORMER_STEP_LAUNCHES, 0), "fused_attention": 6,
                           "attention_backward": 6}
@@ -2677,53 +2712,61 @@ def training_category(name: str) -> str:
         return "backward kernels (K1-K4)"
     if any(k in name for k in ("flash_", "gemm_tf32x3", "gemm_wgmma", "rmsnorm")):
         return "forward kernels (B1-B3)"
+    if "nvjet" in name:  # cuBLASLt's products on Hopper (the bf16 ones among them)
+        return "matmul"
     return op_category(name)
 
 
 def check_backward_case(records, name, axis, shape, kernel, plain, cost, library=None,
-                        n_valid=None, library_note=None, tensor_cores=False):
+                        n_valid=None, library_note=None, tensor_cores=False,
+                        dtype_name="float32"):
     """One backward kernel against its plain version: every output within
-    the float32 tolerance of its own scale; CUDA-event times of both and of
-    the library call beside them. ``tensor_cores``: the kernel's products run
-    as 3xTF32, so its bound is that of its own design (the TF32 peak over
-    three), with the float32 FMA bound kept beside it as ``bound_fma_ms``."""
+    the tolerance of ``dtype_name`` (the type of its bf16 form's bf16
+    outputs; float32 outputs, such as Δ, dγ and dz, at the float32 one) of
+    its own scale; CUDA-event times of both and of the library call beside
+    them. ``tensor_cores``: the float32 kernel's products run as 3xTF32, so
+    its bound is that of its own design (the TF32 peak over three), with the
+    float32 FMA bound kept beside it as ``bound_fma_ms``; a bf16 form's
+    bound is at the bf16 tensor-core peak."""
     import torch
 
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
-    errs = [compare(a, b, "float32") for a, b in zip(got, want)]
+    errs = [compare(a, b, "bfloat16" if a.dtype == torch.bfloat16 else "float32")
+            for a, b in zip(got, want)]
     del got, want
     torch.cuda.empty_cache()
     ms = cuda_time_ms(kernel, iters=5)
     plain_ms = cuda_time_ms(plain, iters=2)
     torch.cuda.empty_cache()
     library_ms = cuda_time_ms(library, iters=5) if library is not None else None
-    bound_ms, bound_by = bound(cost, "float32")
+    bound_ms, bound_by = bound(cost, dtype_name)
     bound_fma_ms = None
-    if tensor_cores:
+    if tensor_cores and dtype_name == "float32":
         t_ops, t_bytes = cost[0] / PEAK_3XTF32, cost[1] / PEAK_BYTES
         bound_fma_ms = bound_ms
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
     rel = [e["max_abs_err"] / max(e["scale"], 1e-30) for e in errs]
-    rec = dict(name=name, dtype="float32", axis=axis, shape=list(shape), n_valid=n_valid, ms=ms,
+    rec = dict(name=name, dtype=dtype_name, axis=axis, shape=list(shape), n_valid=n_valid, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                flop=cost[0], bytes=cost[1], max_abs_err=max(e["max_abs_err"] for e in errs),
                mean_abs_err=max(e["mean_abs_err"] for e in errs),
                scale=min(e["scale"] for e in errs), rel_errs=rel, split=device_split(kernel),
                library_note=library_note, bound_fma_ms=bound_fma_ms,
-               bound_3xtf32_ms=bound_ms if tensor_cores else None)
+               bound_3xtf32_ms=bound_ms if bound_fma_ms is not None else None)
     records.append(rec)
-    log(f"[training] {name} {axis} {tuple(shape)}"
+    log(f"[training] {name} {dtype_name} {axis} {tuple(shape)}"
         + (f" n_valid={n_valid}" if n_valid is not None else "")
         + f": max |kernel - plain| / scale per output {[f'{r:.2e}' for r in rel]} (tol "
-        f"{TOLERANCE['float32']['max']:.0e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{TOLERANCE[dtype_name]['max']:.0e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         + (f"library {library_ms:.3f} ms, " if library_ms is not None else "")
         + (f"({library_note}), " if library_note else "")
         + (f"3xTF32 bound {bound_ms:.3f} ms ({bound_by}; 494.7 / 3 TFLOP/s), FMA bound "
-           f"{bound_fma_ms:.3f} ms (67 TFLOP/s)" if tensor_cores
-           else f"bound {bound_ms:.3f} ms ({bound_by})")
+           f"{bound_fma_ms:.3f} ms (67 TFLOP/s)" if bound_fma_ms is not None
+           else f"bound {bound_ms:.3f} ms ({bound_by}"
+           + ("; 989 TFLOP/s" if dtype_name == "bfloat16" else "") + ")")
         + "; launches (device ms) "
         + ", ".join(f"{k} {v:.3f}" for k, v in rec["split"].items()))
     if not all(e["ok"] for e in errs):
@@ -2844,6 +2887,91 @@ def phase_backward_kernels(seed):
     return records
 
 
+def phase_backward_kernels_bf16(seed):
+    """[training] part 1b: the bf16 form of each backward kernel against its
+    plain bf16 version at the flagship step's full-width shapes (batch 2),
+    with the bf16 bound (989 TFLOP/s, 3.35 TB/s) and the one-call
+    yardsticks in bf16: ``scaled_dot_product_attention``'s backward (flash),
+    ``aten._fused_rms_norm_backward`` and ``aten.gelu_backward``."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_separator_tpu_torch.models.roformer import _rope_tables
+    from audio_separator_tpu_torch.ops import attention as att
+    from audio_separator_tpu_torch.ops import block_backward as bb
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    d, h, dh, hidden = 512, 8, 64, 2048
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def randn(*shape, s=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype)
+
+    def sdpa_backward(shape):
+        qs = [randn(*shape).requires_grad_(True) for _ in range(3)]
+        out, do = F.scaled_dot_product_attention(*qs), randn(*shape)
+        return lambda: torch.autograd.grad(out, qs, do, retain_graph=True)
+
+    records = []
+    for axis, (b, n_valid) in {"time": (2 * 62, 801), "freq": (2 * 801, 62)}.items():
+        n_pad = -(-n_valid // 64) * 64
+        rows = b * n_pad
+        q, k, v = (randn(b, h, n_pad, dh) for _ in range(3))
+        gates = torch.sigmoid(randn(b, h, n_pad, dtype=torch.float32))
+        merged, dm = randn(b, n_pad, h * dh), randn(b, n_pad, h * dh)
+        # Five N²·D products over the valid keys; q, k, v, merged, d_merged
+        # read and dq, dk, dv written as bf16, the gates read and Δ written
+        # as float32.
+        check_backward_case(
+            records, "attention_backward", axis, (b, h, n_pad, dh),
+            lambda: att.attention_backward(q, k, v, merged, dm, 0.125, n_valid, gates=gates),
+            lambda: att.attention_bwd_ref(q, k, v, merged, dm, 0.125, n_valid, gates=gates),
+            (2.5 * 4 * b * h * n_valid * n_valid * dh,
+             2 * 8 * b * h * n_pad * dh + 4 * 2 * b * h * n_pad),
+            sdpa_backward((b, h, n_pad, dh)), n_valid, dtype_name="bfloat16",
+            library_note="scaled_dot_product_attention's bf16 backward (flash), no gates, "
+                         "no key mask")
+        del q, k, v, gates, merged, dm
+        torch.cuda.empty_cache()
+        x, dxn, dres = randn(b, n_pad, d), randn(b, n_pad, d), randn(b, n_pad, d)
+        x[:, n_valid:] = 0
+        gamma = 1 + randn(d, s=0.1, dtype=torch.float32)
+        rms_library, rms_note = rms_norm_yardstick(x, gamma.to(bf), dxn)
+        check_backward_case(records, "rmsnorm_backward", axis, (rows, d),
+                            lambda: bb.rmsnorm_backward(x, gamma, dxn, dres),
+                            lambda: bb.rmsnorm_bwd_ref(x, gamma, dxn, dres),
+                            (10 * rows * d, 2 * 4 * rows * d + 4 * 2 * d),
+                            rms_library, library_note=rms_note, dtype_name="bfloat16")
+        del rms_library, x, dxn, dres
+        pre, dh_ = randn(rows, hidden, s=2.0), randn(rows, hidden)
+        check_backward_case(records, "gelu_backward", axis, (rows, hidden),
+                            lambda: bb.gelu_backward(pre, dh_),
+                            lambda: bb.gelu_bwd_ref(pre, dh_),
+                            (12 * rows * hidden, 2 * 4 * rows * hidden),
+                            lambda: torch.ops.aten.gelu_backward(dh_, pre),
+                            library_note="aten.gelu_backward writes dpre only; K3 also writes "
+                                         "h, the GELU's output, for the W2 weight gradient",
+                            dtype_name="bfloat16")
+        del pre, dh_
+        torch.cuda.empty_cache()
+        dq, dk, dv = (randn(b, h, n_pad, dh) for _ in range(3))
+        delta = randn(b, h, n_pad, dtype=torch.float32)
+        gates = torch.sigmoid(randn(b, h, n_pad, dtype=torch.float32))
+        cos, sin = _rope_tables(n_valid, dh, bf, dev)
+        tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+        # dq, dk, dv read and dqkv written as bf16; the tables (float32 in
+        # the kernel), Δ, the gates and dz as float32.
+        check_backward_case(records, "rope_gate_backward", axis, (b, h, n_pad, dh),
+                            lambda: bb.rope_gate_backward(dq, dk, dv, delta, gates, tables),
+                            lambda: bb.rope_gate_bwd_ref(dq, dk, dv, delta, gates, tables),
+                            (8 * 3 * rows * h * dh, 2 * 6 * rows * h * dh
+                             + 4 * (2 * n_pad * dh + 3 * rows * h)),
+                            dtype_name="bfloat16")
+        del dq, dk, dv, delta, gates
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_backward_functions(seed):
     """[training] part 2: the three autograd Functions on the card (kernels
     forward and backward) against autograd through their plain versions on
@@ -2910,16 +3038,18 @@ def phase_backward_functions(seed):
         torch.cuda.empty_cache()
 
 
-def step_gradients(cfg, build, tree, mix, target, device):
+def step_gradients(cfg, build, tree, mix, target, device, compute_dtype=None):
     """One ``make_train_step`` step of the module ``build(cfg, tree)`` on
     ``device`` (SGD at lr 0: the weights stay, the gradients are left in
-    ``.grad``). Returns (loss, {name: gradient on the CPU})."""
+    ``.grad``), in ``compute_dtype`` (float32 by default). Returns (loss,
+    {name: gradient on the CPU})."""
     import torch
 
     from audio_separator_tpu_torch.training import make_train_step
 
     model = build(cfg, tree).to(device)
-    step = make_train_step(cfg, model, torch.optim.SGD(model.parameters(), lr=0.0))
+    step = make_train_step(cfg, model, torch.optim.SGD(model.parameters(), lr=0.0),
+                           compute_dtype=compute_dtype or torch.float32)
     with tf32_switches_on():
         loss = float(step(mix.to(device), target.to(device)))
     grads = {n: (p.grad.detach().cpu() if p.grad is not None else torch.zeros(p.shape))
@@ -2969,7 +3099,8 @@ def check_gradients(tag, cfg, build, tree, mix, target):
     if failed:
         raise AssertionError(f"{tag}: gradients below {GRADIENT_FLOOR_DB} dB against the CPU "
                              f"and more than 6 dB under the CPU's own spread: {failed}")
-    return {"min_db": min(dbs.values()), "below_floor": {k: dbs[k] for k in low}}
+    return {"min_db": min(dbs.values()), "below_floor": {k: dbs[k] for k in low},
+            "card": gpu, "cpu": cpu}
 
 
 def timed_steps(tag, step, mix, target, count, plan):
@@ -3038,7 +3169,7 @@ def phase_training(seed, device_label):
     log(f"[training] model cache cleared ({dropped} entries); "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated")
     t_phase = time.perf_counter()
-    records = phase_backward_kernels(seed)
+    records = phase_backward_kernels(seed) + phase_backward_kernels_bf16(seed)
     t1 = time.perf_counter()
     phase_backward_functions(seed)
     t2 = time.perf_counter()
@@ -3123,6 +3254,14 @@ def phase_training(seed, device_label):
     torch.cuda.empty_cache()
     flagship_s = time.perf_counter() - t0
 
+    # Part 3b: the flagship in bf16 (float32 masters).
+    t0 = time.perf_counter()
+    bf16 = phase_training_bf16(seed, device_label, cfg, cfg2, roformer, roformer_db, mix1, tgt1,
+                               batch(rng, 2, cfg.num_stems, chunk), chunk)
+    for name, n in bf16.pop("launches").items():
+        path_launches[name] += n
+    bf16_s = time.perf_counter() - t0
+
     # Part 4: the published HTDemucs at its training length.
     t0 = time.perf_counter()
     hcfg = htdemucs_full_config()
@@ -3153,11 +3292,162 @@ def phase_training(seed, device_label):
     torch.cuda.empty_cache()
     log(f"[training] HTDemucs peak device memory {ht_peak:.2f} GiB at batch 2; parts: kernels "
         f"{t1 - t_phase:.1f} s, Functions {t2 - t1:.1f} s, flagship parity {parity_s:.1f} s, "
-        f"flagship steps {flagship_s:.1f} s, HTDemucs and HDemucs "
-        f"{time.perf_counter() - t0:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+        f"flagship steps {flagship_s:.1f} s, flagship bf16 {bf16_s:.1f} s, HTDemucs and "
+        f"HDemucs {time.perf_counter() - t0:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    for result in (roformer_db, htdemucs_db):
+        del result["card"], result["cpu"]
     return {"records": records, "launches": path_launches, "roformer_db": roformer_db,
             "htdemucs_db": htdemucs_db, "step_ms": step_ms, "split": split,
-            "peak_gib": peak_gib, "htdemucs_ms": ht_ms, "hdemucs_ms": v_ms}
+            "peak_gib": peak_gib, "htdemucs_ms": ht_ms, "hdemucs_ms": v_ms, "bf16": bf16}
+
+
+def phase_training_bf16(seed, device_label, cfg, cfg2, build, f32, mix1, tgt1, batch2, chunk):
+    """[training] part 3b, the flagship BS-RoFormer trained in bf16
+    (``make_train_step(..., compute_dtype=torch.bfloat16)``, float32 master
+    weights):
+
+    * depth 2, batch 1 of 8 s: the card's bf16 step gradients against the
+      card's float32 step (``f32``, part 3's), each within 6 dB of the CPU
+      plain bf16 step's distance to the CPU float32 step, so the kernels add
+      at most 6 dB to what bf16 rounding costs on the plain path; and the
+      card's bf16 gradients once more with cuBLAS allowed to reduce bf16
+      products in bf16 (``allow_bf16_reduced_precision_reduction`` on, the
+      ``ops/precision.float32_bf16_reductions`` scopes taken out), to show
+      whether that switch moves them;
+    * depth 12, batch 2 of 8 s (``batch2``): 3 SGD and 3 Adam steps, each
+      launching B1 24, B2 24 and the bf16 forms K1 24, K2 48, K3 24, K4 24
+      times, with the step split (cast, forward + loss, backward, optimiser),
+      peak device memory, device time by category and samples/s."""
+    import contextlib
+    import functools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_separator_tpu_torch import training
+    from audio_separator_tpu_torch.models.init_params import init_roformer_params
+    from audio_separator_tpu_torch.ops import block_backward
+    from audio_separator_tpu_torch.ops.precision import float32_bf16_reductions, full_float32
+
+    bf = torch.bfloat16
+    tree2 = init_roformer_params(cfg2, seed=seed)
+    t0 = time.perf_counter()
+    loss_card, card = step_gradients(cfg2, build, tree2, mix1, tgt1, "cuda", bf)
+    t_card = time.perf_counter() - t0
+    loss_cpu, cpu = step_gradients(cfg2, build, tree2, mix1, tgt1, "cpu", bf)
+    t_cpu = time.perf_counter() - t0 - t_card
+    margins, failed = {}, []
+    for k in card:
+        card_db, cpu_db = grad_db(f32["card"][k], card[k]), grad_db(f32["cpu"][k], cpu[k])
+        margins[k] = card_db - cpu_db
+        if card_db < cpu_db - 6.0:
+            failed.append((k, card_db, cpu_db))
+    lowest = sorted(margins.items(), key=lambda kv: kv[1])[:3]
+    card_dbs = [grad_db(f32["card"][k], card[k]) for k in card]
+    log(f"[training] bf16 flagship BS-RoFormer, depth 2, batch 1 of 8 s: loss {loss_card:.6f} "
+        f"(card) / {loss_cpu:.6f} (CPU plain); {len(card)} gradients, the card's bf16 step "
+        f"against its float32 step: min {min(card_dbs):.2f} dB, median "
+        f"{sorted(card_dbs)[len(card_dbs) // 2]:.2f} dB; card minus CPU-plain dB (bar -6): "
+        f"min {min(margins.values()):.2f}, median "
+        f"{sorted(margins.values())[len(margins) // 2]:.2f}, lowest "
+        + ", ".join(f"{k} {v:.2f}" for k, v in lowest)
+        + f"; card step {t_card:.2f} s (first, with set-up), CPU step {t_cpu:.1f} s")
+    if not all(math.isfinite(v) for v in (loss_card, loss_cpu)):
+        raise AssertionError("bf16 depth-2 step: loss not finite")
+    if failed:
+        raise AssertionError(f"bf16 gradients more than 6 dB under the CPU plain path's bf16 "
+                             f"error: {failed}")
+    del cpu
+
+    # The reduction switch: the same bf16 step with cuBLAS allowed to reduce
+    # bf16 products in bf16 (the scopes that hold it off taken out).
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_bf16_reduced_precision_reduction, training.float32_bf16_reductions,
+             block_backward.float32_bf16_reductions)
+    try:
+        matmul.allow_bf16_reduced_precision_reduction = True
+        training.float32_bf16_reductions = block_backward.float32_bf16_reductions = (
+            contextlib.nullcontext)
+        _, reduced = step_gradients(cfg2, build, tree2, mix1, tgt1, "cuda", bf)
+    finally:
+        (matmul.allow_bf16_reduced_precision_reduction, training.float32_bf16_reductions,
+         block_backward.float32_bf16_reductions) = saved
+    switch_dbs = {k: grad_db(card[k], reduced[k]) for k in card}
+    moved = {k: v for k, v in switch_dbs.items() if math.isfinite(v)}
+    log(f"[training] allow_bf16_reduced_precision_reduction on against off (bf16 step, depth "
+        f"2): {len(moved)} of {len(switch_dbs)} gradients moved"
+        + (f"; their distance to the switch-off gradients min {min(moved.values()):.2f} dB, "
+           f"median {sorted(moved.values())[len(moved) // 2]:.2f} dB (the bf16 step's own "
+           f"distance to the float32 step: min {min(card_dbs):.2f} dB)" if moved else ""))
+    del card, reduced
+
+    # Full depth, batch 2: 3 SGD and 3 Adam bf16 steps through the entry point.
+    model = build(cfg, init_roformer_params(cfg, seed=seed)).cuda()
+    mix2, tgt2 = (t.cuda() for t in batch2)
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict.fromkeys(ROFORMER_BF16_STEP_LAUNCHES, 0)
+    step_ms, losses = {}, {}
+    for opt_name, opt in (("SGD", torch.optim.SGD(model.parameters(), lr=1e-4)),
+                          ("Adam", torch.optim.Adam(model.parameters(), lr=1e-4))):
+        step = training.make_train_step(cfg, model, opt, compute_dtype=bf)
+        losses[opt_name], step_ms[opt_name], total = timed_steps(
+            f"bf16 flagship BS-RoFormer depth 12, batch 2 of 8 s, {opt_name}", step, mix2, tgt2,
+            3, ROFORMER_BF16_STEP_LAUNCHES)
+        for name, n in total.items():
+            launches[name] += n
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters()):
+        raise AssertionError("the bf16 step left a master weight or its gradient not float32")
+    # One more Adam step, split.
+    split = {}
+
+    def timed(part, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[part] = (time.perf_counter() - start) * 1e3
+        return out
+
+    with tf32_switches_on(), full_float32(), float32_bf16_reductions():
+        opt.zero_grad(set_to_none=True)
+        cast = timed("cast", lambda: {n: p.to(bf) for n, p in model.named_parameters()})
+        loss_fn = training.make_loss_fn(
+            cfg, functools.partial(torch.func.functional_call, model, cast))
+        loss = timed("forward + loss", lambda: loss_fn(mix2, tgt2))
+        timed("backward", loss.backward)
+        timed("optimiser", opt.step)
+    del loss, cast
+    with tf32_switches_on(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(mix2, tgt2)
+        torch.cuda.synchronize()
+    categories, by_kernel = {}, {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            cat = training_category(e.key)
+            categories[cat] = categories.get(cat, 0.0) + e.self_device_time_total / 1e3
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(categories.values())
+    mean_ms = sum(step_ms["Adam"]) / len(step_ms["Adam"])
+    log("[training] bf16 step, the device ms of its ten largest kernels: "
+        + "; ".join(f"{k} {v:.1f}" for k, v in
+                    sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]))
+    samples_per_s = 2 * chunk / (mean_ms / 1e3)
+    log(f"[training] {device_label}: bf16 flagship step split (Adam, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; peak device memory {peak_gib:.2f} GiB at batch 2; {samples_per_s:.0f} samples/s "
+        f"({samples_per_s / 44100:.2f} s of audio per second); device ms of one step by "
+        f"category ({busy:.1f} busy): "
+        + ", ".join(f"{k} {v:.1f} ({v / busy:.3f})" for k, v in
+                    sorted(categories.items(), key=lambda kv: -kv[1])))
+    del model, mix2, tgt2, opt, step, loss_fn
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "losses": losses, "split": split,
+            "peak_gib": peak_gib, "busy_ms": busy, "categories": categories,
+            "samples_per_s": samples_per_s, "gradient_margin_db": min(margins.values()),
+            "switch_moved": len(moved)}
 
 
 def phase_separator(ab, seed, seconds, device_label):
@@ -3521,12 +3811,12 @@ def phase_mesh_training(ab, seed):
     tgt = 0.5 * rng.standard_normal((2, 2, 2, chunk)).astype(np.float32) * 0.2 + 0.5 * mix[:, None]
     mix, tgt = torch.from_numpy(mix).cuda(), torch.from_numpy(tgt).cuda()
 
-    def grads(mesh, batch=1):
+    def grads(mesh, batch=1, dtype=torch.float32):
         model = load_jax_params(Roformer(cfg), tree).cuda()
         if mesh is not None:
             model = shard_model(model, mesh)
         step = make_train_step(cfg, model, torch.optim.SGD(model.parameters(), lr=0.0),
-                               mesh=mesh)
+                               mesh=mesh, compute_dtype=dtype)
         _build.reset_launch_counts()
         with tf32_switches_on():
             t0 = time.perf_counter()
@@ -3568,7 +3858,33 @@ def phase_mesh_training(ab, seed):
     if not (launches.get("fused_attention_block_partial") and launches.get("fused_ff_block_partial")
             and not launches.get("fused_attention_block")):
         raise AssertionError(f"the sharded step did not run the partial forms: {launches}")
-    return {"min_db": min(dbs.values()), "launches": launches}
+
+    # bf16: the sharded step's gathered gradients against the tp 1 float32
+    # step's, each within 6 dB of the tp 1 bf16 step's own distance to it.
+    loss16, g16, ms16, _ = grads(None, dtype=torch.bfloat16)
+    loss16_tp, g16_tp, ms16_tp, launches16 = grads(card_mesh(2), dtype=torch.bfloat16)
+    margins = {k: grad_db(g1[k], g16_tp[k]) - grad_db(g1[k], g16[k]) for k in g1}
+    failed16 = {k: v for k, v in margins.items() if v < -6.0}
+    db16 = [grad_db(g1[k], g16_tp[k]) for k in g1]
+    log(f"[mesh] bf16 flagship BS-RoFormer depth 2, one step on batch 2 of 8 s over a dp 2 x "
+        f"tp 2 mesh of the card: loss {loss16_tp:.6f} against {loss16:.6f} at tp 1 bf16 and "
+        f"{loss1:.6f} at tp 1 float32; gradients against the tp 1 float32 step: min "
+        f"{min(db16):.2f} dB, median {sorted(db16)[len(db16) // 2]:.2f} dB; minus the tp 1 bf16 "
+        f"step's (bar -6): min {min(margins.values()):.2f}, median "
+        f"{sorted(margins.values())[len(margins) // 2]:.2f}; step {ms16_tp:.0f} ms against "
+        f"{ms16:.0f} ms at tp 1 (first steps, with set-up); launches {launches16}")
+    if not math.isfinite(loss16_tp):
+        raise AssertionError(f"sharded bf16 loss {loss16_tp}")
+    if failed16:
+        raise AssertionError(f"sharded bf16 gradients more than 6 dB under the tp 1 bf16 "
+                             f"step's: {failed16}")
+    if not (launches16.get("fused_attention_block_partial")
+            and launches16.get("attention_backward_bf16")
+            and not launches16.get("attention_backward")):
+        raise AssertionError(f"the sharded bf16 step did not run the partial forms and the "
+                             f"bf16 backward forms: {launches16}")
+    return {"min_db": min(dbs.values()), "launches": launches,
+            "bf16_margin_db": min(margins.values()), "bf16_launches": launches16}
 
 
 def phase_mesh(ab, seed, seconds, device_label):
@@ -3717,7 +4033,7 @@ def main(argv=None) -> int:
     # The backward kernels: the main path is the [training] phase's steps
     # (flagship and HTDemucs); headline numbers over the flagship's two axes.
     for name, (source, replaces) in BACKWARD_KERNELS.items():
-        cases = [r for r in training["records"] if r["name"] == name]
+        cases = [r for r in training["records"] if r["name"] == name and r["dtype"] == "float32"]
         main = [r for r in cases if r["axis"] in ("time", "freq")]
         library = [r["library_ms"] for r in main if r["library_ms"] is not None]
         kernels.append({
@@ -3737,6 +4053,30 @@ def main(argv=None) -> int:
                       for r in cases],
             "launches_per_roformer_step": ROFORMER_STEP_LAUNCHES[name],
             "launches_per_htdemucs_step": HTDEMUCS_STEP_LAUNCHES[name],
+        })
+    # Their bf16 forms: the main path is the [training] phase's bf16 flagship
+    # steps; headline numbers over the flagship's two axes, bf16 cases.
+    for name, (float_name, source) in BF16_BACKWARD_KERNELS.items():
+        main = [r for r in training["records"]
+                if r["name"] == float_name and r["dtype"] == "bfloat16"]
+        library = [r["library_ms"] for r in main if r["library_ms"] is not None]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": BACKWARD_KERNELS[float_name][1],
+            "launches": training["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in main),
+            "ms": sum(r["ms"] for r in main) / len(main),
+            "plain_ms": sum(r["plain_ms"] for r in main) / len(main),
+            "bound_ms": sum(r["bound_ms"] for r in main) / len(main),
+            "bound_by": main[0]["bound_by"],
+            "library_ms": sum(library) / len(library) if library else None,
+            "cases": [{k: r.get(k) for k in ("dtype", "axis", "shape", "n_valid", "ms",
+                                              "plain_ms", "library_ms", "library_note",
+                                              "bound_ms", "bound_by", "max_abs_err", "rel_errs",
+                                              "split")}
+                      for r in main],
+            "launches_per_bf16_roformer_step": ROFORMER_BF16_STEP_LAUNCHES[name],
+            "mesh_bf16_step_launches": mesh["training"]["bf16_launches"].get(name, 0),
         })
     # The partial-sum forms: the main path is [mesh]'s float32 flagship
     # forward at tp 2; headline numbers at tp 2 in float32 over both axes,

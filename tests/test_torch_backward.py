@@ -290,16 +290,27 @@ def test_rope_gate_backward_matches_autograd(rope):
 
 
 def test_cpu_backward_launches_no_kernel_and_refuses_bf16():
+    """On the CPU every backward wrapper takes its plain version, in float32
+    and in bf16, and launches nothing; bf16 is taken where a bf16 step runs
+    it (the RoFormer blocks) and refused, naming ROADMAP C16, by the
+    whole-sequence attention's backward, whose only caller is HTDemucs
+    training."""
     rng = np.random.default_rng(8)
     before = dict(att.LAUNCHES)
     x = torch.from_numpy(_randn(rng, 4, 64))
-    bb.rmsnorm_backward(x, torch.ones(64), x)
-    bb.gelu_backward(x, x)
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        dx, dgamma = bb.rmsnorm_backward(xd, torch.ones(64), xd)
+        dpre, h = bb.gelu_backward(xd, xd)
+        assert (dx.dtype, dgamma.dtype, dpre.dtype, h.dtype) == (dt, torch.float32, dt, dt)
+        q = torch.from_numpy(_randn(rng, 1, 2, 64, 8)).to(dt)
+        gates = torch.rand(1, 2, 64)
+        merged = torch.from_numpy(_randn(rng, 1, 64, 16)).to(dt)
+        dq, dk, dv, delta = att.attention_backward(q, q, q, merged, merged, 0.3, 50, gates=gates)
+        assert (dq.dtype, delta.dtype) == (dt, torch.float32)
+        dqkv, dz = bb.rope_gate_backward(dq, dk, dv, delta, gates, None)
+        assert (dqkv.dtype, dz.dtype) == (dt, torch.float32)
     assert att.LAUNCHES == before
-    for fn, args in ((bb.rmsnorm_backward, (x, torch.ones(64), x)),
-                     (bb.gelu_backward, (x, x))):
-        with pytest.raises(NotImplementedError, match="17b"):
-            fn(*(a.to(torch.bfloat16) for a in args))
     q = torch.from_numpy(_randn(rng, 1, 1, 8, 8)).to(torch.bfloat16).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="17b"):
+    with pytest.raises(NotImplementedError, match="C16"):
         att.dot_product_attention(q, q, q).sum().backward()

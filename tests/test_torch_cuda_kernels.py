@@ -319,7 +319,9 @@ def test_model_forward_on_card_matches_cpu(cuda):
                            "fused_attention_block_partial": 0, "fused_ff_block_partial": 0,
                            "fused_attention": 0, "attention_backward": 0,
                            "rmsnorm_backward": 0, "gelu_backward": 0,
-                           "rope_gate_backward": 0}
+                           "rope_gate_backward": 0, "attention_backward_bf16": 0,
+                           "rmsnorm_backward_bf16": 0, "gelu_backward_bf16": 0,
+                           "rope_gate_backward_bf16": 0}
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
 
@@ -646,12 +648,146 @@ def test_attention_function_backward_matches_plain_autograd(cuda, shape):
 
 
 def test_backward_kernels_refuse_bf16(cuda):
+    """The bf16 forms serve the RoFormer blocks; the whole-sequence attention's
+    backward (HTDemucs training, float32 only in the JAX package) refuses
+    bf16, naming ROADMAP C16."""
     x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="17b"):
-        bb.rmsnorm_backward(x, torch.ones(64, device=cuda), x)
+    launched = _counted("rmsnorm_backward_bf16")
+    dx, _ = bb.rmsnorm_backward(x, torch.ones(64, device=cuda), x)
+    assert dx.dtype == torch.bfloat16 and launched() == 1
     q = torch.randn(1, 1, 64, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="17b"):
+    with pytest.raises(NotImplementedError, match="C16"):
         att.dot_product_attention(q, q, q).sum().backward()
+
+
+# The bf16 forms of K1-K4 against their plain bf16 versions (the bf16
+# tolerance: both sides round to bf16 at the same points, in other orders).
+
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize("b,n,n_valid", [(16, 832, 801), (96, 64, 62), (2, 64, 1), (2, 65, 65),
+                                         (2, 129, 70), (2, 300, 257), (3, 128, 128)])
+def test_gated_attention_backward_bf16_kernel_matches_plain(cuda, b, n, n_valid):
+    q, k, v, o, do, gates = _attention_bwd_case(cuda, 61 + n + n_valid, b, 8, n, 64, True)
+    q, k, v, o, do = (t.to(BF) for t in (q, k, v, o, do))
+    launched = _counted("attention_backward_bf16")
+    first = att.attention_backward(q, k, v, o, do, 0.125, n_valid, gates=gates)
+    second = att.attention_backward(q, k, v, o, do, 0.125, n_valid, gates=gates)
+    torch.cuda.synchronize()
+    assert launched() == 2
+    want = att.attention_bwd_ref(q, k, v, o, do, 0.125, n_valid, gates=gates)
+    for a, a2, w in zip(first, second, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, a2)
+        _close(a, w, BF)
+    assert not first[1][:, :, n_valid:].any() and not first[2][:, :, n_valid:].any()
+
+
+@pytest.mark.parametrize("rows,d,zero_rows", [(16 * 832, 512, 31), (96 * 64, 512, 2), (5, 64, 1)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_rmsnorm_backward_bf16_kernel_matches_plain(cuda, rows, d, zero_rows, residual):
+    g = torch.Generator(device=cuda).manual_seed(63)
+    x, dxn, dres = (torch.randn(rows, d, generator=g, device=cuda).to(BF) for _ in range(3))
+    x[-zero_rows:] = 0  # padded tokens
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    launched = _counted("rmsnorm_backward_bf16")
+    got = bb.rmsnorm_backward(x, gamma, dxn, dres if residual else None)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    want = bb.rmsnorm_bwd_ref(x, gamma, dxn, dres if residual else None)
+    assert (got[0].dtype, got[1].dtype) == (BF, torch.float32)
+    _close(got[0], want[0], BF)
+    _close(got[1], want[1], torch.float32)  # dγ: float32 sums of the same values
+
+
+@pytest.mark.parametrize("rows,hidden", [(16 * 832, 2048), (7, 64)])
+def test_gelu_backward_bf16_kernel_matches_plain(cuda, rows, hidden):
+    g = torch.Generator(device=cuda).manual_seed(64)
+    pre = (torch.randn(rows, hidden, generator=g, device=cuda) * 2).to(BF)
+    dh = torch.randn(rows, hidden, generator=g, device=cuda).to(BF)
+    launched = _counted("gelu_backward_bf16")
+    got = bb.gelu_backward(pre, dh)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    for a, w in zip(got, bb.gelu_bwd_ref(pre, dh)):
+        assert a.dtype == BF
+        _close(a, w, BF)
+
+
+@pytest.mark.parametrize("b,n_pad,heads,rope", [(16, 832, 8, True), (96, 64, 8, True),
+                                                (3, 128, 5, False)])
+def test_rope_gate_backward_bf16_kernel_matches_plain(cuda, b, n_pad, heads, rope):
+    g = torch.Generator(device=cuda).manual_seed(65)
+    dq, dk, dv = (torch.randn(b, heads, n_pad, 64, generator=g, device=cuda).to(BF)
+                  for _ in range(3))
+    delta = torch.randn(b, heads, n_pad, generator=g, device=cuda)
+    gates = torch.sigmoid(torch.randn(b, heads, n_pad, generator=g, device=cuda))
+    tables = _rope_tables(n_pad, 64, BF, cuda) if rope else None
+    launched = _counted("rope_gate_backward_bf16")
+    got = bb.rope_gate_backward(dq, dk, dv, delta, gates, tables)
+    torch.cuda.synchronize()
+    assert launched() == 1
+    want = bb.rope_gate_bwd_ref(dq, dk, dv, delta, gates, tables)
+    assert (got[0].dtype, got[1].dtype) == (BF, torch.float32)
+    _close(got[0], want[0], BF)
+    _close(got[1], want[1], torch.float32)
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("b,n_valid", [(2, 801), (16, 62)])
+def test_block_functions_bf16_backward_launch_the_bf16_forms(cuda, b, n_valid):
+    """Both blocks' autograd Functions in bf16 on the card run K1-K4's bf16
+    forms (and no float32 form), and every gradient's distance to the
+    float32 Functions' is within 6 dB of the same bf16 composition's on the
+    CPU (the plain versions, rounding at the same points): the kernels add
+    at most 6 dB to what bf16 costs."""
+    d, h, hidden = 512, 8, 2048
+    n_pad = -(-n_valid // 64) * 64
+    g = torch.Generator(device=cuda).manual_seed(66)
+    x = torch.randn(b, n_pad, d, generator=g, device=cuda).to(BF)
+    x[:, n_valid:] = 0
+    dy = torch.randn(b, n_pad, d, generator=g, device=cuda).to(BF)
+    dy[:, n_valid:] = 0
+    cos, sin = _rope_tables(n_valid, 64, BF, cuda)
+    tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    blocks = {
+        "attention": (ab.fused_attention_block, dict(heads=h, n_valid=n_valid),
+                      _block_weights(g, cuda, BF, d, h),
+                      {"fused_attention_block": 1, "attention_backward_bf16": 1,
+                       "rope_gate_backward_bf16": 1, "rmsnorm_backward_bf16": 1}),
+        "feedforward": (ab.fused_ff_block, {}, dict(
+            ff_norm=(1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(BF),
+            w1=(torch.randn(d, hidden, generator=g, device=cuda) * 0.05).to(BF),
+            b1=(torch.randn(hidden, generator=g, device=cuda) * 0.05).to(BF),
+            w2=(torch.randn(hidden, d, generator=g, device=cuda) * 0.05).to(BF),
+            b2=(torch.randn(d, generator=g, device=cuda) * 0.05).to(BF)),
+                        {"fused_ff_block": 1, "gelu_backward_bf16": 1,
+                         "rmsnorm_backward_bf16": 1})}
+    for which, (fn, kw, weights, plan) in blocks.items():
+        def grads(device, dtype):
+            xs = x.to(device, dtype).requires_grad_(True)
+            ws = {k: t.to(device, dtype).requires_grad_(True) for k, t in weights.items()}
+            extra = ({"rope": tuple(t.to(device, dtype) for t in tables)}
+                     if which == "attention" else {})
+            out = fn(xs, **kw, **extra, **ws)
+            return [t.float().cpu() for t in torch.autograd.grad(out, [xs, *ws.values()],
+                                                                 dy.to(device, dtype))]
+
+        _build.reset_launch_counts()
+        got = grads(cuda, BF)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == plan
+        ref = grads(cuda, torch.float32)
+        plain = grads(torch.device("cpu"), BF)
+        for name, a, r, p in zip(["x", *weights], got, ref, plain):
+            if name == "x":
+                a, r, p = a[:, :n_valid], r[:, :n_valid], p[:, :n_valid]
+            assert _rel_l2(a, r) <= 2 * _rel_l2(p, r), (which, name, _rel_l2(a, r),
+                                                         _rel_l2(p, r))
 
 
 # ------------------------------------------------- partial-sum forms (the mesh)

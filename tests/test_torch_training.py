@@ -16,7 +16,9 @@
   backward are the kernels' plain versions.
 * Adam: the loss decreases, as in tests/test_training.py.
 * ``mesh=`` takes a module laid out for the mesh (tests/test_torch_mesh_training.py
-  holds the sharded step), bf16 is refused, and inference builds no graph.
+  holds the sharded step), bf16 is taken for the RoFormer family alone
+  (tests/test_torch_bf16_training.py holds the bf16 step), and inference
+  builds no graph.
 """
 
 import dataclasses
@@ -208,8 +210,11 @@ def test_trained_parameters_round_trip_the_npz(tmp_path):
 
 
 def test_mesh_and_bf16_are_refused_with_their_items():
-    """``mesh=`` (item 16) takes a module laid out for that mesh and refuses
-    any other; bf16 (item 17b) is refused."""
+    """``mesh=`` takes a module laid out for that mesh and refuses any other;
+    bf16 compute is taken for the RoFormer family (float32 masters), while a
+    bf16 module (its masters would be bf16) and HTDemucs or HDemucs in bf16
+    (ROADMAP C16) are refused. tests/test_torch_bf16_training.py holds the
+    bf16 step itself."""
     from audio_separator_tpu_torch.parallel.mesh import make_mesh, shard_model
 
     model = Roformer(_port_config(JAX_BS_CFG))
@@ -220,9 +225,17 @@ def test_mesh_and_bf16_are_refused_with_their_items():
     sharded = shard_model(model, mesh)
     assert callable(make_train_step(sharded.cfg, sharded,
                                     torch.optim.SGD(sharded.parameters(), lr=1e-2), mesh=mesh))
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        make_train_step(model.cfg, model, opt, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    assert callable(make_train_step(sharded.cfg, sharded,
+                                    torch.optim.SGD(sharded.parameters(), lr=1e-2), mesh=mesh,
+                                    compute_dtype=torch.bfloat16))
+    assert callable(make_train_step(model.cfg, model, opt, compute_dtype=torch.bfloat16))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    hdemucs = ht.HDemucs(ht.HTDemucsConfig(**HDEMUCS_KW, dconv_lstm=2, dconv_attn=2,
+                                           dconv_comp=4))
+    with pytest.raises(NotImplementedError, match="C16"):
+        make_train_step(hdemucs.cfg, hdemucs, torch.optim.SGD(hdemucs.parameters(), lr=1e-2),
+                        compute_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="master weights"):
         make_train_step(model.cfg, model.to(torch.bfloat16), opt)
 
 
