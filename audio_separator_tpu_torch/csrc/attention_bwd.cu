@@ -71,6 +71,13 @@
 // The sums over the sequence add each tile's products (at most 64 deep) on
 // the FMA pipe: the tensor cores' adder rounds with a bias that a long
 // chain builds up (gemm_tf32.cuh).
+//
+// The bf16 form (attention_bwd_bf16.cuh, gated layout) splits the same way
+// but needs no splits: n > 64 two launches on wgmma bf16 with every operand
+// brought by TMA into 128-byte swizzled tiles, seven N²·D products (dQ in one
+// online pass), each warpgroup owning 64 rows; n <= 64 one launch a sequence
+// on mma.sync.m16n8k16, five products, four blocks an SM. Its header gives
+// what bounds each path.
 #include "bwd_common.cuh"
 #include "hopper.cuh"
 
@@ -1135,9 +1142,9 @@ cudaError_t run_attention_bwd(const float* q, const float* k, const float* v, co
 // dh) and, with o and dout, of type dtype; gates float32; lse and delta (bh,
 // n) are written, float32: lse is the row log-sum-exp of the scaled scores in
 // base 2 (scratch for the second launch), delta is Δ (which the attention
-// block's gate gradient reads). Contiguous. float32: n <= 64 takes one
-// launch, longer sequences two; bf16 takes two. Returns 0 or the first CUDA
-// error.
+// block's gate gradient reads). Contiguous, 16-byte aligned (bf16: TMA).
+// Both types: n <= 64 takes one launch, longer sequences two. Returns 0 or
+// the first CUDA error.
 extern "C" int asep_attention_bwd(int dtype, int layout, const void* q, const void* k,
                                   const void* v, const void* o, const void* dout,
                                   const void* gates, void* dq, void* dk, void* dv, void* lse,

@@ -4,8 +4,8 @@
 // CUDA they use PTX that sm_80 introduced and sm_90a keeps: cp.async (below)
 // and, in attention_bwd.cu, the tensor-core products mma.sync.m16n8k8 (TF32)
 // and m16n8k16 (bf16) and ldmatrix; attention_bwd.cu also uses Hopper's wgmma
-// (TF32, its descriptors and fences from hopper.cuh), but no TMA and no
-// mbarrier.
+// (TF32 and bf16, its descriptors and fences from hopper.cuh) and, in its bf16
+// form, TMA tensor maps, mbarriers and setmaxnreg.
 //
 // Each library exposes a plain C interface (loaded with ctypes, see
 // ops/_build.py) whose entry points return cudaGetLastError() after each

@@ -1,5 +1,5 @@
 // Hopper-only building blocks (sm_90a) as raw PTX, shared by the tensor-core
-// kernels of tiles.cuh and gemm_tf32.cuh:
+// kernels of tiles.cuh, gemm_tf32.cuh and attention_bwd.cu:
 //   * mbarrier — shared-memory barriers that count thread arrivals and the
 //     bytes of TMA transfers, in this block or in another block of the cluster;
 //   * TMA — cp.async.bulk.tensor loads of whole 128-byte-swizzled tiles, driven
@@ -229,6 +229,17 @@ inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base, uint64_t
     return encode_bf16_map(map, base, 3, dims, strides, box);
 }
 
+// (batch, rows, heads·64) contiguous bf16, the merged heads, boxes of box_rows
+// x 64 of one head (the innermost coordinate is head·64): rows past `rows` read
+// as zeros.
+inline cudaError_t encode_merged_map(CUtensorMap* map, const void* base, uint64_t batch,
+                                     uint64_t rows, uint64_t heads, uint32_t box_rows) {
+    const uint64_t dims[3] = {heads * 64, rows, batch},
+                   strides[2] = {heads * 128, rows * heads * 128};
+    const uint32_t box[3] = {64, box_rows, 1};
+    return encode_bf16_map(map, base, 3, dims, strides, box);
+}
+
 // ---------------------------------------------------------------------------
 // wgmma. Operand tiles in shared memory are rows of 128 bytes (64 bf16) in
 // 1024-byte atoms of eight rows, 128-byte swizzled, 1024-byte aligned:
@@ -369,6 +380,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+}
+
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 

@@ -3947,7 +3947,8 @@ def main(argv=None) -> int:
         log(f"[build] {_build.library_path(name)} from "
             f"{os.path.relpath(os.path.join(_build.CSRC_DIR, _build.KERNEL_SOURCES[name]), REPO)}")
         for line in report.splitlines():
-            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
+            # C75xx: ptxas serialised a wgmma pipeline (Potential Performance Loss)
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "C75")):
                 log(f"[ptxas] {name}: {line.strip()}")
 
     if args.phase == "remote":

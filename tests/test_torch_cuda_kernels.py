@@ -666,11 +666,9 @@ def test_backward_kernels_refuse_bf16(cuda):
 BF = torch.bfloat16
 
 
-@pytest.mark.parametrize("b,n,n_valid", [(16, 832, 801), (96, 64, 62), (2, 64, 1), (2, 65, 65),
-                                         (2, 129, 70), (2, 300, 257), (3, 128, 128)])
-def test_gated_attention_backward_bf16_kernel_matches_plain(cuda, b, n, n_valid):
-    q, k, v, o, do, gates = _attention_bwd_case(cuda, 61 + n + n_valid, b, 8, n, 64, True)
-    q, k, v, o, do = (t.to(BF) for t in (q, k, v, o, do))
+def _check_bf16_attention_backward(q, k, v, o, do, gates, n_valid):
+    """Two calls of K1's bf16 form: the same bits, each output within the
+    bf16 tolerance of the plain bf16 version, dk and dv zero past n_valid."""
     launched = _counted("attention_backward_bf16")
     first = att.attention_backward(q, k, v, o, do, 0.125, n_valid, gates=gates)
     second = att.attention_backward(q, k, v, o, do, 0.125, n_valid, gates=gates)
@@ -682,6 +680,52 @@ def test_gated_attention_backward_bf16_kernel_matches_plain(cuda, b, n, n_valid)
         assert torch.equal(a, a2)
         _close(a, w, BF)
     assert not first[1][:, :, n_valid:].any() and not first[2][:, :, n_valid:].any()
+
+
+# n <= 64 runs one launch a sequence, longer sequences two launches on wgmma
+# over blocks of 128 rows: the edges of both, ragged lengths, key blocks
+# wholly or partly past n_valid, and the head counts of the sharded step
+# (2 and 4 heads a shard).
+@pytest.mark.parametrize("b,h,n,n_valid", [
+    (16, 8, 832, 801), (96, 8, 64, 62), (2, 8, 64, 1), (2, 8, 33, 33), (2, 8, 64, 64),
+    (2, 8, 65, 65), (2, 8, 129, 70), (2, 8, 300, 257), (2, 8, 300, 129), (3, 8, 128, 128),
+    (2, 8, 450, 450), (4, 2, 832, 801), (4, 4, 832, 801), (24, 2, 64, 62), (24, 4, 64, 62),
+    (3, 4, 129, 129)])
+def test_gated_attention_backward_bf16_kernel_matches_plain(cuda, b, h, n, n_valid):
+    q, k, v, o, do, gates = _attention_bwd_case(cuda, 61 + n + n_valid, b, h, n, 64, True)
+    q, k, v, o, do = (t.to(BF) for t in (q, k, v, o, do))
+    _check_bf16_attention_backward(q, k, v, o, do, gates, n_valid)
+
+
+def _late_maximum_case(cuda, seed, b, h, n, n_valid):
+    """Scaled scores that rise along the keys to about 20: every row's
+    largest score lies in its last key tile, so the dQ launch's running
+    maximum grows, and its sums are rescaled, at every tile."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    e = torch.full((64,), 0.125, device=cuda)  # a unit vector
+    tiles = -(-n_valid // 64)
+    ramp = 20.0 * (torch.arange(n, device=cuda).clamp(max=n_valid - 1) // 64 + 1) / tiles
+    q = 0.05 * torch.randn(b, h, n, 64, generator=g, device=cuda) + 8.0 * e
+    k = 0.05 * torch.randn(b, h, n, 64, generator=g, device=cuda) + ramp[:, None] * e
+    v = torch.randn(b, h, n, 64, generator=g, device=cuda)
+    gates = torch.sigmoid(torch.randn(b, h, n, generator=g, device=cuda))
+    o, do = (torch.randn(b, n, h * 64, generator=g, device=cuda) for _ in range(2))
+    return (*(t.to(BF) for t in (q, k, v, o, do)), gates)
+
+
+@pytest.mark.parametrize("n,n_valid", [(832, 801), (300, 257), (64, 62)])
+def test_attention_backward_bf16_kernel_with_the_maximum_in_the_last_tile(cuda, n, n_valid):
+    """The bf16 counterpart of the scores-near-twenty test: scaled scores
+    reach 20, and each row's maximum moves up at every key tile."""
+    q, k, v, o, do, gates = _late_maximum_case(cuda, 71 + n, 2, 4, n, n_valid)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))[..., :n_valid] * 0.125
+    assert float(s.max()) >= 15.0
+    tiles = s.split(64, dim=-1)
+    running = tiles[0].amax(-1)
+    for tile in tiles[1:]:  # every tile raises every row's maximum
+        assert bool((tile.amax(-1) > running).all())
+        running = torch.maximum(running, tile.amax(-1))
+    _check_bf16_attention_backward(q, k, v, o, do, gates, n_valid)
 
 
 @pytest.mark.parametrize("rows,d,zero_rows", [(16 * 832, 512, 31), (96 * 64, 512, 2), (5, 64, 1)])
