@@ -29,6 +29,7 @@ from ..models.htdemucs import HTDemucs, HTDemucsConfig, build_demucs
 from ..ops.demix import overlap_add_demix
 from ..ops.fn_cache import file_key, memoized_model
 from ..separator.common import BaseSeparator
+from ..utils.tracing import span
 
 DEMUCS_4_SOURCE_MAPPER = {
     BaseSeparator.BASS_STEM: 0,
@@ -163,10 +164,11 @@ class DemucsSeparator(BaseSeparator):
         source), and they come back in ``wanted`` order. ``None`` returns all
         sources in post-swap order."""
         models, weights = self._load_models()
-        mix = np.asarray(mix, dtype=np.float32)
-        ref_mean = float(mix.mean(axis=0).mean())
-        ref_std = float(mix.mean(axis=0).std(ddof=1))
-        norm = (mix - ref_mean) / (ref_std + 1e-20)
+        with span("separate.normalize"):
+            mix = np.asarray(mix, dtype=np.float32)
+            ref_mean = float(mix.mean(axis=0).mean())
+            ref_std = float(mix.mean(axis=0).std(ddof=1))
+            norm = (mix - ref_mean) / (ref_std + 1e-20)
 
         n_sources = len(models[0].cfg.sources)
         if wanted is None:
@@ -174,22 +176,25 @@ class DemucsSeparator(BaseSeparator):
         else:
             # Undo the final 0<->1 swap: `fetch` is in model-output order.
             fetch = tuple(1 if i == 0 else 0 if i == 1 else i for i in wanted)
-        estimates = np.zeros((len(fetch), 2, mix.shape[-1]), dtype=np.float32)
-        totals = [0.0] * len(fetch)
-        rng = np.random.default_rng(0)  # one generator for the whole bag
-        for model, weight, replicas in zip(models, weights, self._member_replicas):
-            member = model if self.mesh is None else _MemberOnRows(self, model, *replicas)
-            out = self._apply_one(member, norm, rng, fetch=fetch)
-            for j, k in enumerate(fetch):
-                out[j] *= weight[k]
-                totals[j] += weight[k]
-            estimates += out
-        for j in range(len(fetch)):
-            estimates[j] /= totals[j]
+        # The bag's shift and split host work, around the engine's own spans.
+        with span("demix.plan"):
+            estimates = np.zeros((len(fetch), 2, mix.shape[-1]), dtype=np.float32)
+            totals = [0.0] * len(fetch)
+            rng = np.random.default_rng(0)  # one generator for the whole bag
+            for model, weight, replicas in zip(models, weights, self._member_replicas):
+                member = model if self.mesh is None else _MemberOnRows(self, model, *replicas)
+                out = self._apply_one(member, norm, rng, fetch=fetch)
+                for j, k in enumerate(fetch):
+                    out[j] *= weight[k]
+                    totals[j] += weight[k]
+                estimates += out
+            for j in range(len(fetch)):
+                estimates[j] /= totals[j]
 
-        sources = estimates * ref_std + ref_mean
-        if wanted is None:
-            sources[[0, 1]] = sources[[1, 0]]
+        with span("separate.normalize"):
+            sources = estimates * ref_std + ref_mean
+            if wanted is None:
+                sources[[0, 1]] = sources[[1, 0]]
         return sources
 
     def _apply_one(self, model: HTDemucs, mix: np.ndarray, rng,

@@ -39,6 +39,7 @@ from ..separator.roformer_config import (
     flatten_model_config,
     normalize_roformer_params,
 )
+from ..utils.tracing import span
 
 
 def _synchronize(device) -> None:
@@ -148,7 +149,9 @@ class MDXCSeparator(BaseSeparator):
             self.override_model_segment_size = True
             self.logger.warning("Audio shorter than 10s; enabling override_model_segment_size.")
 
-        mix = spec_ops.normalize(mix, self.normalization_threshold, self.amplification_threshold)
+        with span("separate.normalize"):
+            mix = spec_ops.normalize(mix, self.normalization_threshold,
+                                     self.amplification_threshold)
         source = self.demix(mix)
         return self._finalize_outputs(source, custom_output_names)
 
@@ -182,8 +185,9 @@ class MDXCSeparator(BaseSeparator):
                     batchable = False
                     break
                 depths.append(self.input_bit_depth)
-                prepared.append(spec_ops.normalize(
-                    mix, self.normalization_threshold, self.amplification_threshold))
+                with span("separate.normalize"):
+                    prepared.append(spec_ops.normalize(
+                        mix, self.normalization_threshold, self.amplification_threshold))
         if not batchable:
             return [self.separate(p, n) for p, n in zip(audio_file_paths, names)]
 
@@ -199,47 +203,48 @@ class MDXCSeparator(BaseSeparator):
         return outputs
 
     def _finalize_outputs(self, source, custom_output_names: Optional[Dict]):
-        output_files = []
-        if isinstance(source, dict):
-            if self.process_all_stems and len(self.stem_list) > 2:
-                for stem_name in self.stem_list:
-                    path = self.get_stem_output_path(stem_name, custom_output_names)
-                    stem = spec_ops.normalize(source[stem_name], self.normalization_threshold,
-                                              self.amplification_threshold).T
-                    self.final_process(path, stem, stem_name)
+        with span("separate.finalize"):
+            output_files = []
+            if isinstance(source, dict):
+                if self.process_all_stems and len(self.stem_list) > 2:
+                    for stem_name in self.stem_list:
+                        path = self.get_stem_output_path(stem_name, custom_output_names)
+                        stem = spec_ops.normalize(source[stem_name], self.normalization_threshold,
+                                                  self.amplification_threshold).T
+                        self.final_process(path, stem, stem_name)
+                        output_files.append(path)
+                    return output_files
+
+                # With output_single_stem, demix fetched only the requested stem;
+                # the other name is absent here and is never written below.
+                if (not isinstance(self.primary_source, np.ndarray)
+                        and self.primary_stem_name in source):
+                    self.primary_source = spec_ops.normalize(
+                        source[self.primary_stem_name],
+                        self.normalization_threshold, self.amplification_threshold).T
+                if (not isinstance(self.secondary_source, np.ndarray)
+                        and self.secondary_stem_name in source):
+                    self.secondary_source = spec_ops.normalize(
+                        source[self.secondary_stem_name],
+                        self.normalization_threshold, self.amplification_threshold).T
+
+                if (not self.output_single_stem
+                        or self.output_single_stem.lower() == self.secondary_stem_name.lower()):
+                    path = self.get_stem_output_path(self.secondary_stem_name, custom_output_names)
+                    self.final_process(path, self.secondary_source, self.secondary_stem_name)
                     output_files.append(path)
-                return output_files
-
-            # With output_single_stem, demix fetched only the requested stem;
-            # the other name is absent here and is never written below.
-            if (not isinstance(self.primary_source, np.ndarray)
-                    and self.primary_stem_name in source):
-                self.primary_source = spec_ops.normalize(
-                    source[self.primary_stem_name],
-                    self.normalization_threshold, self.amplification_threshold).T
-            if (not isinstance(self.secondary_source, np.ndarray)
-                    and self.secondary_stem_name in source):
-                self.secondary_source = spec_ops.normalize(
-                    source[self.secondary_stem_name],
-                    self.normalization_threshold, self.amplification_threshold).T
-
-            if (not self.output_single_stem
-                    or self.output_single_stem.lower() == self.secondary_stem_name.lower()):
-                path = self.get_stem_output_path(self.secondary_stem_name, custom_output_names)
-                self.final_process(path, self.secondary_source, self.secondary_stem_name)
-                output_files.append(path)
-            if (not self.output_single_stem
+                if (not self.output_single_stem
+                        or self.output_single_stem.lower() == self.primary_stem_name.lower()):
+                    path = self.get_stem_output_path(self.primary_stem_name, custom_output_names)
+                    self.final_process(path, self.primary_source, self.primary_stem_name)
+                    output_files.append(path)
+            elif (not self.output_single_stem
                     or self.output_single_stem.lower() == self.primary_stem_name.lower()):
                 path = self.get_stem_output_path(self.primary_stem_name, custom_output_names)
+                if not isinstance(self.primary_source, np.ndarray):
+                    self.primary_source = source.T
                 self.final_process(path, self.primary_source, self.primary_stem_name)
                 output_files.append(path)
-        elif (not self.output_single_stem
-                or self.output_single_stem.lower() == self.primary_stem_name.lower()):
-            path = self.get_stem_output_path(self.primary_stem_name, custom_output_names)
-            if not isinstance(self.primary_source, np.ndarray):
-                self.primary_source = source.T
-            self.final_process(path, self.primary_source, self.primary_stem_name)
-            output_files.append(path)
         return output_files
 
     def _segment_size(self) -> int:
@@ -327,8 +332,9 @@ class MDXCSeparator(BaseSeparator):
             self._model_fn(), mixes, chunk, step, window, num_stems=num_stems,
             batch_size=max(1, int(self.batch_size)), fetch_stems=fetch_stems,
             device=self.device, mesh=self.mesh)
-        return [self._sources_from_out(out, kept_names, num_stems, mix)
-                for out, mix in zip(outs, mixes)]
+        with span("separate.finalize"):
+            return [self._sources_from_out(out, kept_names, num_stems, mix)
+                    for out, mix in zip(outs, mixes)]
 
     def demix(self, mix: np.ndarray):
         orig_mix = mix
@@ -352,7 +358,8 @@ class MDXCSeparator(BaseSeparator):
                                      fetch_stems=fetch_stems)
         if self.pitch_shift != 0:
             out = [self._pitch_fix(value, sample_rate, orig_mix) for value in out]
-        return self._sources_from_out(out, kept_names, num_stems, orig_mix)
+        with span("separate.finalize"):
+            return self._sources_from_out(out, kept_names, num_stems, orig_mix)
 
     def _demix_unfold(self, mix: np.ndarray, chunk: int, hop_size: int, num_stems: int,
                       fetch_stems: Optional[tuple] = None):

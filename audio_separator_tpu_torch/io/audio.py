@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..ops.resample import resample_poly_np
+from ..utils.tracing import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CODEC_SOURCE = os.path.join(_HERE, "codec.cpp")
@@ -233,22 +234,23 @@ def load_audio(path: str, sample_rate: Optional[int] = None,
     """Decode to float32 ``(channels, samples)``, optionally resampled and
     up/down-mixed (inside libswresample on the codec routes). Returns
     ``(pcm, sample_rate)``."""
-    route = _route()
-    if route == "subprocess":
-        return _load_subprocess(path, sample_rate, channels)
-    if route == "wav":
-        return _load_wav(path, sample_rate, channels)
-    data = ctypes.POINTER(ctypes.c_float)()
-    frames, ch, sr = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
-    rc = _lib.as_decode(path.encode(), sample_rate or 0, channels or 0, ctypes.byref(data),
-                        ctypes.byref(frames), ctypes.byref(ch), ctypes.byref(sr))
-    if rc != 0:
-        raise RuntimeError(f"decode failed for {path}: {_lib.as_last_error().decode()}")
-    try:
-        arr = np.ctypeslib.as_array(data, shape=(frames.value * ch.value,)).copy()
-    finally:
-        _lib.as_free(data)
-    return np.ascontiguousarray(arr.reshape(frames.value, ch.value).T), sr.value
+    with span("audio.decode"):
+        route = _route()
+        if route == "subprocess":
+            return _load_subprocess(path, sample_rate, channels)
+        if route == "wav":
+            return _load_wav(path, sample_rate, channels)
+        data = ctypes.POINTER(ctypes.c_float)()
+        frames, ch, sr = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+        rc = _lib.as_decode(path.encode(), sample_rate or 0, channels or 0, ctypes.byref(data),
+                            ctypes.byref(frames), ctypes.byref(ch), ctypes.byref(sr))
+        if rc != 0:
+            raise RuntimeError(f"decode failed for {path}: {_lib.as_last_error().decode()}")
+        try:
+            arr = np.ctypeslib.as_array(data, shape=(frames.value * ch.value,)).copy()
+        finally:
+            _lib.as_free(data)
+        return np.ascontiguousarray(arr.reshape(frames.value, ch.value).T), sr.value
 
 
 def save_audio(path: str, pcm: np.ndarray, sample_rate: int,
@@ -258,25 +260,26 @@ def save_audio(path: str, pcm: np.ndarray, sample_rate: int,
     the extension's unless given; WAV, FLAC and AIFF keep ``bit_depth`` (16,
     24, or 32 = IEEE float for WAV); ``bitrate_kbps`` sets lossy formats'
     rate."""
-    if pcm.ndim == 1:
-        pcm = pcm[None, :]
-    fmt = (output_format or os.path.splitext(path)[1].lstrip(".") or "wav").lower()
-    interleaved = np.ascontiguousarray(pcm.T, dtype=np.float32)
-    if fmt == "wav":
-        _save_wav(path, interleaved, sample_rate, bit_depth)
-        return
-    route = _route()
-    if route == "subprocess":
-        _save_subprocess(path, interleaved, sample_rate, fmt, bit_depth, bitrate_kbps)
-        return
-    if route == "wav":
-        raise RuntimeError(f"cannot encode '{fmt}': native codec unavailable ({_lib_error}); "
-                           f"only WAV is written without it")
-    ptr = interleaved.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-    rc = _lib.as_encode(path.encode(), ptr, interleaved.shape[0], interleaved.shape[1],
-                        sample_rate, fmt.encode(), bit_depth, bitrate_kbps)
-    if rc != 0:
-        raise RuntimeError(f"encode failed for {path}: {_lib.as_last_error().decode()}")
+    with span("audio.encode"):
+        if pcm.ndim == 1:
+            pcm = pcm[None, :]
+        fmt = (output_format or os.path.splitext(path)[1].lstrip(".") or "wav").lower()
+        interleaved = np.ascontiguousarray(pcm.T, dtype=np.float32)
+        if fmt == "wav":
+            _save_wav(path, interleaved, sample_rate, bit_depth)
+            return
+        route = _route()
+        if route == "subprocess":
+            _save_subprocess(path, interleaved, sample_rate, fmt, bit_depth, bitrate_kbps)
+            return
+        if route == "wav":
+            raise RuntimeError(f"cannot encode '{fmt}': native codec unavailable ({_lib_error}); "
+                               f"only WAV is written without it")
+        ptr = interleaved.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        rc = _lib.as_encode(path.encode(), ptr, interleaved.shape[0], interleaved.shape[1],
+                            sample_rate, fmt.encode(), bit_depth, bitrate_kbps)
+        if rc != 0:
+            raise RuntimeError(f"encode failed for {path}: {_lib.as_last_error().decode()}")
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,12 @@ from typing import Dict
 
 import torch
 
-# Launch counters: each wrapper adds one where it launches its kernel (chain),
-# through count(), under one lock: jobs of a server launch from several threads.
-# The backward kernels' bf16 forms count under names of their own (``_bf16``).
+from ..utils import tracing
+
+# Launch counters: each wrapper adds one for its kernel (chain), through
+# launch() (or count()), under one lock: jobs of a server launch from several
+# threads. The backward kernels' bf16 forms count under names of their own
+# (``_bf16``).
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
                             "fused_attention_block_partial": 0,
                             "fused_ff_block_partial": 0, "fused_attention": 0, "attention_backward": 0,
@@ -38,6 +41,31 @@ def count(name: str) -> None:
     """Add one launch of kernel ``name``."""
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+class launch:
+    """``with launch(name):`` around all of a wrapper's device work for
+    kernel ``name`` (its inputs made contiguous, padding, the chain): one
+    launch counted in :data:`LAUNCHES` when the block ends without an
+    exception, as :func:`count`; while spans are on (``utils/tracing.py``),
+    the profiler range ``kernel.<name>`` around the block, so that a trace
+    gives the wrapper's device time. No record is kept."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = tracing.profiler_range("kernel." + self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._range.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            count(self.name)
+        return False
 
 
 def reset_launch_counts() -> None:

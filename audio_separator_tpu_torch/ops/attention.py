@@ -59,7 +59,7 @@ from typing import Optional
 
 import torch
 
-from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind, launch,
                      load, reset_launch_counts, stream)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "attention_ref", "fused_attention",
@@ -111,20 +111,20 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device_kind(q) != "cuda":
         raise ValueError("fused_attention launches a CUDA kernel; CPU tensors "
                          "go through dot_product_attention")
-    b, h, n, d = q.shape
-    dh = padded_head_dim(d)
-    if dh != d:
-        q, k, v = (torch.nn.functional.pad(t, (0, dh - d)) for t in (q, k, v))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    check_cuda_layout(q, k, v, out)
-    lib = load("attention")
-    with torch.cuda.device(q.device):
-        rc = lib.asep_attention(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                                v.data_ptr(), out.data_ptr(), b * h, n, dh,
-                                float(scale), stream(q))
-    check_rc(lib, rc, "fused_attention")
-    count("fused_attention")
+    with launch("fused_attention"):
+        b, h, n, d = q.shape
+        dh = padded_head_dim(d)
+        if dh != d:
+            q, k, v = (torch.nn.functional.pad(t, (0, dh - d)) for t in (q, k, v))
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(q)
+        check_cuda_layout(q, k, v, out)
+        lib = load("attention")
+        with torch.cuda.device(q.device):
+            rc = lib.asep_attention(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                                    v.data_ptr(), out.data_ptr(), b * h, n, dh,
+                                    float(scale), stream(q))
+        check_rc(lib, rc, "fused_attention")
     return out[..., :d] if dh != d else out
 
 
@@ -218,34 +218,35 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
         raise ValueError(f"n_valid={n_valid} outside [1, {n}]")
     if device_kind(q) == "cpu":
         return attention_bwd_ref(q, k, v, o, do, scale, n_valid, gates)
-    if gates is not None:
-        if d != 64:
-            raise ValueError(f"the gated backward takes 64-wide heads, got {d}")
-        dh = d
-        gates = gates.float().contiguous()
-        if tuple(o.shape) != (b, n, h * d) or tuple(gates.shape) != (b, h, n):
-            raise ValueError(f"merged heads {tuple(o.shape)} / gates {tuple(gates.shape)} "
-                             f"do not match q {tuple(q.shape)}")
-    else:
-        dh = padded_head_dim(d)
-        if dh != d:
-            q, k, v, o, do = (torch.nn.functional.pad(t, (0, dh - d)) for t in (q, k, v, o, do))
-    dt = q.dtype
-    q, k, v, o, do = (t.to(dt).contiguous() for t in (q, k, v, o, do))
-    dq, dk, dv = (torch.empty((b, h, n, dh), dtype=dt, device=q.device) for _ in range(3))
-    lse, delta = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-                  for _ in range(2))
-    check_cuda_layout(q, k, v, o, do, dq, dk, dv)
-    lib = load("attention_bwd")
-    with torch.cuda.device(q.device):
-        rc = lib.asep_attention_bwd(
-            DTYPE_CODES[dt], 0 if gates is None else 1, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            gates.data_ptr() if gates is not None else None, dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, n_valid, dh, h,
-            float(scale), stream(q))
-    check_rc(lib, rc, "attention_backward")
-    count("attention_backward" if dt == torch.float32 else "attention_backward_bf16")
+    with launch("attention_backward" if q.dtype == torch.float32 else "attention_backward_bf16"):
+        if gates is not None:
+            if d != 64:
+                raise ValueError(f"the gated backward takes 64-wide heads, got {d}")
+            dh = d
+            gates = gates.float().contiguous()
+            if tuple(o.shape) != (b, n, h * d) or tuple(gates.shape) != (b, h, n):
+                raise ValueError(f"merged heads {tuple(o.shape)} / gates {tuple(gates.shape)} "
+                                 f"do not match q {tuple(q.shape)}")
+        else:
+            dh = padded_head_dim(d)
+            if dh != d:
+                q, k, v, o, do = (torch.nn.functional.pad(t, (0, dh - d))
+                                  for t in (q, k, v, o, do))
+        dt = q.dtype
+        q, k, v, o, do = (t.to(dt).contiguous() for t in (q, k, v, o, do))
+        dq, dk, dv = (torch.empty((b, h, n, dh), dtype=dt, device=q.device) for _ in range(3))
+        lse, delta = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+                      for _ in range(2))
+        check_cuda_layout(q, k, v, o, do, dq, dk, dv)
+        lib = load("attention_bwd")
+        with torch.cuda.device(q.device):
+            rc = lib.asep_attention_bwd(
+                DTYPE_CODES[dt], 0 if gates is None else 1, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                gates.data_ptr() if gates is not None else None, dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b * h, n, n_valid, dh, h,
+                float(scale), stream(q))
+        check_rc(lib, rc, "attention_backward")
     if dh != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv, delta

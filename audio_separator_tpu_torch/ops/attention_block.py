@@ -80,7 +80,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind, launch,
                      load, reset_launch_counts, stream)
 from .block_backward import attention_block_backward, ff_block_backward
 from .tf32 import prepare_tf32_weight
@@ -243,33 +243,33 @@ def _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n
                           tf32_weights, partial):
     """The kernel's launch: ``out`` and the intermediates it writes, ``(xn, q,
     k, v, gates, merged)``, which the backward pass reads."""
-    b, n_pad, d = x.shape
-    dh = wqkv.shape[-1] // (3 * heads)
-    check_kernel_dims(d, heads, dh)
-    qkv_shape = (b, heads, n_pad, dh)
-    q, k, v = (torch.empty(qkv_shape, dtype=x.dtype, device=x.device)
-               for _ in range(3))
-    gates = torch.empty((b, heads, n_pad), dtype=torch.float32, device=x.device)
-    merged = torch.empty((b, n_pad, heads * dh), dtype=x.dtype, device=x.device)
-    xn, out = torch.empty_like(x), torch.empty_like(x)
-    cos, sin = rope if rope is not None else (None, None)
-    check_cuda_layout(x, wqkv, wo, xn, q, k, v, merged, out,
-                      *(rope if rope is not None else ()))
-    if x.dtype == torch.float32:
-        wqkv, wo = _tf32_forms(tf32_weights, (wqkv, wo), x)
-    lib = load("attention_block")
-    with torch.cuda.device(x.device):
-        rc = lib.asep_attention_block(
-            DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
-            gate_w.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
-            attn_norm.data_ptr(),
-            cos.data_ptr() if cos is not None else None,
-            sin.data_ptr() if sin is not None else None, xn.data_ptr(),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(),
-            merged.data_ptr(), out.data_ptr(),
-            b, n_pad, d, heads, n_valid, int(partial), stream(x))
-    check_rc(lib, rc, "fused_attention_block")
-    count("fused_attention_block_partial" if partial else "fused_attention_block")
+    with launch("fused_attention_block_partial" if partial else "fused_attention_block"):
+        b, n_pad, d = x.shape
+        dh = wqkv.shape[-1] // (3 * heads)
+        check_kernel_dims(d, heads, dh)
+        qkv_shape = (b, heads, n_pad, dh)
+        q, k, v = (torch.empty(qkv_shape, dtype=x.dtype, device=x.device)
+                   for _ in range(3))
+        gates = torch.empty((b, heads, n_pad), dtype=torch.float32, device=x.device)
+        merged = torch.empty((b, n_pad, heads * dh), dtype=x.dtype, device=x.device)
+        xn, out = torch.empty_like(x), torch.empty_like(x)
+        cos, sin = rope if rope is not None else (None, None)
+        check_cuda_layout(x, wqkv, wo, xn, q, k, v, merged, out,
+                          *(rope if rope is not None else ()))
+        if x.dtype == torch.float32:
+            wqkv, wo = _tf32_forms(tf32_weights, (wqkv, wo), x)
+        lib = load("attention_block")
+        with torch.cuda.device(x.device):
+            rc = lib.asep_attention_block(
+                DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
+                gate_w.data_ptr(), gate_b.data_ptr(), wo.data_ptr(),
+                attn_norm.data_ptr(),
+                cos.data_ptr() if cos is not None else None,
+                sin.data_ptr() if sin is not None else None, xn.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(),
+                merged.data_ptr(), out.data_ptr(),
+                b, n_pad, d, heads, n_valid, int(partial), stream(x))
+        check_rc(lib, rc, "fused_attention_block")
     return out, (xn, q, k, v, gates, merged)
 
 
@@ -277,24 +277,24 @@ def _ff_block_cuda(x, ff_norm, w1, b1, w2, b2, tf32_weights):
     """The kernel's launch: ``out`` and ``xn``, which the backward pass reads
     (the hidden activation is scratch, dropped here); ``b2 is None``: the
     partial form."""
-    b, n_pad, d = x.shape
-    hidden = w1.shape[-1]
-    check_kernel_dims(d, hidden=hidden)
-    h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
-    xn, out = torch.empty_like(x), torch.empty_like(x)
-    partial = b2 is None
-    check_cuda_layout(x, w1, b1, w2, xn, h, out, *(() if partial else (b2,)))
-    if x.dtype == torch.float32:
-        w1, w2 = _tf32_forms(tf32_weights, (w1, w2), x)
-    lib = load("ff_block")
-    with torch.cuda.device(x.device):
-        rc = lib.asep_ff_block(
-            DTYPE_CODES[x.dtype], x.data_ptr(), ff_norm.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), None if partial else b2.data_ptr(),
-            xn.data_ptr(), h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, int(partial),
-            stream(x))
-    check_rc(lib, rc, "fused_ff_block")
-    count("fused_ff_block_partial" if partial else "fused_ff_block")
+    with launch("fused_ff_block_partial" if b2 is None else "fused_ff_block"):
+        b, n_pad, d = x.shape
+        hidden = w1.shape[-1]
+        check_kernel_dims(d, hidden=hidden)
+        h = torch.empty((b, n_pad, hidden), dtype=x.dtype, device=x.device)
+        xn, out = torch.empty_like(x), torch.empty_like(x)
+        partial = b2 is None
+        check_cuda_layout(x, w1, b1, w2, xn, h, out, *(() if partial else (b2,)))
+        if x.dtype == torch.float32:
+            w1, w2 = _tf32_forms(tf32_weights, (w1, w2), x)
+        lib = load("ff_block")
+        with torch.cuda.device(x.device):
+            rc = lib.asep_ff_block(
+                DTYPE_CODES[x.dtype], x.data_ptr(), ff_norm.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), None if partial else b2.data_ptr(),
+                xn.data_ptr(), h.data_ptr(), out.data_ptr(), b * n_pad, d, hidden, int(partial),
+                stream(x))
+        check_rc(lib, rc, "fused_ff_block")
     return out, xn
 
 

@@ -45,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import DTYPE_CODES, check_cuda_layout, check_rc, count, device_kind, load, stream
+from ._build import DTYPE_CODES, check_cuda_layout, check_rc, device_kind, launch, load, stream
 from .attention import attention_backward, check_backward_dtype
 from .precision import float32_bf16_reductions, full_float32
 
@@ -103,26 +103,26 @@ def rmsnorm_backward(x: torch.Tensor, gamma: torch.Tensor, dxn: torch.Tensor,
     check_backward_dtype(x)
     if device_kind(x) == "cpu":
         return rmsnorm_bwd_ref(x, gamma, dxn, dres)
-    d, vec = x.shape[-1], 16 // x.element_size()
-    if d % vec:
-        raise ValueError(f"the norm backward needs d % {vec} == 0, got {d}")
-    dt = x.dtype
-    x, gamma, dxn = x.contiguous(), gamma.float().contiguous(), dxn.to(dt).contiguous()
-    dres = dres.to(dt).contiguous() if dres is not None else None
-    rows = x.numel() // d
-    blocks = min(NORM_BWD_BLOCKS, -(-rows // 8))
-    dx = torch.empty_like(x)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-    dgamma = torch.empty(d, dtype=torch.float32, device=x.device)
-    check_cuda_layout(x, gamma, dxn, dx, *(() if dres is None else (dres,)))
-    lib = load("norm_bwd")
-    with torch.cuda.device(x.device):
-        rc = lib.asep_norm_bwd(DTYPE_CODES[dt], x.data_ptr(), gamma.data_ptr(), dxn.data_ptr(),
-                               dres.data_ptr() if dres is not None else None, dx.data_ptr(),
-                               partial.data_ptr(), dgamma.data_ptr(), rows, d, blocks,
-                               stream(x))
-    check_rc(lib, rc, "rmsnorm_backward")
-    count(_launch_name("rmsnorm_backward", dt))
+    with launch(_launch_name("rmsnorm_backward", x.dtype)):
+        d, vec = x.shape[-1], 16 // x.element_size()
+        if d % vec:
+            raise ValueError(f"the norm backward needs d % {vec} == 0, got {d}")
+        dt = x.dtype
+        x, gamma, dxn = x.contiguous(), gamma.float().contiguous(), dxn.to(dt).contiguous()
+        dres = dres.to(dt).contiguous() if dres is not None else None
+        rows = x.numel() // d
+        blocks = min(NORM_BWD_BLOCKS, -(-rows // 8))
+        dx = torch.empty_like(x)
+        partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+        dgamma = torch.empty(d, dtype=torch.float32, device=x.device)
+        check_cuda_layout(x, gamma, dxn, dx, *(() if dres is None else (dres,)))
+        lib = load("norm_bwd")
+        with torch.cuda.device(x.device):
+            rc = lib.asep_norm_bwd(DTYPE_CODES[dt], x.data_ptr(), gamma.data_ptr(), dxn.data_ptr(),
+                                   dres.data_ptr() if dres is not None else None, dx.data_ptr(),
+                                   partial.data_ptr(), dgamma.data_ptr(), rows, d, blocks,
+                                   stream(x))
+        check_rc(lib, rc, "rmsnorm_backward")
     return dx, dgamma
 
 
@@ -145,20 +145,20 @@ def gelu_backward(pre: torch.Tensor, dh: torch.Tensor) -> Tuple[torch.Tensor, to
     check_backward_dtype(pre)
     if device_kind(pre) == "cpu":
         return gelu_bwd_ref(pre, dh)
-    vec = 16 // pre.element_size()  # values a 16-byte vector holds
-    if pre.shape != dh.shape or pre.numel() % vec:
-        raise ValueError(f"pre {tuple(pre.shape)} and dh {tuple(dh.shape)} must match, "
-                         f"a multiple of {vec} values")
-    dt = pre.dtype
-    pre, dh = pre.contiguous(), dh.to(dt).contiguous()
-    dpre, h = torch.empty_like(pre), torch.empty_like(pre)
-    check_cuda_layout(pre, dh, dpre, h)
-    lib = load("gelu_bwd")
-    with torch.cuda.device(pre.device):
-        rc = lib.asep_gelu_bwd(DTYPE_CODES[dt], pre.data_ptr(), dh.data_ptr(), dpre.data_ptr(),
-                               h.data_ptr(), pre.numel(), stream(pre))
-    check_rc(lib, rc, "gelu_backward")
-    count(_launch_name("gelu_backward", dt))
+    with launch(_launch_name("gelu_backward", pre.dtype)):
+        vec = 16 // pre.element_size()  # values a 16-byte vector holds
+        if pre.shape != dh.shape or pre.numel() % vec:
+            raise ValueError(f"pre {tuple(pre.shape)} and dh {tuple(dh.shape)} must match, "
+                             f"a multiple of {vec} values")
+        dt = pre.dtype
+        pre, dh = pre.contiguous(), dh.to(dt).contiguous()
+        dpre, h = torch.empty_like(pre), torch.empty_like(pre)
+        check_cuda_layout(pre, dh, dpre, h)
+        lib = load("gelu_bwd")
+        with torch.cuda.device(pre.device):
+            rc = lib.asep_gelu_bwd(DTYPE_CODES[dt], pre.data_ptr(), dh.data_ptr(), dpre.data_ptr(),
+                                   h.data_ptr(), pre.numel(), stream(pre))
+        check_rc(lib, rc, "gelu_backward")
     return dpre, h
 
 
@@ -196,25 +196,25 @@ def rope_gate_backward(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
     check_backward_dtype(dq)
     if device_kind(dq) == "cpu":
         return rope_gate_bwd_ref(dq, dk, dv, delta, gates, rope)
-    b, h, n, dh = dq.shape
-    if dh != 64:
-        raise ValueError(f"the RoPE and gate backward takes 64-wide heads, got {dh}")
-    dt = dq.dtype
-    dq, dk, dv = (t.to(dt).contiguous() for t in (dq, dk, dv))
-    delta, gates = (t.float().contiguous() for t in (delta, gates))
-    cos, sin = ((t.float().contiguous() for t in rope) if rope is not None else (None, None))
-    dqkv = torch.empty((b, n, 3 * h * dh), dtype=dt, device=dq.device)
-    dz = torch.empty((b, n, h), dtype=torch.float32, device=dq.device)
-    check_cuda_layout(dq, dk, dv, dqkv, *((cos, sin) if cos is not None else ()))
-    lib = load("rope_gate_bwd")
-    with torch.cuda.device(dq.device):
-        rc = lib.asep_rope_gate_bwd(
-            DTYPE_CODES[dt], dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            cos.data_ptr() if cos is not None else None,
-            sin.data_ptr() if sin is not None else None, delta.data_ptr(), gates.data_ptr(),
-            dqkv.data_ptr(), dz.data_ptr(), b, n, h, stream(dq))
-    check_rc(lib, rc, "rope_gate_backward")
-    count(_launch_name("rope_gate_backward", dt))
+    with launch(_launch_name("rope_gate_backward", dq.dtype)):
+        b, h, n, dh = dq.shape
+        if dh != 64:
+            raise ValueError(f"the RoPE and gate backward takes 64-wide heads, got {dh}")
+        dt = dq.dtype
+        dq, dk, dv = (t.to(dt).contiguous() for t in (dq, dk, dv))
+        delta, gates = (t.float().contiguous() for t in (delta, gates))
+        cos, sin = ((t.float().contiguous() for t in rope) if rope is not None else (None, None))
+        dqkv = torch.empty((b, n, 3 * h * dh), dtype=dt, device=dq.device)
+        dz = torch.empty((b, n, h), dtype=torch.float32, device=dq.device)
+        check_cuda_layout(dq, dk, dv, dqkv, *((cos, sin) if cos is not None else ()))
+        lib = load("rope_gate_bwd")
+        with torch.cuda.device(dq.device):
+            rc = lib.asep_rope_gate_bwd(
+                DTYPE_CODES[dt], dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                cos.data_ptr() if cos is not None else None,
+                sin.data_ptr() if sin is not None else None, delta.data_ptr(), gates.data_ptr(),
+                dqkv.data_ptr(), dz.data_ptr(), b, n, h, stream(dq))
+        check_rc(lib, rc, "rope_gate_backward")
     return dqkv, dz
 
 

@@ -20,6 +20,11 @@ slices are enqueued one after another with no host sync between them.
 compute there (the architectures pick the model's replica for the tensor's
 device). The model axis is the model's business: a tensor-parallel module
 runs its shards where they lie.
+
+Spans (``utils/tracing.py``): ``demix.upload`` (the mix, positions and
+window to the device), ``demix.batch`` (one a window batch: the model call
+and the overlap-add) and ``demix.fetch`` (the normalisation, the fetch to the
+host and the crop).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils.tracing import span
 
 
 def _mesh_geometry(mesh, batch_size: int, device):
@@ -87,58 +94,61 @@ def overlap_add_demix(
     with ones). ``post_device_fn`` maps the normalised ``(S, C, T_buf)`` device
     tensor (after ``fetch_stems``) to what is fetched, and owns its shape;
     without it the result is cropped to ``T``."""
-    c, total = mix.shape
-    if positions is None:
-        positions = window_positions(total, chunk, step)
-    positions = np.asarray(positions, dtype=np.int64)
-    n = len(positions)
-    batch_size, device, rows = _mesh_geometry(mesh, batch_size, device)
-    n_pad = -(-n // batch_size) * batch_size
-    t_buf = max(total, int(positions.max()) + chunk)
-    window = np.asarray(window, np.float32)
-    shared_window = window.ndim == 1
-    if not shared_window and window.shape != (n, chunk):
-        raise ValueError(f"window rows {window.shape} != (positions, chunk) {(n, chunk)}")
+    with span("demix.upload"):
+        c, total = mix.shape
+        if positions is None:
+            positions = window_positions(total, chunk, step)
+        positions = np.asarray(positions, dtype=np.int64)
+        n = len(positions)
+        batch_size, device, rows = _mesh_geometry(mesh, batch_size, device)
+        n_pad = -(-n // batch_size) * batch_size
+        t_buf = max(total, int(positions.max()) + chunk)
+        window = np.asarray(window, np.float32)
+        shared_window = window.ndim == 1
+        if not shared_window and window.shape != (n, chunk):
+            raise ValueError(f"window rows {window.shape} != (positions, chunk) {(n, chunk)}")
 
-    mix_dev = torch.zeros((c, t_buf), dtype=torch.float32, device=device)
-    mix_dev[:, :total] = torch.as_tensor(np.ascontiguousarray(mix, np.float32)).to(device)
-    pos_dev = torch.zeros(n_pad, dtype=torch.int64, device=device)
-    pos_dev[:n] = torch.as_tensor(positions).to(device)
-    if shared_window:
-        row_scale = torch.zeros(n_pad, dtype=torch.float32, device=device)
-        row_scale[:n] = 1.0
-        win_dev = torch.as_tensor(window).to(device)
-    else:
-        win_dev = torch.zeros((n_pad, chunk), dtype=torch.float32, device=device)
-        win_dev[:n] = torch.as_tensor(window).to(device)
-    offsets = torch.arange(chunk, device=device)
-
-    acc = torch.zeros((num_stems, c, t_buf), dtype=torch.float32, device=device)
-    wsum = (torch.zeros(t_buf, dtype=torch.float32, device=device)
-            if divider is None else None)
-    for i in range(0, n_pad, batch_size):
-        idx = (pos_dev[i : i + batch_size, None] + offsets).reshape(-1)  # (B*chunk,)
-        chunks = mix_dev[:, idx].reshape(c, batch_size, chunk).transpose(0, 1)
-        out = _run_rows(model_fn, chunks.contiguous(), rows)  # (B, S, C, chunk)
+        mix_dev = torch.zeros((c, t_buf), dtype=torch.float32, device=device)
+        mix_dev[:, :total] = torch.as_tensor(np.ascontiguousarray(mix, np.float32)).to(device)
+        pos_dev = torch.zeros(n_pad, dtype=torch.int64, device=device)
+        pos_dev[:n] = torch.as_tensor(positions).to(device)
         if shared_window:
-            win_b = win_dev * row_scale[i : i + batch_size, None]  # (B, chunk)
+            row_scale = torch.zeros(n_pad, dtype=torch.float32, device=device)
+            row_scale[:n] = 1.0
+            win_dev = torch.as_tensor(window).to(device)
         else:
-            win_b = win_dev[i : i + batch_size]
-        out = out.float() * win_b[:, None, None, :]
-        acc.index_add_(2, idx, out.permute(1, 2, 0, 3).reshape(num_stems, c, -1))
-        if wsum is not None:
-            wsum.index_add_(0, idx, win_b.reshape(-1))
-    if divider is None:
-        acc = acc / wsum.clamp_min(1e-10)
-    else:
-        div = np.ones(t_buf, np.float32)
-        div[: min(len(divider), t_buf)] = np.asarray(divider, np.float32)[:t_buf]
-        acc = acc / torch.as_tensor(np.maximum(div, 1e-10)).to(device)
-    if fetch_stems is not None:
-        acc = acc[list(fetch_stems)]
-    if post_device_fn is not None:
-        return post_device_fn(acc).cpu().numpy()
-    return acc[..., :total].cpu().numpy()
+            win_dev = torch.zeros((n_pad, chunk), dtype=torch.float32, device=device)
+            win_dev[:n] = torch.as_tensor(window).to(device)
+        offsets = torch.arange(chunk, device=device)
+
+        acc = torch.zeros((num_stems, c, t_buf), dtype=torch.float32, device=device)
+        wsum = (torch.zeros(t_buf, dtype=torch.float32, device=device)
+                if divider is None else None)
+    for i in range(0, n_pad, batch_size):
+        with span("demix.batch"):
+            idx = (pos_dev[i : i + batch_size, None] + offsets).reshape(-1)  # (B*chunk,)
+            chunks = mix_dev[:, idx].reshape(c, batch_size, chunk).transpose(0, 1)
+            out = _run_rows(model_fn, chunks.contiguous(), rows)  # (B, S, C, chunk)
+            if shared_window:
+                win_b = win_dev * row_scale[i : i + batch_size, None]  # (B, chunk)
+            else:
+                win_b = win_dev[i : i + batch_size]
+            out = out.float() * win_b[:, None, None, :]
+            acc.index_add_(2, idx, out.permute(1, 2, 0, 3).reshape(num_stems, c, -1))
+            if wsum is not None:
+                wsum.index_add_(0, idx, win_b.reshape(-1))
+    with span("demix.fetch"):
+        if divider is None:
+            acc = acc / wsum.clamp_min(1e-10)
+        else:
+            div = np.ones(t_buf, np.float32)
+            div[: min(len(divider), t_buf)] = np.asarray(divider, np.float32)[:t_buf]
+            acc = acc / torch.as_tensor(np.maximum(div, 1e-10)).to(device)
+        if fetch_stems is not None:
+            acc = acc[list(fetch_stems)]
+        if post_device_fn is not None:
+            return post_device_fn(acc).cpu().numpy()
+        return acc[..., :total].cpu().numpy()
 
 
 def demix_jobs(

@@ -44,6 +44,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.tracing import span
+
 __all__ = ["Mesh", "init_distributed_from_env", "make_mesh", "canonical_device",
            "roformer_param_shardings", "htdemucs_param_shardings", "shard_roformer_params",
            "shard_htdemucs_params", "shard_model", "gather_params", "is_sharded",
@@ -463,6 +465,7 @@ def call_on_row(model: nn.Module, mesh: Mesh, r: int, *args, dtype: Optional[tor
     if dtype is None and all(a == b for a, b in zip(mesh.row(r), mesh.row(0))):
         return model(*args)
     where = _row_devices_for(model, mesh, r)
-    moved = {n: p.to(where[n], dtype) for n, p in model.named_parameters()}
-    moved.update((n, b.to(where[n])) for n, b in model.named_buffers())
+    with span("train.cast", row=r):
+        moved = {n: p.to(where[n], dtype) for n, p in model.named_parameters()}
+        moved.update((n, b.to(where[n])) for n, b in model.named_buffers())
     return torch.func.functional_call(model, moved, args)

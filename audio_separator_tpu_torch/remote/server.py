@@ -20,6 +20,14 @@ Jobs run asynchronously on background worker threads on this host's device;
 status lives in a pluggable job store and outputs in an output store. Files
 are addressed by SHA-256-prefix hashes of their names
 (ref: deploy_modal.generate_file_hash:49-53).
+
+Spans (``utils/tracing.py``): on the handler threads ``service.upload`` (the
+body read, the multipart parse and the write of the upload) and
+``service.download`` (status polls have none); on a worker
+``service.wait`` (blocked on the queue), ``service.build``,
+``service.load_model``, ``service.separate`` and ``service.store``, under the
+job's task id as request id, and one ``service.queue_wait`` record a job,
+submit to pick-up.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import os
 import re
 import tempfile
 import threading
+import time
 import uuid
 from email.parser import BytesParser
 from email.policy import HTTP
@@ -40,6 +49,7 @@ from typing import Dict, Optional
 from urllib.parse import quote, unquote
 
 from ..separator.separator import Separator, resolve_device
+from ..utils import tracing
 from .job_store import InMemoryJobStore
 from .output_store import LocalOutputStore
 
@@ -158,6 +168,8 @@ class SeparatorService:
         # Plain dict: per-key get/set/pop are GIL-atomic and the count is a
         # heuristic bound, so cross-worker races only shift it by ±1.
         self._displaced: dict = {}
+        # task_id -> time.perf_counter_ns() at submit, until a worker takes it.
+        self._submitted: dict = {}
         # Worker concurrency (AUDSEP_SERVER_WORKERS, default 1). Each job
         # builds its own Separator and model; the workers' device work shares
         # the card's default stream, and a second worker can fill the gaps a
@@ -192,8 +204,16 @@ class SeparatorService:
             "original_filename": filename, "models_used": [],
             "total_models": 1, "current_model_index": 0, "files": [],
         })
+        self._submitted[task_id] = time.perf_counter_ns()
         self._queue.put((task_id, upload_path, filename, fields))
         return task_id
+
+    def _picked_up(self, task_id: str) -> None:
+        """A worker took ``task_id``: its ``service.queue_wait``, submit to now."""
+        submitted = self._submitted.pop(task_id, None)
+        if submitted is not None:
+            with tracing.request(task_id):
+                tracing.mark("service.queue_wait", submitted)
 
     def _coalesce_cap(self) -> int:
         """Cross-job batching group cap: off below 3 workers, 4 from 3
@@ -226,7 +246,8 @@ class SeparatorService:
         from queue import Empty
 
         while True:
-            group = [self._queue.get()]
+            with tracing.span("service.wait"):
+                group = [self._queue.get()]
             cap = self._coalesce_cap()
             key = self._batch_key(group[0][3])
             if cap > 1 and key is not None:
@@ -265,6 +286,8 @@ class SeparatorService:
                     self._queue.task_done()  # ownership returned to the queue
             else:
                 held = []
+            for item in group:
+                self._picked_up(item[0])
             try:
                 if len(group) == 1:
                     task_id, upload_path, filename, fields = group[0]
@@ -275,7 +298,8 @@ class SeparatorService:
                         self.jobs.update_job_status(task_id, {
                             "status": "error", "error": str(exc), "progress": 0})
                 else:
-                    self._process_group(group)
+                    with tracing.request(group[0][0]):  # a group is one request
+                        self._process_group(group)
             finally:
                 for item in group:
                     self._displaced.pop(item[0], None)
@@ -285,6 +309,7 @@ class SeparatorService:
             # this group's key; running them here bounds their latency).
             for task_id, upload_path, filename, fields in held:
                 self._displaced.pop(task_id, None)
+                self._picked_up(task_id)
                 try:
                     self._process(task_id, upload_path, filename, fields)
                 except Exception as exc:
@@ -308,27 +333,31 @@ class SeparatorService:
                               "total_models": 1, "current_model_index": 0})
             out_dir = os.path.join(self.work_dir, "group-" + ids[0])
             os.makedirs(out_dir, exist_ok=True)
-            separator = self._build_separator(fields, out_dir)
+            with tracing.span("service.build"):
+                separator = self._build_separator(fields, out_dir)
             model = fields.get("model")
-            separator.load_model(model) if model else separator.load_model()
+            with tracing.span("service.load_model"):
+                separator.load_model(model) if model else separator.load_model()
             names = [json.loads(f.get("custom_output_names"))
                      if f.get("custom_output_names") else None
                      for _, _, _, f in group]
-            per_job = separator.separate_batch(
-                [upload_path for _, upload_path, _, _ in group], names)
+            with tracing.span("service.separate", jobs=len(group)):
+                per_job = separator.separate_batch(
+                    [upload_path for _, upload_path, _, _ in group], names)
             for (task_id, _, _, _), outputs in zip(group, per_job):
-                files = {}
-                for path in outputs:
-                    full = path if os.path.isabs(path) else os.path.join(out_dir, path)
-                    stored = self.outputs.upload_file(task_id, full)
-                    name = os.path.basename(stored)
-                    files[generate_file_hash(name)] = name
-                self.jobs.update_job_status(task_id, {
-                    "status": "completed", "progress": 100,
-                    "models_used": [model or "default"],
-                    "files": [{"hash": h, "filename": fn}
-                              for h, fn in files.items()],
-                })
+                with tracing.span("service.store"):
+                    files = {}
+                    for path in outputs:
+                        full = path if os.path.isabs(path) else os.path.join(out_dir, path)
+                        stored = self.outputs.upload_file(task_id, full)
+                        name = os.path.basename(stored)
+                        files[generate_file_hash(name)] = name
+                    self.jobs.update_job_status(task_id, {
+                        "status": "completed", "progress": 100,
+                        "models_used": [model or "default"],
+                        "files": [{"hash": h, "filename": fn}
+                                  for h, fn in files.items()],
+                    })
                 completed.add(task_id)
         except Exception:
             # Only the jobs NOT already marked completed are retried: a
@@ -395,6 +424,10 @@ class SeparatorService:
         )
 
     def _process(self, task_id, upload_path, filename, fields):
+        with tracing.request(task_id):
+            self._run_job(task_id, upload_path, filename, fields)
+
+    def _run_job(self, task_id, upload_path, filename, fields):
         self.jobs.update_job_status(task_id, {"status": "processing", "progress": 5})
 
         models = [None]
@@ -410,7 +443,8 @@ class SeparatorService:
 
         out_dir = os.path.join(self.work_dir, "job-" + task_id)
         os.makedirs(out_dir, exist_ok=True)
-        separator = self._build_separator(fields, out_dir)
+        with tracing.span("service.build"):
+            separator = self._build_separator(fields, out_dir)
 
         all_files = {}
         models_used = []
@@ -422,23 +456,27 @@ class SeparatorService:
                 "current_model_index": index,
                 "total_models": total,
             })
-            if model == "__preset__" or model is None:
-                separator.load_model()
-            else:
-                separator.load_model(model)
+            with tracing.span("service.load_model"):
+                if model == "__preset__" or model is None:
+                    separator.load_model()
+                else:
+                    separator.load_model(model)
             models_used.append(model or "default")
-            outputs = separator.separate(upload_path, custom_output_names)
-            for path in outputs:
-                full = path if os.path.isabs(path) else os.path.join(out_dir, path)
-                stored = self.outputs.upload_file(task_id, full)
-                name = os.path.basename(stored)
-                all_files[generate_file_hash(name)] = name
+            with tracing.span("service.separate"):
+                outputs = separator.separate(upload_path, custom_output_names)
+            with tracing.span("service.store"):
+                for path in outputs:
+                    full = path if os.path.isabs(path) else os.path.join(out_dir, path)
+                    stored = self.outputs.upload_file(task_id, full)
+                    name = os.path.basename(stored)
+                    all_files[generate_file_hash(name)] = name
 
-        self.jobs.update_job_status(task_id, {
-            "status": "completed", "progress": 100,
-            "models_used": models_used,
-            "files": [{"hash": h, "filename": fn} for h, fn in all_files.items()],
-        })
+        with tracing.span("service.store"):
+            self.jobs.update_job_status(task_id, {
+                "status": "completed", "progress": 100,
+                "models_used": models_used,
+                "files": [{"hash": h, "filename": fn} for h, fn in all_files.items()],
+            })
 
     # ------------------------------------------------------------- retrieval
 
@@ -543,27 +581,31 @@ def make_handler(service: SeparatorService):
                 if not self._authorized():
                     self._error(401, "invalid or missing API key")
                     return
-                parts = path[len("/download/"):].split("/")
-                if len(parts) != 2:
-                    self._error(404, "File not found")
-                    return
-                try:
-                    data, name = service.get_file_by_hash(parts[0], parts[1])
-                except FileNotFoundError:
-                    self._error(404, "File not found")
-                    return
-                ascii_name = "".join(c if ord(c) < 128 else "_" for c in name)
-                self.send_response(200)
-                self.send_header("Content-Type", "application/octet-stream")
-                self.send_header(
-                    "Content-Disposition",
-                    f"attachment; filename=\"{ascii_name}\"; "
-                    f"filename*=UTF-8''{quote(name, safe='')}")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
+                with tracing.span("service.download"):
+                    self._download(path)
             else:
                 self._error(404, "Not found")
+
+        def _download(self, path):
+            parts = path[len("/download/"):].split("/")
+            if len(parts) != 2:
+                self._error(404, "File not found")
+                return
+            try:
+                data, name = service.get_file_by_hash(parts[0], parts[1])
+            except FileNotFoundError:
+                self._error(404, "File not found")
+                return
+            ascii_name = "".join(c if ord(c) < 128 else "_" for c in name)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header(
+                "Content-Disposition",
+                f"attachment; filename=\"{ascii_name}\"; "
+                f"filename*=UTF-8''{quote(name, safe='')}")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
 
         def do_POST(self):
             path = unquote(self.path.split("?")[0])
@@ -573,6 +615,10 @@ def make_handler(service: SeparatorService):
             if not self._authorized():
                 self._error(401, "invalid or missing API key")
                 return
+            with tracing.span("service.upload"):
+                self._upload()
+
+        def _upload(self):
             length = int(self.headers.get("Content-Length", 0))
             body = self.rfile.read(length)
             content_type = self.headers.get("Content-Type", "")

@@ -22,6 +22,7 @@ from ..io import audio as audio_io
 from ..ops import spec as spec_ops
 from ..ops.fn_cache import memoized_model
 from ..parallel.mesh import canonical_device
+from ..utils.tracing import span
 
 
 class BaseSeparator:
@@ -138,26 +139,27 @@ class BaseSeparator:
     def prepare_mix(self, mix) -> np.ndarray:
         """Load + stereo-ify audio to (2, samples) float32; captures input bit
         depth for write-side preservation (ref: common_separator.py:217-282)."""
-        if isinstance(mix, np.ndarray):
-            pcm = mix
-            # soundfile layout (samples, channels) → (channels, samples);
-            # covers (N,1) mono columns and multichannel, not just (N,2)
-            # (ref contract: common_separator.py:256-263 always transposes).
-            if pcm.ndim == 2 and pcm.shape[0] > pcm.shape[1]:
-                pcm = pcm.T
-            if self.input_bit_depth is None:
-                self.input_bit_depth = 16
-        else:
-            self.capture_input_bit_depth(mix)
-            pcm, _ = audio_io.load_audio(mix, sample_rate=self.sample_rate)
-            if not np.any(pcm):
-                raise ValueError(f"Audio file {mix} is empty or not valid")
+        with span("separate.prepare"):
+            if isinstance(mix, np.ndarray):
+                pcm = mix
+                # soundfile layout (samples, channels) → (channels, samples);
+                # covers (N,1) mono columns and multichannel, not just (N,2)
+                # (ref contract: common_separator.py:256-263 always transposes).
+                if pcm.ndim == 2 and pcm.shape[0] > pcm.shape[1]:
+                    pcm = pcm.T
+                if self.input_bit_depth is None:
+                    self.input_bit_depth = 16
+            else:
+                self.capture_input_bit_depth(mix)
+                pcm, _ = audio_io.load_audio(mix, sample_rate=self.sample_rate)
+                if not np.any(pcm):
+                    raise ValueError(f"Audio file {mix} is empty or not valid")
 
-        pcm = np.asarray(pcm, dtype=np.float32)
-        if pcm.ndim == 2 and pcm.shape[0] == 1:
-            pcm = pcm[0]  # load_audio returns (1, N) for mono files
-        if pcm.ndim == 1:
-            pcm = np.stack([pcm, pcm])
+            pcm = np.asarray(pcm, dtype=np.float32)
+            if pcm.ndim == 2 and pcm.shape[0] == 1:
+                pcm = pcm[0]  # load_audio returns (1, N) for mono files
+            if pcm.ndim == 1:
+                pcm = np.stack([pcm, pcm])
         return pcm
 
     def capture_input_bit_depth(self, path: str) -> int:
@@ -176,35 +178,36 @@ class BaseSeparator:
     def write_audio(self, stem_path: str, stem_source: np.ndarray) -> None:
         """Write a (samples, channels) stem with normalisation, near-silent
         guard, and bit-depth preservation (ref: common_separator.py:284-451)."""
-        stem_source = spec_ops.normalize(
-            stem_source,
-            max_peak=self.normalization_threshold,
-            min_peak=self.amplification_threshold,
-        )
-        if np.max(np.abs(stem_source)) < 1e-6:
-            # Deviation from the reference (common_separator.py:312-314),
-            # which skips the write and leaves callers holding a path to a
-            # nonexistent file — breaking chunked merge and ensembling. Write
-            # the silent stem so every reported output path exists.
-            self.logger.warning("stem_source array is near-silent or empty")
+        with span("separate.finalize"):
+            stem_source = spec_ops.normalize(
+                stem_source,
+                max_peak=self.normalization_threshold,
+                min_peak=self.amplification_threshold,
+            )
+            if np.max(np.abs(stem_source)) < 1e-6:
+                # Deviation from the reference (common_separator.py:312-314),
+                # which skips the write and leaves callers holding a path to a
+                # nonexistent file — breaking chunked merge and ensembling. Write
+                # the silent stem so every reported output path exists.
+                self.logger.warning("stem_source array is near-silent or empty")
 
-        if self.output_dir:
-            os.makedirs(self.output_dir, exist_ok=True)
-            stem_path = os.path.join(self.output_dir, stem_path)
+            if self.output_dir:
+                os.makedirs(self.output_dir, exist_ok=True)
+                stem_path = os.path.join(self.output_dir, stem_path)
 
-        bit_depth = self.input_bit_depth or 16
-        fmt = self.output_format.lower()
-        bitrate = 0
-        if self.output_bitrate:
-            bitrate = int(str(self.output_bitrate).lower().rstrip("k"))
-        audio_io.save_audio(
-            stem_path,
-            stem_source.T.astype(np.float32),  # (channels, samples)
-            self.sample_rate,
-            output_format=fmt,
-            bit_depth=bit_depth,
-            bitrate_kbps=bitrate,
-        )
+            bit_depth = self.input_bit_depth or 16
+            fmt = self.output_format.lower()
+            bitrate = 0
+            if self.output_bitrate:
+                bitrate = int(str(self.output_bitrate).lower().rstrip("k"))
+            audio_io.save_audio(
+                stem_path,
+                stem_source.T.astype(np.float32),  # (channels, samples)
+                self.sample_rate,
+                output_format=fmt,
+                bit_depth=bit_depth,
+                bitrate_kbps=bitrate,
+            )
 
     def final_process(self, stem_path: str, source: np.ndarray, stem_name: str):
         self.logger.debug(f"Finalizing {stem_name} stem processing and writing audio...")

@@ -35,6 +35,7 @@ import torch
 from .. import __version__
 from ..io import audio as audio_io
 from ..io.yaml_config import read_yaml_config
+from ..utils import tracing
 from ..utils.profiling import device_trace
 from .chunking import AudioChunker
 from .ensembler import ALGORITHMS as VALID_ENSEMBLE_ALGORITHMS
@@ -423,7 +424,12 @@ class Separator:
 
     def separate(self, audio_file_path, custom_output_names: Optional[Dict] = None) -> List[str]:
         """Separate one file, a list of files, or every audio file under a
-        directory. Returns the written output paths."""
+        directory. Returns the written output paths. One request of the
+        program's spans (``utils/tracing.py``): ``separate.request``."""
+        with tracing.request(), tracing.span("separate.request"):
+            return self._separate(audio_file_path, custom_output_names)
+
+    def _separate(self, audio_file_path, custom_output_names: Optional[Dict]) -> List[str]:
         if not (self.model_instance or self._is_ensemble()):
             raise ValueError("Initialization failed or model not loaded. Please "
                              "load a model before attempting to separate.")
@@ -460,7 +466,13 @@ class Separator:
         architecture batches across jobs (the MDXC RoFormer branch,
         ``ops/demix.demix_jobs``); otherwise, and whenever ``chunk_duration``
         is set, one :meth:`separate` a file. Returns one output-file list per
-        input path, in order."""
+        input path, in order. One request of the program's spans, as
+        :meth:`separate`."""
+        with tracing.request(), tracing.span("separate.request", files=len(audio_file_paths)):
+            return self._separate_batch(audio_file_paths, custom_output_names_list)
+
+    def _separate_batch(self, audio_file_paths: List[str],
+                        custom_output_names_list: Optional[List]) -> List[List[str]]:
         if not self.model_instance:
             raise ValueError("Load a model before calling separate_batch.")
         names = custom_output_names_list or [None] * len(audio_file_paths)

@@ -53,6 +53,11 @@ passes its own, equally large, part of the global batch), before the
 optimizer's update. Tensor parallelism stays inside a process.
 ``models/convert.export_jax_params`` gathers the shards back into the full
 tree.
+
+Spans (``utils/tracing.py``): ``train.zero_grad``, ``train.cast``
+(``cast_call``'s parameter casts), ``train.forward``, ``train.loss`` (the
+loss terms), ``train.backward`` and ``train.optimizer``; the sharded path
+opens the cast, forward, loss and backward once a row.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from .ops.fn_cache import is_shared
 from .parallel.mesh import call_on_row
 from .ops.losses import DEFAULT_RESOLUTIONS, roformer_training_loss
 from .ops.precision import float32_bf16_reductions, full_float32
+from .utils.tracing import span
 
 __all__ = ["make_loss_fn", "make_train_step", "cast_call"]
 
@@ -83,15 +89,19 @@ def make_loss_fn(cfg, model: torch.nn.Module, stft_n_fft: int = 2048,
     arguments. ``model`` may be any callable of ``mix``."""
     if isinstance(cfg, RoformerConfig):
         def loss(mix, target):
-            out = model(mix)[..., : target.shape[-1]]
-            total, _ = roformer_training_loss(
-                out, target, stft_n_fft=stft_n_fft, window_sizes=window_sizes,
-                hop_length=hop_length, multi_stft_weight=multi_stft_weight)
+            with span("train.forward"):
+                out = model(mix)[..., : target.shape[-1]]
+            with span("train.loss"):
+                total, _ = roformer_training_loss(
+                    out, target, stft_n_fft=stft_n_fft, window_sizes=window_sizes,
+                    hop_length=hop_length, multi_stft_weight=multi_stft_weight)
             return total
     else:
         def loss(mix, target):
-            out = model(mix)[..., : target.shape[-1]]
-            return (out - target).abs().mean()
+            with span("train.forward"):
+                out = model(mix)[..., : target.shape[-1]]
+            with span("train.loss"):
+                return (out - target).abs().mean()
     return loss
 
 
@@ -170,13 +180,16 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
 
     def step(mix: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         with full_float32(), (float32_bf16_reductions() if bf16 else contextlib.nullcontext()):
-            optimizer.zero_grad(set_to_none=True)
+            with span("train.zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
             if mesh is None:
                 loss = loss_fn(mix, target)
-                loss.backward()
+                with span("train.backward"):
+                    loss.backward()
             else:
                 loss = _sharded_backward(mix, target)
-            optimizer.step()
+            with span("train.optimizer"):
+                optimizer.step()
         return loss.detach()
 
     def _sharded_backward(mix: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -191,7 +204,8 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
                                                 dtype=compute_dtype if bf16 else None),
                 **loss_kw)(m.to(rows[r]), t.to(rows[r]))
             row_loss = row_loss * (m.shape[0] / mix.shape[0])
-            row_loss.backward()  # each row's graph is freed before the next is built
+            with span("train.backward", row=r):
+                row_loss.backward()  # each row's graph is freed before the next is built
             loss = loss + row_loss.detach().to(mesh.first)
         if mesh.process_count > 1:
             params = list(model.parameters())
@@ -209,5 +223,6 @@ def cast_call(model: torch.nn.Module, x: torch.Tensor,
     """``model(x)`` on copies of its parameters cast to ``dtype``: one
     differentiable cast of each, so the gradients land, upcast, on the
     module's own (master) parameters."""
-    cast = {n: p.to(dtype) for n, p in model.named_parameters()}
+    with span("train.cast"):
+        cast = {n: p.to(dtype) for n, p in model.named_parameters()}
     return torch.func.functional_call(model, cast, (x,))

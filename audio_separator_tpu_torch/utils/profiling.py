@@ -1,67 +1,25 @@
-"""Structured timing and optional device tracing.
+"""Optional device tracing.
 
-Port of ``audio_separator_tpu/utils/profiling.py``:
-
-* :class:`PhaseTimer` — named wall-clock phase accounting with a
-  machine-readable summary;
-* :func:`device_trace` — a ``torch.profiler`` trace of the enclosed work,
-  written as a Chrome trace (``trace_<pid>_<ns>.json``, loadable in Perfetto or
-  ``chrome://tracing``) into ``trace_dir`` or ``AUDIO_SEPARATOR_TRACE``; a
-  no-op when neither is set.
+:func:`device_trace` — a ``torch.profiler`` trace of the enclosed work,
+written as a Chrome trace (``trace_<pid>_<ns>.json``, loadable in Perfetto or
+``chrome://tracing``) into ``trace_dir`` or ``AUDIO_SEPARATOR_TRACE``; a
+no-op when neither is set. It turns the program's spans on for the traced
+call (``utils/tracing.py``), so the trace shows the program's layers
+(``asep.separate.prepare``, ``asep.demix.batch``, ``asep.kernel.<name>``, ...)
+beside the kernels they launched.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Optional
 
-__all__ = ["PhaseTimer", "device_trace"]
+from . import tracing
 
-
-class PhaseTimer:
-    """Accumulates named wall-clock phases.
-
-    Usage::
-
-        timer = PhaseTimer(logger)
-        with timer.phase("demix"):
-            ...
-        logger.info(timer.summary())
-    """
-
-    def __init__(self, logger: Optional[logging.Logger] = None):
-        self.logger = logger
-        self.durations: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.durations[name] = self.durations.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-            if self.logger:
-                self.logger.debug(f"phase {name}: {dt*1e3:.1f} ms")
-
-    def summary(self) -> str:
-        total = sum(self.durations.values())
-        parts = [f"{k}={v*1e3:.0f}ms" for k, v in sorted(
-            self.durations.items(), key=lambda kv: -kv[1])]
-        return f"phases: {' '.join(parts)} (total {total*1e3:.0f}ms)"
-
-    def as_dict(self) -> Dict[str, float]:
-        return dict(self.durations)
-
-    def dump_json(self, path: str) -> None:
-        with open(path, "w", encoding="utf-8") as f:
-            json.dump({"durations_s": self.durations, "counts": self.counts}, f)
+__all__ = ["device_trace"]
 
 
 @contextlib.contextmanager
@@ -69,7 +27,8 @@ def device_trace(trace_dir: Optional[str] = None,
                  logger: Optional[logging.Logger] = None):
     """Optionally capture a ``torch.profiler`` trace (host and, with a CUDA
     device, the card) of the enclosed work into ``trace_dir`` or
-    ``AUDIO_SEPARATOR_TRACE``; otherwise a no-op."""
+    ``AUDIO_SEPARATOR_TRACE``, with the program's spans on; otherwise a
+    no-op. Spans already on (another caller's) stay on, under their prefix."""
     target = trace_dir or os.environ.get("AUDIO_SEPARATOR_TRACE")
     if not target:
         yield
@@ -84,8 +43,15 @@ def device_trace(trace_dir: Optional[str] = None,
     path = os.path.join(target, f"trace_{os.getpid()}_{time.time_ns()}.json")
     if logger:
         logger.info(f"capturing torch profiler trace to {path}")
-    with profile(activities=activities) as prof:
-        yield
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    was_on = tracing.enabled()
+    if not was_on:
+        tracing.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            tracing.disable()
     prof.export_chrome_trace(path)
