@@ -12,9 +12,14 @@ libavutil and libswresample), with the JAX package's dispatch rule:
   libraries), the pure-Python WAV path: WAV only, resampling with
   ``scipy.signal.resample_poly``, and ``save_audio`` of another format raises.
 
-WAV is always written by the Python writer. The codec is compiled with
-``g++`` at first use into ``build/torch_codec/`` at the repository root, keyed
-on a hash of the source and flags. The first call logs which route was taken.
+WAV is written without libav, by the package's WAV writer (``io/wav.cpp``,
+loaded with ``ctypes``): one pass reads the stem's peak, and one more scales,
+clips, quantises and interleaves it into the file's buffer, which is written
+with a single ``write``; where that cannot be built, the numpy writer
+(``_save_wav``) writes the same bytes. Both native libraries are compiled
+with ``g++`` at first use into ``build/torch_codec/`` at the repository root,
+keyed on a hash of the source and flags. The first call logs which route was
+taken. :data:`ENCODES` counts encodes by route.
 
 PCM exchanged with the rest of the package is float32 ``(channels,
 samples)``.
@@ -22,6 +27,7 @@ samples)``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import logging
@@ -37,16 +43,31 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..ops.resample import resample_poly_np
+from ..ops.spec import normalize, peak_scale
 from ..utils.tracing import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CODEC_SOURCE = os.path.join(_HERE, "codec.cpp")
+WAV_SOURCE = os.path.join(_HERE, "wav.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_codec")
 GXX_FLAGS = ("-O2", "-std=c++17")
 _AV_LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswresample")
-# artifact -> (file name stem, extra g++ flags)
-_ARTIFACTS = {"library": ("libaudsep_codec", ("-fPIC", "-shared")),
-              "cli": ("audsep_codec", ("-DAUDSEP_CLI",))}
+# The WAV writer's arithmetic must be numpy's to the bit: no contraction of a
+# product into an add, no fast-math. -fno-trapping-math only stops the
+# compiler from keeping floating-point exception flags exact, which lets it
+# vectorise the clip and the conversion to integers; no value changes.
+WAV_GXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fno-trapping-math")
+# artifact -> (file name stem, source, g++ flags, libraries)
+_ARTIFACTS = {"library": ("libaudsep_codec", CODEC_SOURCE, GXX_FLAGS + ("-fPIC", "-shared"),
+                          _AV_LIBS),
+              "cli": ("audsep_codec", CODEC_SOURCE, GXX_FLAGS + ("-DAUDSEP_CLI",), _AV_LIBS),
+              "wav": ("libaudsep_wav", WAV_SOURCE, WAV_GXX_FLAGS + ("-fPIC", "-shared"), ())}
+# The 44 bytes before a WAV file's samples, as the ``wave`` module writes them.
+_WAV_HEADER = struct.Struct("<4sI4s4sIHHIIHH4sI")
+
+# Encodes by route: "wav_native", "wav_python", "library", "subprocess".
+ENCODES: collections.Counter = collections.Counter()
+_encodes_lock = threading.Lock()
 
 _logger = logging.getLogger(__name__)
 _lock = threading.Lock()
@@ -54,6 +75,8 @@ _lib = None
 _lib_error: Optional[str] = None
 _cli: Optional[str] = None
 _cli_error: Optional[str] = None
+_wav_lib = None
+_wav_error: Optional[str] = None
 _routes_logged: set = set()
 
 
@@ -69,13 +92,13 @@ class AudioInfo:
 # Building and loading the codec.
 
 def codec_path(artifact: str) -> str:
-    """Where the codec's ``"library"`` or ``"cli"`` build lives for this
-    source and these flags."""
-    stem, extra = _ARTIFACTS[artifact]
-    h = hashlib.sha256(" ".join(GXX_FLAGS + extra + _AV_LIBS).encode())
-    with open(CODEC_SOURCE, "rb") as f:
+    """Where the codec's ``"library"`` or ``"cli"`` build, or the WAV
+    writer's ``"wav"`` build, lives for this source and these flags."""
+    stem, source, flags, libs = _ARTIFACTS[artifact]
+    h = hashlib.sha256(" ".join(flags + libs).encode())
+    with open(source, "rb") as f:
         h.update(f.read())
-    suffix = ".so" if artifact == "library" else ""
+    suffix = "" if artifact == "cli" else ".so"
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}{suffix}")
 
 
@@ -88,7 +111,8 @@ def _build(artifact: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, *_ARTIFACTS[artifact][1], CODEC_SOURCE, *_AV_LIBS, "-o", tmp]
+    _, source, flags, libs = _ARTIFACTS[artifact]
+    cmd = ["g++", *flags, source, *libs, "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
     except (OSError, subprocess.TimeoutExpired) as exc:
@@ -97,7 +121,7 @@ def _build(artifact: str) -> str:
         if os.path.exists(tmp):
             os.unlink(tmp)
         tail = proc.stderr.strip().splitlines()[-1:] or [f"exit {proc.returncode}"]
-        raise RuntimeError(f"g++ failed for the {artifact} codec: {tail[0]}")
+        raise RuntimeError(f"g++ failed for the {artifact} build: {tail[0]}")
     os.replace(tmp, out)
     return out
 
@@ -147,8 +171,42 @@ def _codec_cli() -> Optional[str]:
         return _cli
 
 
+def _load_wav_lib():
+    """The WAV writer's library, or None where it cannot be built or
+    loaded (then ``_wav_error`` says why)."""
+    global _wav_lib, _wav_error
+    with _lock:
+        if _wav_lib is not None or _wav_error is not None:
+            return _wav_lib
+        try:
+            lib = ctypes.CDLL(_build("wav"))
+        except (RuntimeError, OSError) as exc:  # no g++
+            _wav_error = str(exc)
+            return None
+        view = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+        lib.aw_peak.argtypes = view
+        lib.aw_peak.restype = ctypes.c_float
+        lib.aw_encode.argtypes = view + [ctypes.c_int, ctypes.c_double, ctypes.c_int,
+                                         ctypes.c_void_p]
+        lib.aw_encode.restype = None
+        _wav_lib = lib
+        return _wav_lib
+
+
 def native_codec_available() -> bool:
     return _load_lib() is not None
+
+
+def _log_route(route: str, detail) -> None:
+    """Log ``route`` with ``detail()`` the first time it is taken."""
+    if route not in _routes_logged:
+        _routes_logged.add(route)
+        _logger.info(f"audio I/O route: {route} ({detail()})")
+
+
+def _count(route: str) -> None:
+    with _encodes_lock:
+        ENCODES[route] += 1
 
 
 def _route() -> str:
@@ -160,11 +218,8 @@ def _route() -> str:
         route = "library"
     else:
         route = "wav"
-    if route not in _routes_logged:
-        _routes_logged.add(route)
-        detail = {"subprocess": _cli, "library": codec_path("library"),
-                  "wav": f"native codec unavailable: {_lib_error}"}[route]
-        _logger.info(f"audio I/O route: {route} ({detail})")
+    _log_route(route, lambda: {"subprocess": _cli, "library": codec_path("library"),
+                               "wav": f"native codec unavailable: {_lib_error}"}[route])
     return route
 
 
@@ -255,31 +310,104 @@ def load_audio(path: str, sample_rate: Optional[int] = None,
 
 def save_audio(path: str, pcm: np.ndarray, sample_rate: int,
                output_format: Optional[str] = None, bit_depth: int = 16,
-               bitrate_kbps: int = 0) -> None:
-    """Encode float32 ``(channels, samples)`` PCM to ``path``. The format is
-    the extension's unless given; WAV, FLAC and AIFF keep ``bit_depth`` (16,
-    24, or 32 = IEEE float for WAV); ``bitrate_kbps`` sets lossy formats'
-    rate."""
-    with span("audio.encode"):
+               bitrate_kbps: int = 0, *, max_peak: Optional[float] = None,
+               min_peak: Optional[float] = None):
+    """Encode ``(channels, samples)`` PCM (float32, or any type numpy casts
+    to it; any strides) to ``path``. The format is the extension's unless
+    given; WAV, FLAC and AIFF keep ``bit_depth`` (16, 24, or 32 = IEEE float
+    for WAV); ``bitrate_kbps`` sets lossy formats' rate.
+
+    With ``max_peak`` the PCM is first normalised as
+    ``ops.spec.normalize(pcm, max_peak, min_peak)`` does it, and the peak
+    |sample| after that, a numpy scalar of the PCM's type, is returned
+    (otherwise None). A float32 WAV stem is normalised inside the
+    writer's pass, to the same bytes."""
+    with span("audio.encode") as record:
         if pcm.ndim == 1:
             pcm = pcm[None, :]
         fmt = (output_format or os.path.splitext(path)[1].lstrip(".") or "wav").lower()
+        route = _encode_route(fmt, pcm)
+        if record is not None:
+            record.attrs["route"] = route
+        _count(route)
+        if route == "wav_native":
+            return _save_wav_native(path, pcm, sample_rate, bit_depth, max_peak, min_peak)
+        peak = None
+        if max_peak is not None:
+            pcm = normalize(pcm, max_peak, min_peak)
+            peak = np.abs(pcm).max()
         interleaved = np.ascontiguousarray(pcm.T, dtype=np.float32)
-        if fmt == "wav":
+        if route == "wav_python":
             _save_wav(path, interleaved, sample_rate, bit_depth)
-            return
-        route = _route()
-        if route == "subprocess":
+        elif route == "subprocess":
             _save_subprocess(path, interleaved, sample_rate, fmt, bit_depth, bitrate_kbps)
-            return
-        if route == "wav":
-            raise RuntimeError(f"cannot encode '{fmt}': native codec unavailable ({_lib_error}); "
-                               f"only WAV is written without it")
-        ptr = interleaved.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-        rc = _lib.as_encode(path.encode(), ptr, interleaved.shape[0], interleaved.shape[1],
-                            sample_rate, fmt.encode(), bit_depth, bitrate_kbps)
-        if rc != 0:
-            raise RuntimeError(f"encode failed for {path}: {_lib.as_last_error().decode()}")
+        else:
+            ptr = interleaved.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+            rc = _lib.as_encode(path.encode(), ptr, interleaved.shape[0], interleaved.shape[1],
+                                sample_rate, fmt.encode(), bit_depth, bitrate_kbps)
+            if rc != 0:
+                raise RuntimeError(f"encode failed for {path}: {_lib.as_last_error().decode()}")
+        return peak
+
+
+def _encode_route(fmt: str, pcm: np.ndarray) -> str:
+    """``"wav_native"`` or ``"wav_python"`` for WAV (the numpy writer where
+    the WAV writer cannot be built, and for PCM without channels), else the
+    codec's route; raises where no route encodes ``fmt``."""
+    if fmt == "wav":
+        if pcm.shape[0] and _load_wav_lib() is not None:
+            _log_route("wav_native", lambda: codec_path("wav"))
+            return "wav_native"
+        _log_route("wav_python", lambda: f"WAV writer unavailable: {_wav_error}")
+        return "wav_python"
+    route = _route()
+    if route == "wav":
+        raise RuntimeError(f"cannot encode '{fmt}': native codec unavailable ({_lib_error}); "
+                           f"only WAV is written without it")
+    return route
+
+
+def _save_wav_native(path: str, pcm: np.ndarray, sample_rate: int, bit_depth: int,
+                     max_peak: Optional[float], min_peak: Optional[float]):
+    """``save_audio``'s WAV route through ``io/wav.cpp``: the bytes of
+    ``_save_wav`` on ``normalize``'s output. Float32 PCM is read in place and
+    scaled inside the pass by ``normalize``'s factor, from the peak the
+    library finds; other types are normalised in numpy first and cast, in the
+    order of the numpy route."""
+    peak = None
+    if max_peak is not None and not (_native_type(pcm) and pcm.size):
+        pcm = normalize(pcm, max_peak, min_peak)
+        peak, max_peak = np.abs(pcm).max(), None
+    if not _native_type(pcm):
+        pcm = pcm.astype(np.float32)
+    channels, frames = pcm.shape
+    cs, fs = (stride // pcm.itemsize for stride in pcm.strides)
+    scale = None
+    if max_peak is not None:
+        top = np.float32(_wav_lib.aw_peak(pcm.ctypes.data, channels, frames, cs, fs))
+        scale = peak_scale(top, max_peak, min_peak)
+        # numpy multiplies a float32 array by the factor narrowed to float32.
+        peak = top if scale is None else abs(top * np.float32(scale))
+    width = 4 if bit_depth >= 32 else 3 if bit_depth == 24 else 2
+    size = channels * frames * width
+    buf = np.empty(_WAV_HEADER.size + size, np.uint8)
+    _WAV_HEADER.pack_into(buf, 0, b"RIFF", 36 + size, b"WAVE", b"fmt ", 16,
+                          3 if width == 4 else 1, channels, sample_rate,
+                          sample_rate * channels * width, channels * width, width * 8,
+                          b"data", size)
+    _wav_lib.aw_encode(pcm.ctypes.data, channels, frames, cs, fs, scale is not None,
+                       0.0 if scale is None else float(scale), width,
+                       buf.ctypes.data + _WAV_HEADER.size)
+    with open(path, "wb") as f:
+        f.write(memoryview(buf))
+    return peak
+
+
+def _native_type(pcm: np.ndarray) -> bool:
+    """Whether the WAV writer reads ``pcm`` in place: float32 samples on
+    whole-element, aligned strides."""
+    return (pcm.dtype == np.float32 and pcm.dtype.isnative
+            and pcm.flags.aligned and all(s % pcm.itemsize == 0 for s in pcm.strides))
 
 
 # ---------------------------------------------------------------------------

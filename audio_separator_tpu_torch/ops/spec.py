@@ -26,12 +26,19 @@ def normalize(wave: np.ndarray, max_peak: float = 1.0,
               min_peak: float | None = None) -> np.ndarray:
     """Scale down to ``max_peak`` if louder; scale up to ``min_peak`` if a
     non-silent wave is quieter."""
-    maxv = np.abs(wave).max()
+    scale = peak_scale(np.abs(wave).max(), max_peak, min_peak)
+    return wave if scale is None else wave * scale
+
+
+def peak_scale(maxv, max_peak: float = 1.0, min_peak: float | None = None):
+    """The factor :func:`normalize` scales a wave of peak ``maxv`` (the numpy
+    scalar ``np.abs(wave).max()`` gives) by, or ``None`` where it leaves the
+    wave as it is."""
     if maxv > max_peak:
-        return wave * (max_peak / maxv)
+        return max_peak / maxv
     if min_peak is not None and 0 < maxv < min_peak:
-        return wave * (min_peak / maxv)
-    return wave
+        return min_peak / maxv
+    return None
 
 
 def preprocess(spec: np.ndarray):

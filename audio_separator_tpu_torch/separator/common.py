@@ -19,7 +19,6 @@ from typing import Callable, Dict, Hashable, List, Optional
 import numpy as np
 
 from ..io import audio as audio_io
-from ..ops import spec as spec_ops
 from ..ops.fn_cache import memoized_model
 from ..parallel.mesh import canonical_device
 from ..utils.tracing import span
@@ -179,18 +178,6 @@ class BaseSeparator:
         """Write a (samples, channels) stem with normalisation, near-silent
         guard, and bit-depth preservation (ref: common_separator.py:284-451)."""
         with span("separate.finalize"):
-            stem_source = spec_ops.normalize(
-                stem_source,
-                max_peak=self.normalization_threshold,
-                min_peak=self.amplification_threshold,
-            )
-            if np.max(np.abs(stem_source)) < 1e-6:
-                # Deviation from the reference (common_separator.py:312-314),
-                # which skips the write and leaves callers holding a path to a
-                # nonexistent file — breaking chunked merge and ensembling. Write
-                # the silent stem so every reported output path exists.
-                self.logger.warning("stem_source array is near-silent or empty")
-
             if self.output_dir:
                 os.makedirs(self.output_dir, exist_ok=True)
                 stem_path = os.path.join(self.output_dir, stem_path)
@@ -200,14 +187,24 @@ class BaseSeparator:
             bitrate = 0
             if self.output_bitrate:
                 bitrate = int(str(self.output_bitrate).lower().rstrip("k"))
-            audio_io.save_audio(
+            # Normalised inside the encode: a float WAV stem in the writer's
+            # own pass, read in place.
+            peak = audio_io.save_audio(
                 stem_path,
-                stem_source.T.astype(np.float32),  # (channels, samples)
+                stem_source.T,  # (channels, samples)
                 self.sample_rate,
                 output_format=fmt,
                 bit_depth=bit_depth,
                 bitrate_kbps=bitrate,
+                max_peak=self.normalization_threshold,
+                min_peak=self.amplification_threshold,
             )
+            if peak < 1e-6:
+                # Deviation from the reference (common_separator.py:312-314),
+                # which skips the write and leaves callers holding a path to a
+                # nonexistent file — breaking chunked merge and ensembling. Write
+                # the silent stem so every reported output path exists.
+                self.logger.warning("stem_source array is near-silent or empty")
 
     def final_process(self, stem_path: str, source: np.ndarray, stem_name: str):
         self.logger.debug(f"Finalizing {stem_name} stem processing and writing audio...")

@@ -11,7 +11,11 @@ name (every gap, not the result line's first ten), the share of idle named
 by a program span other than ``separate.request`` (a program span is
 ``<layer>.<part>``; the harness's names have no dot), and the device seconds
 of each ``kernel.<name>`` range beside those of the harness's probe of the
-same kernel (``b1``, ``b2``, ``b3``, ``k1``), with their relative gap.
+same kernel (``b1``, ``b2``, ``b3``, ``k1``), with their relative gap, and
+the encodes: ``io/audio.ENCODES`` over the whole run, and the window's
+``audio.encode`` records by their ``route`` and their median milliseconds;
+with the count and the summed seconds of the window's records of each span
+name (a span's time includes the spans inside it).
 
 ``cost`` times, in one process, a call of ``tracing.span`` and
 ``ops/_build.launch`` with spans off, on, and on under a running CPU
@@ -69,9 +73,30 @@ def check(args) -> int:
             "busy_s": s.busy_s, "idle_s": idle_s,
             "program_named_share": sum(program.values()) / idle_s if idle_s else None,
             "idle_by_name": idle, "kernels": kernels,
-            "span_device_s": {k: v for k, v in s.span_device_s.items()}}
+            "span_device_s": {k: v for k, v in s.span_device_s.items()},
+            **_window_spans(windows[0])}
     print("SPANS " + json.dumps(line), flush=True)
     return 0
+
+
+def _window_spans(win) -> dict:
+    from audio_separator_tpu_torch.io import audio
+    from audio_separator_tpu_torch.utils import tracing
+
+    kept = [r for r in tracing.records() if win.t0 * 1e9 <= r.end_ns <= win.t1 * 1e9]
+    seconds = {}
+    for r in kept:
+        n, total = seconds.get(r.name, (0, 0.0))
+        seconds[r.name] = (n + 1, total + (r.end_ns - r.start_ns) / 1e9)
+    encodes = [r for r in kept if r.name == "audio.encode"]
+    routes = {}
+    for r in encodes:
+        route = r.attrs.get("route", "unnamed")
+        routes[route] = routes.get(route, 0) + 1
+    return {"encodes": dict(getattr(audio, "ENCODES", {})), "encode_routes": routes,
+            "encode_ms_median": statistics.median((r.end_ns - r.start_ns) / 1e6 for r in encodes)
+            if encodes else None,
+            "span_count_s": seconds}
 
 
 def _ns_a_call(fn, n: int, rounds: int = 7) -> float:
