@@ -45,6 +45,7 @@ from torch import nn
 from ..ops.attention_block import fused_attention_block, fused_ff_block
 from ..ops.stft import hann_window, istft, stft
 from ..ops.tf32 import split_tf32
+from ..utils.tracing import span
 from .melbands import mel_band_membership
 
 SEQ_GRANULARITY = 64  # the fused blocks' n_pad % 64 == 0 contract
@@ -94,6 +95,12 @@ class BandLayout:
     starts: np.ndarray  # (n_bands,) first feature of each band
     denom: np.ndarray  # (n_feat,) how many bands cover each feature
     runs: tuple
+
+    @property
+    def features(self) -> int:
+        """Packed features the bands cover, counted once a band that covers
+        them (more than ``n_feat`` where bands overlap)."""
+        return sum((e0 - s0) * w for s0, e0, w, _dense in self.runs)
 
 
 @functools.lru_cache(maxsize=16)
@@ -532,7 +539,12 @@ class Roformer(nn.Module):
         feats = torch.view_as_real(rows)  # (b, rows, Tf, 2)
         feats = feats.permute(0, 2, 1, 3).reshape(b, tf, layout.n_feat)
 
-        x = _band_split(self.band_split, feats.to(dt), layout)  # (b, Tf, nb, dim)
+        # The band stages' spans: plain PyTorch work that names its own idle
+        # gaps and device time beside the kernels' (``kernel.<stage>``).
+        counts = dict(batch=b, frames=tf, bands=layout.n_bands, runs=len(layout.runs),
+                      hidden_layers=len(self.mask_est.hidden), features=layout.features)
+        with span("kernel.band_split", **counts):
+            x = _band_split(self.band_split, feats.to(dt), layout)  # (b, Tf, nb, dim)
 
         time_rope = _rope_tables(tf, cfg.dim_head, dt, dev)
         freq_rope = _rope_tables(layout.n_bands, cfg.dim_head, dt, dev)
@@ -573,24 +585,26 @@ class Roformer(nn.Module):
         if cfg.kind == "bs":
             x = _rmsnorm(x, self.final_norm["gamma"])
 
-        banded_runs = (_mask_estimate_tp(self.mask_est, list(self.tp_shards), x, layout)
-                       if sharded else _mask_estimate(self.mask_est, x, layout))
+        with span("kernel.mask_estimate", **counts):
+            banded_runs = (_mask_estimate_tp(self.mask_est, list(self.tp_shards), x, layout)
+                           if sharded else _mask_estimate(self.mask_est, x, layout))
 
         # Band → feature recombination: BS bands are disjoint (dense runs are
         # reshaped concats); Mel bands overlap, sum and are averaged by counts.
         ns = cfg.num_stems
-        acc = torch.zeros((b, tf, ns, layout.n_feat), dtype=torch.float32, device=dev)
-        for run, o in zip(layout.runs, banded_runs):
-            s0, e0, w, dense = run
-            if dense:
-                fs = int(layout.starts[s0])
-                acc[..., fs : fs + (e0 - s0) * w] += o.reshape(b, tf, ns, (e0 - s0) * w)
-            else:
-                for j in range(e0 - s0):
-                    st = int(layout.starts[s0 + j])
-                    acc[..., st : st + w] += o[..., j, :]
-        if cfg.kind == "mel":
-            acc = acc / torch.as_tensor(layout.denom, device=dev)
+        with span("kernel.band_merge", **counts):
+            acc = torch.zeros((b, tf, ns, layout.n_feat), dtype=torch.float32, device=dev)
+            for run, o in zip(layout.runs, banded_runs):
+                s0, e0, w, dense = run
+                if dense:
+                    fs = int(layout.starts[s0])
+                    acc[..., fs : fs + (e0 - s0) * w] += o.reshape(b, tf, ns, (e0 - s0) * w)
+                else:
+                    for j in range(e0 - s0):
+                        st = int(layout.starts[s0 + j])
+                        acc[..., st : st + w] += o[..., j, :]
+            if cfg.kind == "mel":
+                acc = acc / torch.as_tensor(layout.denom, device=dev)
 
         mask_feats = acc.permute(0, 2, 3, 1).reshape(b, ns, n_bins * s, 2, tf)
         mask = torch.complex(mask_feats[..., 0, :], mask_feats[..., 1, :])
