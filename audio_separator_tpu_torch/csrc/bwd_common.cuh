@@ -7,6 +7,9 @@
 // (TF32 and bf16, its descriptors and fences from hopper.cuh) and, in its bf16
 // form, TMA tensor maps, mbarriers and setmaxnreg.
 //
+// group_norm.cu (Demucs's GroupNorm, a forward kernel) uses the vector loads
+// and the launcher too.
+//
 // Each library exposes a plain C interface (loaded with ctypes, see
 // ops/_build.py) whose entry points return cudaGetLastError() after each
 // launch, and asep_error_string for the wrapper's message.

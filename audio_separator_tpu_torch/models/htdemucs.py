@@ -24,6 +24,14 @@ cross-attention layers, whose query and key lengths differ, are plain PyTorch
 too — as the JAX package computes both outside any Pallas kernel. The
 modules are differentiable (``training.make_train_step`` trains them); the
 self-attention's backward is the kernel of ``csrc/attention_bwd.cu``.
+
+Every GroupNorm goes through ``ops/group_norm.group_norm`` with the step that
+follows it (the DConvs' GELU and GLU·scale + residual, the encoders' GELU and
+GLU, the transformer's output norm in its ``(B, T, C)`` layout): the
+hand-written kernel on a CUDA tensor in inference, the modules' own
+composition on the CPU and under autograd. The ``nn.GroupNorm``, ``nn.GELU``,
+``nn.GLU`` and ``LayerScale`` modules stay where upstream has them, so the
+state-dict keys do not move.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.group_norm import group_norm
 from ..ops.precision import full_float32
 from ..ops.stft import hann_window, istft, stft
 from .filtering import wiener
@@ -250,11 +259,19 @@ class LocalState(nn.Module):
         return x + self.proj(result)
 
 
+def _norm(norm: nn.GroupNorm, x: torch.Tensor, epilogue: str = "none",
+          **kwargs) -> torch.Tensor:
+    """``norm`` and the ``epilogue`` after it (``ops/group_norm``)."""
+    return group_norm(x, norm.weight, norm.bias, norm.num_groups, norm.eps, epilogue, **kwargs)
+
+
 class DConv(nn.Module):
     """Residual branch of dilated convolutions over ``(B, C, T)``:
     conv → GroupNorm → GELU → [BLSTM] → [LocalState] → conv → GroupNorm →
     GLU → scale, per depth (the bracketed modules in Demucs v3's deep levels,
-    at Sequential index 3 and on, as upstream inserts them)."""
+    at Sequential index 3 and on, as upstream inserts them). Each GroupNorm
+    runs with the step after it, the second with the residual add too; the
+    Sequential keeps upstream's indices and is not called as a whole."""
 
     def __init__(self, channels: int, compress: float, depth: int,
                  lstm: bool = False, attn: bool = False):
@@ -274,7 +291,12 @@ class DConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
-            x = x + layer(x)
+            mods = list(layer)
+            y = _norm(mods[1], mods[0](x), "gelu")
+            for branch in mods[3:-4]:  # v3's BLSTM and LocalState
+                y = branch(y)
+            x = _norm(mods[-3], mods[-4](y), "glu_scale_residual", scale=mods[-1].scale,
+                      residual=x)
         return x
 
 
@@ -324,14 +346,12 @@ class HEncLayer(nn.Module):
             if inject.dim() == 3 and y.dim() == 4:
                 inject = inject[:, :, None]
             y = y + inject
-        if hasattr(self, "norm1"):
-            y = self.norm1(y)
-        y = F.gelu(y)
+        y = _norm(self.norm1, y, "gelu") if hasattr(self, "norm1") else F.gelu(y)
         if hasattr(self, "dconv"):
             y = _dconv_over_time(self.dconv, y)
         z = self.rewrite(y)
         if hasattr(self, "norm2"):
-            z = self.norm2(z)
+            return _norm(self.norm2, z, "glu_scale_residual")
         return F.glu(z, dim=1)
 
 
@@ -372,13 +392,14 @@ class HDecLayer(nn.Module):
         else:
             y = self.rewrite(x + skip)
             if hasattr(self, "norm1"):
-                y = self.norm1(y)
-            y = F.glu(y, dim=1)
+                y = _norm(self.norm1, y, "glu_scale_residual")
+            else:
+                y = F.glu(y, dim=1)
             if hasattr(self, "dconv"):
                 y = _dconv_over_time(self.dconv, y)
         z = self.conv_tr(y)
-        if hasattr(self, "norm2"):
-            z = self.norm2(z)
+        if hasattr(self, "norm2"):  # the GELU below comes after a slice
+            z = _norm(self.norm2, z)
         if self.freq:
             if self.pad:
                 z = z[..., self.pad : -self.pad, :]
@@ -467,11 +488,6 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out.transpose(1, 2).reshape(b, tq, e))
 
 
-def _group_norm_btc(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm(1) on ``(B, T, C)``: statistics over (T, C) jointly."""
-    return norm(x.transpose(1, 2)).transpose(1, 2)
-
-
 class FeedForwardShard(nn.Module):
     """One tensor-parallel shard of a cross-transformer feed-forward
     (``parallel/mesh.shard_htdemucs_params``): ``linear1``'s rows of its
@@ -517,7 +533,8 @@ class _TransformerLayer(nn.Module):
         else:  # the all-reduce: the shards' partial products summed on h's device
             y = self.linear2.bias + sum(shard(h).to(h.device) for shard in self.tp_shards)
         x = x + self.gamma_2(y)
-        return _group_norm_btc(self.norm_out, x)
+        # GroupNorm(1) on (B, T, C): statistics over (T, C) jointly.
+        return _norm(self.norm_out, x, channel_last=True)
 
 
 class SelfAttentionLayer(_TransformerLayer):

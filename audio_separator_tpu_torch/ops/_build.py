@@ -26,14 +26,15 @@ from ..utils import tracing
 # Launch counters: each wrapper adds one for its kernel (chain), through
 # launch() (or count()), under one lock: jobs of a server launch from several
 # threads. The backward kernels' bf16 forms count under names of their own
-# (``_bf16``).
+# (``_bf16``); ``group_norm_split`` counts the GroupNorm launches whose rows
+# were split over several blocks (``ops/group_norm.py``).
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
                             "fused_attention_block_partial": 0,
                             "fused_ff_block_partial": 0, "fused_attention": 0, "attention_backward": 0,
                             "rmsnorm_backward": 0, "gelu_backward": 0,
                             "rope_gate_backward": 0, "attention_backward_bf16": 0,
                             "rmsnorm_backward_bf16": 0, "gelu_backward_bf16": 0,
-                            "rope_gate_backward_bf16": 0}
+                            "rope_gate_backward_bf16": 0, "group_norm": 0, "group_norm_split": 0}
 _count_lock = threading.Lock()
 
 
@@ -44,20 +45,23 @@ def count(name: str) -> None:
 
 
 class launch:
-    """``with launch(name):`` around all of a wrapper's device work for
-    kernel ``name`` (its inputs made contiguous, padding, the chain): one
+    """``with launch(name, **attrs):`` around all of a wrapper's device work
+    for kernel ``name`` (its inputs made contiguous, padding, the chain): one
     launch counted in :data:`LAUNCHES` when the block ends without an
     exception, as :func:`count`; while spans are on (``utils/tracing.py``),
     the profiler range ``kernel.<name>`` around the block, so that a trace
-    gives the wrapper's device time. No record is kept."""
+    gives the wrapper's device time. With ``attrs`` (the call's sizes) the
+    range is a span that also keeps a record of them; without, no record is
+    kept."""
 
-    __slots__ = ("name", "_range")
+    __slots__ = ("name", "attrs", "_range")
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, **attrs):
+        self.name, self.attrs = name, attrs
 
     def __enter__(self):
-        self._range = tracing.profiler_range("kernel." + self.name)
+        self._range = (tracing.span("kernel." + self.name, **self.attrs) if self.attrs
+                       else tracing.profiler_range("kernel." + self.name))
         self._range.__enter__()
         return self
 
@@ -89,7 +93,8 @@ KERNEL_SOURCES = {"attention_block": "attention_block.cu",
                   "attention_bwd": "attention_bwd.cu",
                   "norm_bwd": "norm_bwd.cu",
                   "gelu_bwd": "gelu_bwd.cu",
-                  "rope_gate_bwd": "rope_gate_bwd.cu"}
+                  "rope_gate_bwd": "rope_gate_bwd.cu",
+                  "group_norm": "group_norm.cu"}
 _SIGNATURES = {
     "attention_block": ("asep_attention_block",
                         [_I] + [_P] * 15 + [_I] * 6 + [_P]),
@@ -101,6 +106,8 @@ _SIGNATURES = {
     "norm_bwd": ("asep_norm_bwd", [_I] + [_P] * 7 + [_I] * 3 + [_P]),
     "gelu_bwd": ("asep_gelu_bwd", [_I] + [_P] * 4 + [ctypes.c_longlong, _P]),
     "rope_gate_bwd": ("asep_rope_gate_bwd", [_I] + [_P] * 9 + [_I] * 3 + [_P]),
+    "group_norm": ("asep_group_norm",
+                   [_P] * 7 + [_I] * 7 + [ctypes.c_longlong] + [_I] * 2 + [ctypes.c_float, _P]),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -25,7 +25,11 @@ result lines are printed):
    branch, (4, 8, 2688, 64) on the frequency branch) and one ragged small
    shape, plus a 128-wide head, with ``scaled_dot_product_attention`` timed
    beside it as a yardstick that the port never calls; one cuBLAS product of
-   each bf16 GEMM shape of the two blocks is timed the same way;
+   each bf16 GEMM shape of the two blocks is timed the same way; and the
+   GroupNorm kernel at every GroupNorm shape of one HTDemucs forward (plus
+   a four-group and a ragged shape), against ``group_norm_ref`` on the same
+   card tensors, one launch a call, timed beside the plain version,
+   ``F.group_norm`` alone and the byte bound;
 4. the flagship Roformer (seeded random weights) on one 8 s window with the
    kernels, against the same module on the CPU (plain versions), float32:
    SDR floor 108.95 dB (the 3xTF32 products' condition: within 10 dB of the
@@ -505,6 +509,147 @@ def phase_attention_kernel(att, seed):
     return records
 
 
+# GroupNorm kernel against group_norm_ref on the same card tensors: both sum
+# the float32 statistics of rows of up to 8.3 M elements, in different orders
+# (good to some 1e-7 of the scale), and the apply pass adds a few float32
+# roundings (a·x + b, erf or exp, the scale and the residual).
+GN_TOLERANCE = {"float32": {"max": 1e-5, "mean": 1e-6}}
+# Every GroupNorm shape of one HTDemucs forward of the songs cell (4 segments
+# of 7.8 s at 44.1 kHz): each encoder level's DConv, two depths of
+# GroupNorm(1, C/8) -> GELU and GroupNorm(1, 2C) -> GLU·scale + residual, on
+# the time branch and on the frequency branch with its rows folded into the
+# batch; then the 5 transformer layers' channel-last output norms a branch.
+GN_BATCH, GN_FRAMES = 4, 336
+GN_LEVELS = ((85995, 512), (21499, 128), (5375, 32), (1344, 8))  # time length, freq rows
+
+
+def group_norm_shapes():
+    """``(axis, shape, groups, epilogue, channel_last, launches a forward)``:
+    one HTDemucs forward's GroupNorms (their launches sum to
+    HTDEMUCS_GROUP_NORMS_PER_FORWARD), then, timed by no forward, HDemucs
+    v3's four-group norm and a row length that is no multiple of 4."""
+    shapes = []
+    for level, (length, rows) in enumerate(GN_LEVELS):
+        c = 48 * 2 ** level
+        for branch, lead, n in (("time", GN_BATCH, length), ("freq", GN_BATCH * rows, GN_FRAMES)):
+            shapes.append((f"L{level} {branch}", (lead, c // 8, n), 1, "gelu", False, 2))
+            shapes.append((f"L{level} {branch}", (lead, 2 * c, n), 1, "glu_scale_residual",
+                           False, 2))
+    shapes.append(("transformer time", (GN_BATCH, 1344, 512), 1, "none", True, 5))
+    shapes.append(("transformer freq", (GN_BATCH, 2688, 512), 1, "none", True, 5))
+    shapes.append(("v3", (GN_BATCH, 384, 8, 336), 4, "gelu", False, 0))
+    shapes.append(("ragged", (3, 10, 1001), 1, "glu_scale_residual", False, 0))
+    return shapes
+
+
+def phase_group_norm_kernel(seed):
+    """Phase 3, the GroupNorm kernel (ops/group_norm.group_norm): at each
+    shape of group_norm_shapes, one call with the launch counts set to 0
+    just before (one launch, split where its plan splits the rows, nothing
+    else), against group_norm_ref on the same card tensors; at a forward's
+    shapes its CUDA-event and device time beside the plain version's, the
+    library's F.group_norm alone (no epilogue) and the byte bound of
+    benchmark/counts/group_norm.py."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops import group_norm as gn
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    from benchlib import manifest, peaks
+
+    count_bytes = manifest.plugin("counts", "group_norm").count
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    records = []
+    forward = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    for axis, shape, groups, epilogue, channel_last, per_forward in group_norm_shapes():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        channels = shape[-1] if channel_last else shape[1]
+        # An offset mean and a spread of scales, as the card tests use.
+        x = torch.randn(*shape, generator=g, device=dev) * 2.5 + 0.75
+        kw = dict(weight=1 + 0.3 * torch.randn(channels, generator=g, device=dev),
+                  bias=0.2 * torch.randn(channels, generator=g, device=dev), groups=groups,
+                  eps=1e-5, epilogue=epilogue, channel_last=channel_last)
+        if epilogue == "glu_scale_residual":
+            kw.update(scale=0.5 * torch.randn(channels // 2, generator=g, device=dev),
+                      residual=torch.randn(shape[0], channels // 2, *shape[2:], generator=g,
+                                           device=dev))
+
+        def kernel():
+            return gn.group_norm(x, **kw)
+
+        def plain():
+            return gn.group_norm_ref(x, **kw)
+
+        def library():
+            xin = x.transpose(1, 2) if channel_last else x
+            return F.group_norm(xin, groups, kw["weight"], kw["bias"], 1e-5)
+
+        rows, row_len = shape[0] * groups, x.numel() // shape[0] // groups
+        out_len = row_len * groups // (2 if epilogue == "glu_scale_residual" else 1)
+        splits = gn.plan(rows, row_len, shape[0], out_len, sms)[0]
+        with torch.inference_mode():
+            _build.reset_launch_counts()
+            got = kernel()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            want = plain()
+        err = compare(got, want, "float32", GN_TOLERANCE)
+        del got, want
+        rec = dict(name="group_norm", dtype="float32", axis=axis, shape=list(shape),
+                   groups=groups, epilogue=epilogue, channel_last=channel_last,
+                   per_forward=per_forward, splits=splits, **err)
+        tol = GN_TOLERANCE["float32"]
+        msg = (f"[kernels] group_norm {axis} {epilogue}{' channel-last' if channel_last else ''} "
+               f"x{shape} groups {groups}, {splits} split(s) a row: "
+               f"max_abs_err={err['max_abs_err']:.3e} "
+               f"(rel {err['max_abs_err'] / err['scale']:.3e}, tol {tol['max']:.0e}) "
+               f"mean_abs_err={err['mean_abs_err']:.3e} "
+               f"(rel {err['mean_abs_err'] / err['scale']:.3e}, tol {tol['mean']:.0e})")
+        if per_forward:
+            with torch.inference_mode():
+                ms = cuda_time_ms(kernel, iters=5)
+                plain_ms = cuda_time_ms(plain, iters=3)
+                library_ms = cuda_time_ms(library, iters=3)
+                split = device_split(kernel)
+            _, nbytes = count_bytes(rows, row_len, channels, epilogue, 4,
+                                    scale="scale" in kw, residual="residual" in kw)
+            bound_ms = 1e3 * peaks.bound_s(0, nbytes, 4)
+            device_ms = sum(split.values()) or None
+            rec.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by="bytes", bytes=nbytes, split=split)
+            for key in forward:
+                forward[key] += per_forward * (rec[key] or 0.0)
+            msg += (f"; kernel {ms:.3f} ms (device "
+                    + (f"{device_ms:.3f}" if device_ms else "not recorded")
+                    + f"), plain {plain_ms:.3f} ms, library yardstick (F.group_norm alone) "
+                    f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes); "
+                    f"{per_forward} a forward")
+        log(msg)
+        records.append(rec)
+        want_launches = {"group_norm": 1, **({"group_norm_split": 1} if splits > 1 else {})}
+        if launches != want_launches:
+            raise AssertionError(f"group_norm {axis} {shape}: launches {launches}, "
+                                 f"expected {want_launches}")
+        if not err["ok"]:
+            raise AssertionError(f"group_norm {axis} {shape}: kernel disagrees with its "
+                                 f"plain version: {err}")
+        del x, kw
+        torch.cuda.empty_cache()
+    launches = sum(r["per_forward"] for r in records)
+    if launches != HTDEMUCS_GROUP_NORMS_PER_FORWARD:
+        raise AssertionError(f"group_norm_shapes gives {launches} launches a forward, "
+                             f"expected {HTDEMUCS_GROUP_NORMS_PER_FORWARD}")
+    log(f"[kernels] group_norm, one HTDemucs forward's {launches} launches: kernel "
+        f"{forward['ms']:.3f} ms (device {forward['device_ms']:.3f}), plain "
+        f"{forward['plain_ms']:.3f} ms, library yardstick {forward['library_ms']:.3f} ms, "
+        f"bound {forward['bound_ms']:.3f} ms (bytes; device time's share "
+        f"{100 * forward['bound_ms'] / max(forward['device_ms'], 1e-9):.1f} %)")
+    return records, forward
+
+
 def phase_model(ab, seed):
     """Phase 4: flagship forward with kernels vs the CPU plain path."""
     import numpy as np
@@ -553,6 +698,22 @@ def phase_model(ab, seed):
 
 
 HTDEMUCS_LAUNCHES_PER_FORWARD = 6  # self-attention layers 0, 2, 4 on both branches
+# Every GroupNorm of an HTDemucs forward runs the GroupNorm kernel
+# (ops/group_norm.py): two a DConv depth, two depths, on the 4 + 4 encoder
+# levels (32), and the output norm of the 5 transformer layers on both
+# branches (10). How many launches split their rows over several blocks
+# follows the shapes and the card's SM count, so the exact launch checks
+# leave "group_norm_split" out (launches_to_compare).
+HTDEMUCS_GROUP_NORMS_PER_FORWARD = 42
+
+
+def launches_to_compare(launches):
+    """``launches`` without ``group_norm_split``, after checking that it lies
+    between 0 and the GroupNorm launches."""
+    split = launches.get("group_norm_split", 0)
+    if not 0 <= split <= launches.get("group_norm", 0):
+        raise AssertionError(f"group_norm_split {split} outside 0..group_norm: {launches}")
+    return {name: n for name, n in launches.items() if name != "group_norm_split"}
 
 
 def phase_htdemucs_model(att, seed):
@@ -583,6 +744,7 @@ def phase_htdemucs_model(att, seed):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = att.LAUNCHES["fused_attention"]
+    group_norms = att.LAUNCHES["group_norm"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     x = audio.cuda()
     forward_ms = cuda_time_ms(lambda: gpu(x), iters=3)
@@ -598,7 +760,8 @@ def phase_htdemucs_model(att, seed):
     log(f"[model] full-width HTDemucs fp32 (TF32 off), {tuple(audio.shape)} -> "
         f"{tuple(out_gpu.shape)}: SDR vs CPU plain path per source "
         f"{[round(v, 2) for v in sdrs]} dB (floor {SDR_FLOOR_DB}); fused_attention launches "
-        f"{launches} (expected {HTDEMUCS_LAUNCHES_PER_FORWARD}); card first call "
+        f"{launches} (expected {HTDEMUCS_LAUNCHES_PER_FORWARD}), group_norm {group_norms} "
+        f"(expected {HTDEMUCS_GROUP_NORMS_PER_FORWARD}); card first call "
         f"{first_s:.3f} s, warm forward {forward_ms:.1f} ms, peak device memory "
         f"{peak_gb:.2f} GiB; CPU {cpu_s:.1f} s; output peak {float(out_cpu.abs().max()):.3f}")
     if tuple(out_gpu.shape) != (4, len(cfg.sources), 2, cfg.training_length):
@@ -610,6 +773,9 @@ def phase_htdemucs_model(att, seed):
     if launches != HTDEMUCS_LAUNCHES_PER_FORWARD:
         raise AssertionError(f"{launches} fused_attention launches in one forward, "
                              f"expected {HTDEMUCS_LAUNCHES_PER_FORWARD}")
+    if group_norms != HTDEMUCS_GROUP_NORMS_PER_FORWARD:
+        raise AssertionError(f"{group_norms} group_norm launches in one forward, "
+                             f"expected {HTDEMUCS_GROUP_NORMS_PER_FORWARD}")
     return {"sdr_db": sdrs, "launches": launches, "forward_ms": forward_ms}
 
 
@@ -1928,8 +2094,10 @@ def phase_demucs_v3(seed, device_label):
             f"load_model {load_s:.1f} s; launches {launches}")
         if not full or not tails:
             raise AssertionError("the 60 s track does not run both branches of the split")
-        if any(launches.values()):
-            raise AssertionError(f"the Demucs v3 path launched a kernel: {launches}")
+        others = {k: n for k, n in launches_to_compare(launches).items() if k != "group_norm"}
+        if any(others.values()) or not launches["group_norm"]:
+            raise AssertionError(f"the Demucs v3 path launched a kernel other than its "
+                                 f"GroupNorms, or none of those: {launches}")
 
         # Card against CPU through the same entry point on the first 40 s (one
         # pass of 40.5 s: the window at 0 and a 10.5 s tail), one shift and
@@ -1959,7 +2127,7 @@ def phase_demucs_v3(seed, device_label):
 ENSEMBLE_ALGORITHMS = ("avg_wave", "avg_fft", "uvr_max_spec")
 # One 30 s ensemble separate: the RoFormer member's one forward launches each
 # fused block once a layer (24), the HTDemucs member's 3 forwards the
-# whole-sequence attention 6 times each.
+# whole-sequence attention 6 times each and the GroupNorm kernel 42 times.
 # The backward kernels (training's) run on no inference path.
 NO_BF16_BACKWARD = {"attention_backward_bf16": 0, "rmsnorm_backward_bf16": 0,
                     "gelu_backward_bf16": 0, "rope_gate_backward_bf16": 0}
@@ -1967,7 +2135,10 @@ NO_BACKWARD = {"attention_backward": 0, "rmsnorm_backward": 0, "gelu_backward": 
                "rope_gate_backward": 0, **NO_BF16_BACKWARD}
 # The partial-sum forms of B1 and B2 run only on tensor-parallel layers ([mesh]).
 NO_PARTIAL = {"fused_attention_block_partial": 0, "fused_ff_block_partial": 0}
+# A training step runs its GroupNorms as the plain composition (autograd).
+NO_GROUP_NORM = {"group_norm": 0, "group_norm_split": 0}
 ENSEMBLE_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24, "fused_attention": 18,
+                     "group_norm": 3 * HTDEMUCS_GROUP_NORMS_PER_FORWARD,
                      **NO_BACKWARD, **NO_PARTIAL}
 ENSEMBLE_FLOOR_DB = 60.0  # card ensemble against the CPU Ensembler on the same member stems
 
@@ -2043,7 +2214,7 @@ def phase_ensemble(seed, seconds, device_label):
             names = sorted(os.path.basename(f) for f in files)
             if names != [f"mix_({g})_{slug}.wav" for g in groups]:
                 raise AssertionError(f"{algorithm}: ensemble outputs {names}")
-            if launches != ENSEMBLE_LAUNCHES:
+            if launches_to_compare(launches) != ENSEMBLE_LAUNCHES:
                 raise AssertionError(f"{algorithm}: launches {launches}, "
                                      f"expected {ENSEMBLE_LAUNCHES}")
             got = {g: read(os.path.join(out, f"mix_({g})_{slug}.wav")) for g in groups}
@@ -2396,6 +2567,7 @@ def phase_remote(seed, seconds, device_label):
                 return {"fused_attention_block": per_forward["roformer"] * b1_forwards,
                         "fused_ff_block": per_forward["roformer"] * b1_forwards,
                         "fused_attention": per_forward["demucs"] * b3_forwards,
+                        "group_norm": HTDEMUCS_GROUP_NORMS_PER_FORWARD * b3_forwards,
                         **NO_BACKWARD, **NO_PARTIAL}
 
             def score(tag, job_key, stems, track):
@@ -2514,7 +2686,7 @@ def phase_remote(seed, seconds, device_label):
                 f"{REMOTE_SHORT_SECONDS:.0f} s float32 RoFormer stems {names} in {bss_s:.1f} s: "
                 f"{[{k: round(v, 2) for k, v in s.items()} for s in bss]} (bit-identical to "
                 f"the direct stems: {identical})")
-            if launches_a != want_a:
+            if launches_to_compare(launches_a) != want_a:
                 raise AssertionError(f"server A launches {launches_a}, expected {want_a}")
 
             # ---- Server B: two workers, coalescing off, both TF32 switches
@@ -2584,7 +2756,7 @@ def phase_remote(seed, seconds, device_label):
             if any(after != switches_before for after in switches_after):
                 raise AssertionError(f"switches after concurrent jobs {switches_after}, "
                                      f"before {switches_before}")
-            if launches_b != want_b:
+            if launches_to_compare(launches_b) != want_b:
                 raise AssertionError(f"server B launches {launches_b}, expected {want_b}")
 
             # ---- ASGI: one float32 RoFormer job in process.
@@ -2617,7 +2789,7 @@ def phase_remote(seed, seconds, device_label):
                 f"RoFormer job: latency {latency_asgi:.3f} s; stems against direct "
                 f"{results['ASGI roformer short']}; launches {launches_asgi}, expected "
                 f"{want_asgi}; checkpoint writes {write_s:.1f} s")
-            if launches_asgi != want_asgi:
+            if launches_to_compare(launches_asgi) != want_asgi:
                 raise AssertionError(f"ASGI launches {launches_asgi}, expected {want_asgi}")
             if records.messages:
                 raise AssertionError(f"the server logged failures: {records.messages}")
@@ -2651,7 +2823,7 @@ BACKWARD_KERNELS = {
 ROFORMER_STEP_LAUNCHES = {"fused_attention_block": 24, "fused_ff_block": 24,
                           "fused_attention": 0, "attention_backward": 24,
                           "rmsnorm_backward": 48, "gelu_backward": 24, "rope_gate_backward": 24,
-                          **NO_PARTIAL, **NO_BF16_BACKWARD}
+                          **NO_PARTIAL, **NO_BF16_BACKWARD, **NO_GROUP_NORM}
 # The same step in bf16 (compute_dtype=torch.bfloat16): B1 and B2 forward in
 # bf16, and the backward kernels' bf16 forms in place of their float32 ones.
 ROFORMER_BF16_STEP_LAUNCHES = {**ROFORMER_STEP_LAUNCHES, "attention_backward": 0,
@@ -3732,7 +3904,8 @@ def phase_mesh_separate(ab, seed, seconds, device_label):
                 t0 = time.perf_counter()
                 files = sep.separate(wav)
                 walls[run] = time.perf_counter() - t0
-                launches[run] = {k: v for k, v in _build.LAUNCHES.items() if v}
+                launches[run] = {k: v for k, v in
+                                 launches_to_compare(dict(_build.LAUNCHES)).items() if v}
                 check_stems(out_dir, files, count, mix, 44100)
                 stems[run] = {os.path.basename(f): audio_io.load_audio(os.path.join(out_dir, f))[0]
                               for f in files}
@@ -3967,6 +4140,7 @@ def main(argv=None) -> int:
         return 0
 
     records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
+    gn_records, gn_forward = phase_group_norm_kernel(args.seed)
     model = phase_model(ab, args.seed)
     htdemucs = phase_htdemucs_model(att, args.seed)
     phase_mdx23c_model(args.seed)
@@ -4031,6 +4205,28 @@ def main(argv=None) -> int:
             "remote_launches": remote["launches"][name],
             "training_launches": training["launches"][name],
         })
+    # The GroupNorm kernel: the main path is the Demucs separator's; headline
+    # numbers per launch, averaged over one HTDemucs forward's launches.
+    timed = [r for r in gn_records if r["per_forward"]]
+    kernels.append({
+        "name": "group_norm", "route": "cuda",
+        "source": "audio_separator_tpu_torch/csrc/group_norm.cu",
+        "replaces": None, "launches": demucs["launches"]["group_norm"],
+        "max_abs_err": max(r["max_abs_err"] for r in gn_records),
+        **{key: gn_forward[key] / HTDEMUCS_GROUP_NORMS_PER_FORWARD
+           for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "forward": gn_forward,
+        "cases": [{k: r.get(k) for k in ("axis", "shape", "groups", "epilogue", "channel_last",
+                                          "per_forward", "splits", "ms", "device_ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bytes", "max_abs_err",
+                                          "mean_abs_err", "scale", "split")}
+                  for r in gn_records],
+        "model_launches_per_forward": sum(r["per_forward"] for r in timed),
+        "ensemble_launches": ensemble["launches"]["group_norm"],
+        "remote_launches": remote["launches"]["group_norm"],
+        "training_launches": training["launches"].get("group_norm", 0),
+    })
     # The backward kernels: the main path is the [training] phase's steps
     # (flagship and HTDemucs); headline numbers over the flagship's two axes.
     for name, (source, replaces) in BACKWARD_KERNELS.items():

@@ -233,7 +233,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     # One loader and one table of launch counts for every kernel.
     assert set(_build.KERNEL_SOURCES) == {"attention_block", "ff_block", "attention",
                                           "attention_bwd", "norm_bwd", "gelu_bwd",
-                                          "rope_gate_bwd"}
+                                          "rope_gate_bwd", "group_norm"}
     assert ab.LAUNCHES is _build.LAUNCHES
 
 

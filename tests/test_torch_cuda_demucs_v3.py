@@ -2,8 +2,8 @@
 the CPU at a small and at the published width, the exact-length split on the
 card against the CPU, and one 30 s ensemble ``separate`` of the full-width
 default BS-RoFormer and the full-width HTDemucs bag, which must launch the
-fused attention block 24 times, the fused feed-forward block 24 times and the
-whole-sequence attention 18 times. Each test decides inside its fixture
+fused attention block 24 times, the fused feed-forward block 24 times, the
+whole-sequence attention 18 times and the GroupNorm kernel 126 times. Each test decides inside its fixture
 whether a card is present and skips without one. Run on the card with
 
     python -m pytest tests/test_torch_cuda_demucs_v3.py --noconftest -q
@@ -116,5 +116,5 @@ def test_ensemble_launches_every_kernel_of_its_members(cuda, tmp_path):
     sep.load_model([DEFAULT_MODEL, "htdemucs.yaml"])
     _build.reset_launch_counts()
     files = sep.separate(wav)
-    assert dict(_build.LAUNCHES) == chip_smoke.ENSEMBLE_LAUNCHES
+    assert chip_smoke.launches_to_compare(dict(_build.LAUNCHES)) == chip_smoke.ENSEMBLE_LAUNCHES
     assert len(files) == 5 and all(os.path.exists(f) for f in files)

@@ -321,7 +321,7 @@ def test_model_forward_on_card_matches_cpu(cuda):
                            "rmsnorm_backward": 0, "gelu_backward": 0,
                            "rope_gate_backward": 0, "attention_backward_bf16": 0,
                            "rmsnorm_backward_bf16": 0, "gelu_backward_bf16": 0,
-                           "rope_gate_backward_bf16": 0}
+                           "rope_gate_backward_bf16": 0, "group_norm": 0, "group_norm_split": 0}
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
 
@@ -378,6 +378,9 @@ def test_htdemucs_forward_on_card_matches_cpu(cuda):
     att.reset_launch_counts()
     got = load_jax_htdemucs_params(HTDemucs(cfg), tree).to(cuda).eval()(audio.to(cuda)).cpu()
     assert att.LAUNCHES["fused_attention"] == 4  # layers 0 and 2, both branches
+    # Two DConv depths of two norms on 3 + 3 encoder levels, and the output
+    # norm of the 3 transformer layers on both branches.
+    assert att.LAUNCHES["group_norm"] == 30
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
 
@@ -920,3 +923,109 @@ def test_partial_block_functions_backward_match_plain_autograd(cuda, tp, b, n_va
         for name, a, b_ in zip(["x", *weights], got, want):
             _close(a[:, :n_valid] if name == "x" else a, b_[:, :n_valid] if name == "x" else b_,
                    torch.float32)
+
+
+# ----------------------------------------------------------------- GroupNorm
+# ops/group_norm (csrc/group_norm.cu) against its plain version computed in
+# float64, at the HTDemucs songs cell's shapes. Tolerance GN_TOL (max, mean
+# of the output's scale): the kernel's float32 statistics sum in another
+# order than the reference's (per-thread vectors of four merged by Chan's
+# formula, then a fixed tree): the mean and M2 of rows of up to 8.3 M
+# elements are good to some 1e-7 relative, and the apply pass adds a few
+# float32 roundings (a·x + b, erf or exp, the scale and the residual).
+
+from audio_separator_tpu_torch.ops import group_norm as gn  # noqa: E402
+
+GN_TOL = {torch.float32: (1e-5, 1e-6)}
+
+
+def _gn_case(cuda, shape, groups, epilogue, channel_last=False, seed=40):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    channels = shape[-1] if channel_last else shape[1]
+    # An offset mean and a spread of scales: a shifted sum would lose digits.
+    x = torch.randn(*shape, generator=g, device=cuda) * 2.5 + 0.75
+    kw = dict(weight=1 + 0.3 * torch.randn(channels, generator=g, device=cuda),
+              bias=0.2 * torch.randn(channels, generator=g, device=cuda))
+    if epilogue == "glu_scale_residual":
+        out = (shape[0], channels // 2, *shape[2:])
+        kw.update(scale=0.5 * torch.randn(channels // 2, generator=g, device=cuda),
+                  residual=torch.randn(*out, generator=g, device=cuda))
+    return x, kw
+
+
+def _gn_check(x, kw, groups, epilogue, channel_last=False):
+    got = gn.group_norm(x, groups=groups, eps=1e-5, epilogue=epilogue,
+                        channel_last=channel_last, **kw)
+    want = gn.group_norm_ref(x.double(), groups=groups, eps=1e-5, epilogue=epilogue,
+                             channel_last=channel_last,
+                             **{k: v.double() for k, v in kw.items()})
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got, want, torch.float32, GN_TOL)
+    return got
+
+
+@pytest.mark.parametrize("shape, groups, epilogue, channel_last", [
+    ((4, 96, 85995), 1, "glu_scale_residual", False),  # DConv level 0, time branch
+    ((4, 6, 85995), 1, "gelu", False),
+    ((2048, 96, 336), 1, "glu_scale_residual", False),  # level 0, frequency rows folded
+    ((2048, 6, 336), 1, "gelu", False),
+    ((4, 1344, 512), 1, "none", True),                  # transformer output norms
+    ((4, 2688, 512), 1, "none", True),
+    ((4, 384, 8, 336), 4, "gelu", False),               # v3's GroupNorm(4, 384)
+    ((4, 768, 8, 84), 4, "glu_scale_residual", False),  # v3's GroupNorm(4, 2C) before GLU
+    ((4, 384, 1000), 4, "none", False),
+])
+def test_group_norm_kernel_matches_float64_at_the_cells_shapes(cuda, shape, groups, epilogue,
+                                                               channel_last):
+    x, kw = _gn_case(cuda, shape, groups, epilogue, channel_last)
+    launches = _counted("group_norm")
+    _gn_check(x, kw, groups, epilogue, channel_last)
+    assert launches() == 1
+
+
+@pytest.mark.parametrize("shape, groups, epilogue, scaled", [
+    ((3, 7, 1001), 1, "gelu", False),                # C·L odd: misaligned rows
+    ((3, 10, 1001), 1, "glu_scale_residual", True),  # C/2·L odd: scalar GLU inputs
+    ((3, 10, 1001), 1, "glu_scale_residual", False),  # GLU alone, as HEncLayer's
+    ((5, 4, 3), 2, "none", False),                   # rows shorter than a vector
+    ((2, 6, 1), 3, "gelu", False),
+])
+def test_group_norm_kernel_takes_ragged_rows(cuda, shape, groups, epilogue, scaled):
+    x, kw = _gn_case(cuda, shape, groups, epilogue, seed=41)
+    if epilogue == "glu_scale_residual" and not scaled:
+        kw.pop("scale"), kw.pop("residual")
+    _gn_check(x, kw, groups, epilogue)
+    xv = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    assert xv.data_ptr() % 16  # a base off the 16-byte grid is made contiguous anew
+    _gn_check(xv, kw, groups, epilogue)
+
+
+def test_group_norm_kernel_gives_the_same_bits_twice(cuda):
+    for shape, epilogue, channel_last in (((4, 96, 85995), "glu_scale_residual", False),
+                                          ((4, 2688, 512), "none", True)):
+        x, kw = _gn_case(cuda, shape, 1, epilogue, channel_last, seed=42)
+        first = gn.group_norm(x, groups=1, eps=1e-5, epilogue=epilogue,
+                              channel_last=channel_last, **kw)
+        again = gn.group_norm(x, groups=1, eps=1e-5, epilogue=epilogue,
+                              channel_last=channel_last, **kw)
+        assert torch.equal(first, again)
+
+
+def test_group_norm_split_counts_few_row_launches_only(cuda):
+    split, launches = _counted("group_norm_split"), _counted("group_norm")
+    x, kw = _gn_case(cuda, (4, 96, 85995), 1, "glu_scale_residual", seed=43)
+    gn.group_norm(x, groups=1, eps=1e-5, epilogue="glu_scale_residual", **kw)
+    assert (split(), launches()) == (1, 1)
+    x, kw = _gn_case(cuda, (2048, 6, 336), 1, "gelu", seed=44)
+    gn.group_norm(x, groups=1, eps=1e-5, epilogue="gelu", **kw)
+    assert (split(), launches()) == (1, 2)
+
+
+def test_group_norm_under_autograd_is_the_plain_composition(cuda):
+    x, kw = _gn_case(cuda, (2, 12, 500), 1, "glu_scale_residual", seed=45)
+    kw["weight"].requires_grad_(True)
+    launches = _counted("group_norm")
+    got = gn.group_norm(x, groups=1, eps=1e-5, epilogue="glu_scale_residual", **kw)
+    assert launches() == 0 and got.requires_grad
+    assert torch.equal(got, gn.group_norm_ref(x, groups=1, eps=1e-5,
+                                              epilogue="glu_scale_residual", **kw))
