@@ -15,19 +15,19 @@ kernels mask key columns past the real length. The linear-attention
 pre-stage (``linear_transformer_depth > 0``) has no kernel in the JAX package
 and stays plain PyTorch here too.
 
-Tensor parallelism (``parallel/mesh.shard_roformer_params``): a sharded
-module keeps the Megatron-split weights in ``tp_shards``, one
-``ModuleDict`` tree a shard, each on its own device of a mesh row, under the
-names of the leaves it splits (``tp_shards.1.blocks.time.wqkv``), and the
-replicated leaves where they were. A sharded layer runs each shard's partial
-form of the two blocks (``partial=True``: its heads, its hidden columns) on
-the shard's device and adds the partial products, the residual and ``b2`` on
-the input's device (:func:`_sum_partials`, the all-reduce). The replicated
-gate weights and biases of the column-parallel products are sliced there per
-shard. The mask estimator's hidden layers are column-parallel (their outputs
-gathered before a next hidden layer) and its final value and gate products
-row-parallel. Activations go to a shard's weights and come back with
-``.to``, so autograd carries the gradients across devices.
+Tensor parallelism (``parallel/mesh.shard_roformer_params``) is a shard
+count on the same layer path: the unsharded module is the one-shard case. A
+sharded module keeps the Megatron-split weights in ``tp_shards``, one
+``ModuleDict`` tree a shard on its own device of a mesh row, under the names
+of the leaves it splits (``tp_shards.1.blocks.time.wqkv``), and the
+replicated leaves where they were. Every layer runs each shard's part on the
+shard's device (:meth:`Roformer._shard_views`) and reduces once: one shard
+launches the whole blocks, residual and ``b2`` in their epilogue; several
+launch the partial forms (``partial=True``: a shard's heads, its hidden
+columns) and add the products, the residual and ``b2`` on the input's device
+(:func:`_sum_partials`, the all-reduce). The mask estimator's hidden layers
+are column-parallel, its final products row-parallel. Activations reach a
+shard with ``.to``, so autograd carries the gradients across devices.
 """
 
 from __future__ import annotations
@@ -170,20 +170,13 @@ def _rope_tables(n: int, dim_head: int, dtype=torch.float32, device=None):
             torch.as_tensor(sin, dtype=dtype, device=device))
 
 
-def _linear_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                      heads: int) -> torch.Tensor:
-    """XCiT-style cross-covariance attention: the (dh × dh) attention matrix
-    contracts over tokens, q/k l2-normalised along tokens, a learned per-head
-    temperature on q, softmax scale 8."""
-    return _linear_attention_heads(_rmsnorm(x, p["attn_norm"]), p["wqkv"], p["temperature"],
-                                   p["wo"], heads)
-
-
-def _linear_attention_heads(xn: torch.Tensor, wqkv: torch.Tensor, temperature: torch.Tensor,
-                            wo: torch.Tensor, heads: int) -> torch.Tensor:
-    """The linear attention of ``heads`` heads from the normalised ``xn``:
-    all of them, or one shard's (its q, k and v columns, temperatures and
-    ``wo`` rows), whose projection is then a partial sum."""
+def _linear_attention(xn: torch.Tensor, wqkv: torch.Tensor, temperature: torch.Tensor,
+                      wo: torch.Tensor, heads: int) -> torch.Tensor:
+    """XCiT-style cross-covariance attention of ``heads`` heads from the
+    normalised ``xn``: the (dh × dh) attention matrix contracts over tokens,
+    q/k l2-normalised along tokens, a learned per-head temperature on q,
+    softmax scale 8. All heads, or one shard's (its q, k and v columns,
+    temperatures and ``wo`` rows), whose projection is then a partial sum."""
     b, n, _ = xn.shape
     qkv = xn @ wqkv
     dh = qkv.shape[-1] // (3 * heads)
@@ -204,16 +197,10 @@ def _linear_attention_heads(xn: torch.Tensor, wqkv: torch.Tensor, temperature: t
     return out @ wo
 
 
-def _feedforward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    xn = _rmsnorm(x, p["ff_norm"])
-    h = F.gelu(xn @ p["ff_w1"] + p["ff_b1"])
-    return h @ p["ff_w2"] + p["ff_b2"]
-
-
 def _sum_partials(x: torch.Tensor, parts, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x + Σ parts (+ bias)`` on ``x``'s device, in float32, rounded once
     to ``x``'s type: the all-reduce of a row-parallel layer's partial
-    products, fused with its residual and bias."""
+    products over several shards, fused with its residual and bias."""
     acc = x.float()
     for part in parts:
         acc = acc + part.to(x.device).float()
@@ -222,114 +209,84 @@ def _sum_partials(x: torch.Tensor, parts, bias: Optional[torch.Tensor] = None) -
     return acc.to(x.dtype)
 
 
-def _cols(t: torch.Tensor, s: int, tp: int, device) -> torch.Tensor:
-    """Shard ``s`` of ``tp`` of a replicated leaf's last axis, on ``device``."""
-    w = t.shape[-1] // tp
-    return t[..., s * w : (s + 1) * w].contiguous().to(device)
-
-
-def _attention_tp(x, stack, shards, j, rope, heads, n_valid, forms):
-    """One tensor-parallel attention layer: each shard's partial block on its
-    device, summed with the residual on ``x``'s."""
+def _attention(x, shards, j, rope, heads, n_valid, forms):
+    """Softmax attention layer ``j`` (its depth and inner index), residual
+    included, from the layer's weights one dict a shard
+    (:meth:`Roformer._shard_views`) and their 3xTF32 ``forms`` (or None): the
+    whole fused block for one shard, each shard's partial block (its heads)
+    on its device for several, reduced once (:func:`_sum_partials`)."""
     tp = len(shards)
     parts = []
-    for s, (sh, f) in enumerate(zip(shards, forms)):
-        dev = sh["wqkv"].device
+    for p, f in zip(shards, forms):
+        dev = p["wqkv"].device
         parts.append(fused_attention_block(
-            x.to(dev), sh["wqkv"][j], _cols(stack["gate_w"][j], s, tp, dev),
-            _cols(stack["gate_b"][j], s, tp, dev), sh["wo"][j], stack["attn_norm"][j].to(dev),
-            None if rope is None else (rope[0].to(dev), rope[1].to(dev)), heads // tp,
-            n_valid=n_valid, tf32_weights=(f["wqkv"][j], f["wo"][j]) if f else None,
-            partial=True))
-    return _sum_partials(x, parts)
+            x.to(dev), p["wqkv"][j], p["gate_w"][j], p["gate_b"][j], p["wo"][j],
+            p["attn_norm"][j], (rope[0].to(dev), rope[1].to(dev)), heads // tp, n_valid=n_valid,
+            tf32_weights=(f["wqkv"][j], f["wo"][j]) if f else None, partial=tp > 1))
+    return parts[0] if tp == 1 else _sum_partials(x, parts)
 
 
-def _ff_tp(x, stack, shards, j, forms):
+def _ff(x, shards, j, forms):
+    """Feed-forward layer ``j``, as :func:`_attention`: one shard adds ``b2``
+    and the residual in the whole block's epilogue, several add them to the
+    partial products of their hidden columns."""
     tp = len(shards)
+    b2 = shards[0]["ff_b2"][j]
     parts = []
-    for s, (sh, f) in enumerate(zip(shards, forms)):
-        dev = sh["ff_w1"].device
+    for p, f in zip(shards, forms):
         parts.append(fused_ff_block(
-            x.to(dev), stack["ff_norm"][j].to(dev), sh["ff_w1"][j],
-            _cols(stack["ff_b1"][j], s, tp, dev), sh["ff_w2"][j], None,
-            tf32_weights=(f["ff_w1"][j], f["ff_w2"][j]) if f else None, partial=True))
-    return _sum_partials(x, parts, stack["ff_b2"][j])
+            x.to(p["ff_w1"].device), p["ff_norm"][j], p["ff_w1"][j], p["ff_b1"][j],
+            p["ff_w2"][j], b2 if tp == 1 else None,
+            tf32_weights=(f["ff_w1"][j], f["ff_w2"][j]) if f else None, partial=tp > 1))
+    return parts[0] if tp == 1 else _sum_partials(x, parts, b2)
 
 
-def _linear_layer_tp(layer, shard_layers, x, heads):
-    """One tensor-parallel linear-attention layer and its feed-forward, in
-    plain PyTorch (no kernel, as in the unsharded stack)."""
-    tp = len(shard_layers)
-    xn = _rmsnorm(x, layer["attn_norm"])
-    parts = []
-    for s, sh in enumerate(shard_layers):
-        dev = sh["wqkv"].device
-        parts.append(_linear_attention_heads(xn.to(dev), sh["wqkv"],
-                                             _cols(layer["temperature"], s, tp, dev), sh["wo"],
-                                             heads // tp))
-    x = _sum_partials(x, parts)
-    xn = _rmsnorm(x, layer["ff_norm"])
-    parts = []
-    for s, sh in enumerate(shard_layers):
-        dev = sh["ff_w1"].device
-        h = F.gelu(xn.to(dev) @ sh["ff_w1"] + _cols(layer["ff_b1"], s, tp, dev))
-        parts.append(h @ sh["ff_w2"])
-    return _sum_partials(x, parts, layer["ff_b2"])
+def _linear_layer(x, shards, j, heads):
+    """Linear-attention layer ``j`` and its feed-forward, in plain PyTorch
+    (the JAX package has no kernel for them): each shard's heads and hidden
+    columns. One shard adds ``x + attn``, then ``x + (ff + b2)``."""
+    tp = len(shards)
+    xn = _rmsnorm(x, shards[0]["attn_norm"][j])
+    parts = [_linear_attention(xn.to(p["wqkv"].device), p["wqkv"][j], p["temperature"][j],
+                               p["wo"][j], heads // tp) for p in shards]
+    x = x + parts[0] if tp == 1 else _sum_partials(x, parts)
+    xn = _rmsnorm(x, shards[0]["ff_norm"][j])
+    b2 = shards[0]["ff_b2"][j]
+    parts = [F.gelu(xn.to(p["ff_w1"].device) @ p["ff_w1"][j] + p["ff_b1"][j]) @ p["ff_w2"][j]
+             for p in shards]
+    return x + (parts[0] + b2) if tp == 1 else _sum_partials(x, parts, b2)
 
 
-def _transformer(stack: Dict[str, torch.Tensor], x: torch.Tensor, heads: int,
-                 inner_depth: int,
-                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                 linear: bool = False,
-                 tf32: Optional[Dict[str, torch.Tensor]] = None,
-                 shards: Optional[list] = None) -> torch.Tensor:
-    """Inner transformer: ``inner_depth`` × (attention + feed-forward), then
-    the optional output norm. ``stack`` tensors carry a leading
-    ``(inner_depth, ...)`` axis; so do ``tf32``'s, the prepared 3xTF32 forms
-    of ``wqkv``, ``wo``, ``ff_w1`` and ``ff_w2`` for a float32 stack on the card.
-    ``shards``: a tensor-parallel stack's split weights, one dict a shard
-    (``stack`` then holds the replicated leaves), and ``tf32`` one dict of
-    forms (or None) a shard.
+def _transformer(shards: list, x: torch.Tensor, heads: int, d: int, inner_depth: int,
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 forms: Optional[list] = None, linear: bool = False) -> torch.Tensor:
+    """Inner transformer ``d``: ``inner_depth`` × (attention + feed-forward),
+    then the optional output norm. ``shards``' tensors carry leading
+    ``(depth, inner_depth, ...)`` axes; so do ``forms``' (one dict or None a
+    shard), the prepared 3xTF32 forms of ``wqkv``, ``wo``, ``ff_w1`` and
+    ``ff_w2`` for a float32 stack on the card.
 
     Softmax layers run as the two fused blocks over tokens padded once to a
     multiple of 64 (``n_valid`` masks the padded key columns); the padding is
     sliced off after the stack."""
     if linear:
         for j in range(inner_depth):
-            layer = {k: v[j] for k, v in stack.items() if k != "out_norm"}
-            if shards is not None:
-                x = _linear_layer_tp(layer, [{k: v[j] for k, v in sh.items()} for sh in shards],
-                                     x, heads)
-                continue
-            x = x + _linear_attention(layer, x, heads)
-            x = x + _feedforward(layer, x)
+            x = _linear_layer(x, shards, (d, j), heads)
     else:
         n = x.shape[1]
         pad = (-n) % SEQ_GRANULARITY
         # A one-item batch whose token count is a multiple of 64 arrives as
         # a permuted view; the blocks take contiguous tensors.
         x = F.pad(x, (0, 0, 0, pad)) if pad else x.contiguous()
-        if rope is not None and pad:
+        if pad:
             rope = (F.pad(rope[0], (0, 0, 0, pad)), F.pad(rope[1], (0, 0, 0, pad)))
         for j in range(inner_depth):
-            if shards is not None:
-                forms = tf32 if tf32 is not None else [None] * len(shards)
-                x = _attention_tp(x, stack, shards, j, rope, heads, n, forms)
-                x = _ff_tp(x, stack, shards, j, forms)
-                continue
-            forms = {k: v[j] for k, v in tf32.items()} if tf32 is not None else None
-            x = fused_attention_block(
-                x, stack["wqkv"][j], stack["gate_w"][j], stack["gate_b"][j],
-                stack["wo"][j], stack["attn_norm"][j], rope, heads, n_valid=n,
-                tf32_weights=(forms["wqkv"], forms["wo"]) if forms else None)
-            x = fused_ff_block(x, stack["ff_norm"][j], stack["ff_w1"][j],
-                               stack["ff_b1"][j], stack["ff_w2"][j],
-                               stack["ff_b2"][j],
-                               tf32_weights=(forms["ff_w1"], forms["ff_w2"]) if forms else None)
+            x = _attention(x, shards, (d, j), rope, heads, n, forms)
+            x = _ff(x, shards, (d, j), forms)
         if pad:
             x = x[:, :n]
-    if "out_norm" in stack:
-        x = _rmsnorm(x, stack["out_norm"])
+    if "out_norm" in shards[0]:
+        x = _rmsnorm(x, shards[0]["out_norm"][d])
     return x
 
 
@@ -370,51 +327,37 @@ def _band_split(p: nn.Module, feats: torch.Tensor, layout: BandLayout) -> torch.
     return torch.cat(outs, dim=-2) + p.b
 
 
-def _mask_estimate_tp(p: nn.Module, shards: list, x: torch.Tensor, layout: BandLayout) -> list:
-    """:func:`_mask_estimate` with the hidden layers column-parallel and the
-    final value and gate products row-parallel (over the hidden width, or
-    over ``dim`` when there is no hidden layer)."""
-    tp = len(shards)
-    h, hs = x[:, :, None], None
-    for i, layer in enumerate(p.hidden):
-        if hs is not None:  # a second hidden layer reads the whole width: gather
-            h = torch.cat([t.to(x.device) for t in hs], dim=-1)
-        hs = []
-        for s, sh in enumerate(shards):
-            w = sh["mask_est"]["hidden"][str(i)]["w"]
-            hs.append(torch.tanh(torch.einsum("btsnd,sndh->btsnh", h.to(w.device), w)
-                                 + _cols(layer["b"], s, tp, w.device)))
-    if hs is None:
-        hs = list(h.chunk(tp, dim=-1))
-    outs = []
-    for g, (run, gp) in enumerate(zip(layout.runs, p.groups)):
-        s0, e0 = run[0], run[1]
-        vals, gates = [], []
-        for s, sh in enumerate(shards):
-            sg = sh["mask_est"]["groups"][str(g)]
-            hg = hs[s].to(sg["val_w"].device).float()[..., s0:e0, :]
-            vals.append(torch.einsum("btsnd,sndo->btsno", hg, sg["val_w"].float()))
-            gates.append(torch.einsum("btsnd,sndo->btsno", hg, sg["gate_w"].float()))
-        val = _sum_partials(gp["val_b"].float(), vals)
-        gate = _sum_partials(gp["gate_b"].float(), gates)
-        outs.append(val * torch.sigmoid(gate))
-    return outs
-
-
-def _mask_estimate(p: nn.Module, x: torch.Tensor, layout: BandLayout) -> list:
+def _mask_estimate(shards: list, x: torch.Tensor, layout: BandLayout) -> list:
     """x (B, T, nb, dim) → per-run band features [(B, T, ns, g, w) f32, ...]:
     tanh MLP layers batched over all bands, then the final GLU projection per
-    equal-width run."""
-    h = x[:, :, None]  # (B, T, 1, nb, dim)
-    for layer in p.hidden:
-        h = torch.tanh(torch.einsum("btsnd,sndh->btsnh", h, layer["w"]) + layer["b"])
+    equal-width run. Over several shards the hidden layers are
+    column-parallel (their outputs gathered before a next hidden layer) and
+    the final value and gate products row-parallel (over the hidden width, or
+    over ``dim`` when there is no hidden layer), summed with their biases on
+    ``x``'s device."""
+    tp = len(shards)
+    hs = [x[:, :, None]]  # (B, T, 1, nb, dim), the whole width
+    for i in range(len(shards[0]["hidden"])):
+        h = hs[0] if len(hs) == 1 else torch.cat([t.to(x.device) for t in hs], dim=-1)
+        hs = []
+        for p in shards:
+            w = p["hidden"][i]["w"]
+            hs.append(torch.tanh(torch.einsum("btsnd,sndh->btsnh", h.to(w.device), w)
+                                 + p["hidden"][i]["b"]))
+    if len(hs) != tp:  # no hidden layer: the final products split over dim
+        hs = hs[0].chunk(tp, dim=-1)
+    hfs = [h.to(p["groups"][0]["val_w"].device).float() for h, p in zip(hs, shards)]
     outs = []
-    hf = h.float()
-    for run, gp in zip(layout.runs, p.groups):
+    for g, run in enumerate(layout.runs):
         s0, e0 = run[0], run[1]
-        hg = hf[..., s0:e0, :]
-        val = torch.einsum("btsnd,sndo->btsno", hg, gp["val_w"].float()) + gp["val_b"].float()
-        gate = torch.einsum("btsnd,sndo->btsno", hg, gp["gate_w"].float()) + gp["gate_b"].float()
+        vals, gates = [], []
+        for hf, p in zip(hfs, shards):
+            hg = hf[..., s0:e0, :]
+            vals.append(torch.einsum("btsnd,sndo->btsno", hg, p["groups"][g]["val_w"].float()))
+            gates.append(torch.einsum("btsnd,sndo->btsno", hg, p["groups"][g]["gate_w"].float()))
+        val_b, gate_b = (shards[0]["groups"][g][k].float() for k in ("val_b", "gate_b"))
+        val = vals[0] + val_b if tp == 1 else _sum_partials(val_b, vals)
+        gate = gates[0] + gate_b if tp == 1 else _sum_partials(gate_b, gates)
         outs.append(val * torch.sigmoid(gate))
     return outs
 
@@ -492,17 +435,38 @@ class Roformer(nn.Module):
 
     TF32_WEIGHTS = ("wqkv", "wo", "ff_w1", "ff_w2")
 
+    def _shard_views(self) -> list:
+        """The weights as each tensor-parallel shard uses them, one
+        ``{"blocks": {branch: {name: t}}, "hidden": [...], "groups": [...]}``
+        a shard (the stacks, the mask estimator's hidden layers and its final
+        products per run): the shard's split leaves, and the replicated leaves
+        on its device, those that meet a column-parallel product's outputs
+        (``cut``) cut to its columns. The unsharded module is one shard whose
+        view is its own tensors."""
+        def leaves(path, s, cut=()):
+            own = dict(self.get_submodule(path).items())
+            if s is None:
+                return own
+            split = dict(self.tp_shards[s].get_submodule(path).items())
+            dev, tp = next(iter(split.values())).device, len(self.tp_shards)
+            return {**{k: (t.chunk(tp, dim=-1)[s].contiguous() if k in cut else t).to(dev)
+                       for k, t in own.items()}, **split}
+
+        cut = ("gate_w", "gate_b", "ff_b1", "temperature")
+        n_hidden, n_runs = len(self.mask_est.hidden), len(self.mask_est.groups)
+        return [{"blocks": {br: leaves(f"blocks.{br}", s, cut) for br in self.blocks},
+                 "hidden": [leaves(f"mask_est.hidden.{i}", s, ("b",)) for i in range(n_hidden)],
+                 "groups": [leaves(f"mask_est.groups.{g}", s) for g in range(n_runs)]}
+                for s in ([None] if self.tp_shards is None else range(len(self.tp_shards)))]
+
     def tf32_forms(self):
         """The prepared 3xTF32 forms (``ops/tf32.prepare_tf32_weight``) of the
-        softmax stacks' product weights, ``{branch: {name: (depth, inner, 2,
-        N, K)}}``, for float32 parameters on the card (None otherwise); for a
-        sharded module a list of them, one a shard, each on its shard's
-        device. Made at first use and kept until a weight changes (in place or
+        softmax stacks' product weights, one ``{branch: {name: (depth, inner,
+        2, N, K)}}`` a shard (one for an unsharded module), each on its
+        shard's device, for float32 parameters on the card (None otherwise).
+        Made at first use and kept until a weight changes (in place or
         moved): 0.6 GB for the flagship's 24 layers."""
-        if self.tp_shards is None:
-            sets = [{br: self.blocks[br] for br in ("time", "freq")}]
-        else:
-            sets = [{br: sh["blocks"][br] for br in ("time", "freq")} for sh in self.tp_shards]
+        sets = [{br: v["blocks"][br] for br in ("time", "freq")} for v in self._shard_views()]
         first = sets[0]["time"]["wqkv"]
         if first.device.type != "cuda" or first.dtype != torch.float32:
             return None
@@ -513,7 +477,7 @@ class Roformer(nn.Module):
             with torch.no_grad():  # the forms are no part of a training graph
                 forms = [{br: tf32_stack_forms(st, self.TF32_WEIGHTS)
                           for br, st in params.items()} for params in sets]
-            cached = (key, forms[0] if self.tp_shards is None else forms)
+            cached = (key, forms)
             self._tf32_cache = cached
         return cached[1]
 
@@ -549,45 +513,31 @@ class Roformer(nn.Module):
         time_rope = _rope_tables(tf, cfg.dim_head, dt, dev)
         freq_rope = _rope_tables(layout.n_bands, cfg.dim_head, dt, dev)
         nb, dim, heads = layout.n_bands, cfg.dim, cfg.heads
-        forms = self.tf32_forms()
-        sharded = self.tp_shards is not None
-
-        def at_depth(blocks, d):
-            return {br: {k: v[d] for k, v in params.items()} for br, params in blocks.items()}
-
+        shards = self._shard_views()
+        forms = self.tf32_forms() or [None] * len(shards)
+        stacks = {br: [sh["blocks"][br] for sh in shards] for br in self.blocks}
+        tf32 = {br: [None if f is None else f[br] for f in forms] for br in ("time", "freq")}
         for d in range(cfg.depth):
-            lp = at_depth(self.blocks, d)
-            shards = {br: None for br in lp}
-            tf32 = {"time": None, "freq": None}
-            if sharded:
-                per_shard = [at_depth(sh["blocks"], d) for sh in self.tp_shards]
-                shards = {br: [ps[br] for ps in per_shard] for br in lp}
-                if forms is not None:
-                    tf32 = {br: [at_depth(f, d)[br] for f in forms] for br in tf32}
-            elif forms is not None:
-                tf32 = at_depth(forms, d)
-            if "linear" in lp:
-                flat = _transformer(lp["linear"], x.reshape(b, tf * nb, dim), heads,
-                                    cfg.linear_transformer_depth, None, linear=True,
-                                    shards=shards["linear"])
+            if "linear" in stacks:
+                flat = _transformer(stacks["linear"], x.reshape(b, tf * nb, dim), heads, d,
+                                    cfg.linear_transformer_depth, linear=True)
                 x = flat.reshape(b, tf, nb, dim)
             # time attention: tokens = frames, bands folded into batch
             xt = x.permute(0, 2, 1, 3).reshape(b * nb, tf, dim)
-            xt = _transformer(lp["time"], xt, heads, cfg.time_transformer_depth,
-                              time_rope, tf32=tf32["time"], shards=shards["time"])
+            xt = _transformer(stacks["time"], xt, heads, d, cfg.time_transformer_depth,
+                              time_rope, tf32["time"])
             x = xt.reshape(b, nb, tf, dim).permute(0, 2, 1, 3)
             # freq attention: tokens = bands, frames folded into batch
             xf = x.reshape(b * tf, nb, dim)
-            xf = _transformer(lp["freq"], xf, heads, cfg.freq_transformer_depth,
-                              freq_rope, tf32=tf32["freq"], shards=shards["freq"])
+            xf = _transformer(stacks["freq"], xf, heads, d, cfg.freq_transformer_depth,
+                              freq_rope, tf32["freq"])
             x = xf.reshape(b, tf, nb, dim)
 
         if cfg.kind == "bs":
             x = _rmsnorm(x, self.final_norm["gamma"])
 
         with span("kernel.mask_estimate", **counts):
-            banded_runs = (_mask_estimate_tp(self.mask_est, list(self.tp_shards), x, layout)
-                           if sharded else _mask_estimate(self.mask_est, x, layout))
+            banded_runs = _mask_estimate(shards, x, layout)
 
         # Band → feature recombination: BS bands are disjoint (dense runs are
         # reshaped concats); Mel bands overlap, sum and are averaged by counts.

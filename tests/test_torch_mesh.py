@@ -14,6 +14,8 @@ against the JAX package's on its 8-device CPU mesh, at small sizes.
   tp 2 and 4 and an HTDemucs on a dp 2 × tp 2 mesh, each against the port's
   unsharded forward and the JAX sharded forward (jitted with its batch on
   the data axis), at 1e-4 of the output's scale.
+* One shard is the unsharded module: a RoFormer laid out at tp 1 gives the
+  unsharded module's outputs and training-loss gradients bit for bit.
 """
 
 import re
@@ -37,6 +39,7 @@ from audio_separator_tpu_torch.models.init_params import init_htdemucs_params
 from audio_separator_tpu_torch.models.roformer import Roformer, RoformerConfig
 from audio_separator_tpu_torch.ops import attention_block as ab
 from audio_separator_tpu_torch.parallel import mesh
+from audio_separator_tpu_torch.training import make_loss_fn
 from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -292,3 +295,42 @@ def test_htdemucs_tp_forward_on_a_2x2_mesh_matches_unsharded_and_jax():
     want = _jax_sharded_forward(jax_ht.apply_htdemucs, tree, jax_mesh.shard_htdemucs_params,
                                 jcfg, mix, 2, 2)
     np.testing.assert_allclose(got, want, atol=FWD_TOL * scale, rtol=0)
+
+
+def _random_roformer(kw, seed):
+    """A RoFormer with every leaf drawn at random, its biases too: the
+    seeded trees keep biases zero, which would hide where a bias is added."""
+    model = Roformer(RoformerConfig(**kw))
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            gain = 1.0 if name.endswith(("norm", "gamma")) else 0.0
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2 + gain)
+    return model
+
+
+@pytest.mark.parametrize("kw", [BS_KW, MEL_LINEAR_KW], ids=["bs", "mel_linear"])
+def test_one_shard_runs_the_unsharded_path_bit_for_bit(kw):
+    """On a pure-data mesh every split leaf is one shard (``tp_shards.0``):
+    the module runs the unsharded layers, so its outputs and the gradients
+    of a training loss, replicated and split leaves alike, equal the
+    unsharded module's exactly."""
+    model = _random_roformer(kw, seed=3).requires_grad_(True)
+    one = mesh.shard_roformer_params(model, mesh.make_mesh(devices=[CPU] * 4, tp=1))
+    assert len(one.tp_shards) == 1
+    assert any(n.startswith("tp_shards.0.") for n, _ in one.named_parameters())
+    length = kw["stft_hop_length"] * 31
+    mix = torch.from_numpy(_randn(2, 2, length, seed=4))
+    target = torch.from_numpy(_randn(2, kw["num_stems"], 2, length, seed=5))
+    outs, grads = [], []
+    for m in (model, one):
+        with torch.no_grad():
+            outs.append(m(mix))
+        make_loss_fn(m.cfg, m, stft_n_fft=256, window_sizes=(256, 128),
+                     hop_length=64)(mix, target).backward()
+        grads.append({n.replace("tp_shards.0.", ""): p.grad for n, p in m.named_parameters()})
+    assert torch.equal(outs[0], outs[1])
+    want, got = grads
+    assert got.keys() == want.keys()
+    for name in want:
+        assert want[name] is not None and torch.equal(got[name], want[name]), name

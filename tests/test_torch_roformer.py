@@ -16,6 +16,8 @@ from audio_separator_tpu.models import init_params as jax_init
 from audio_separator_tpu.models import roformer as jax_roformer
 from audio_separator_tpu.models.melbands import mel_band_membership
 from audio_separator_tpu_torch.models import convert, init_params, roformer
+from audio_separator_tpu_torch.parallel import mesh
+from audio_separator_tpu_torch.utils import tracing
 
 from torch_oracles.roformer_oracle import RoformerOracle
 
@@ -166,3 +168,60 @@ def test_rope_tables_match_jax():
         jcos, jsin = jax_roformer._rope_tables(n, dh)
         np.testing.assert_array_equal(cos.numpy(), np.asarray(jcos))
         np.testing.assert_array_equal(sin.numpy(), np.asarray(jsin))
+
+
+BAND_SPANS = ("kernel.band_split", "kernel.mask_estimate", "kernel.band_merge")
+
+
+def test_blocks_and_band_spans_keep_the_seams_the_benchmark_probes(monkeypatch):
+    """The roofline probes wrap the module globals ``fused_attention_block``
+    and ``fused_ff_block`` (``benchmark/metrics/b1_roofline.py``,
+    ``b2_roofline.py``) and the band metrics read the band spans' records
+    (``benchmark/counts/bands.py``). Every softmax layer calls the blocks
+    there: whole unsharded, partial once a shard at tp 2 (its heads and
+    widths); every forward leaves one record of each band span."""
+    cfg = roformer.RoformerConfig(**CONFIGS["bs"])
+    model = convert.load_jax_params(roformer.Roformer(cfg), init_params.init_roformer_params(cfg))
+    calls = []
+    attention, ff = roformer.fused_attention_block, roformer.fused_ff_block
+
+    def attention_probe(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n_valid, **kw):
+        calls.append(("attention", kw.get("partial", False), heads, wqkv.shape[-1], wo.shape[0]))
+        return attention(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n_valid=n_valid,
+                         **kw)
+
+    def ff_probe(x, ff_norm, w1, b1, w2, b2, **kw):
+        calls.append(("ff", kw.get("partial", False), b2 is not None, w1.shape[-1], w2.shape[0]))
+        return ff(x, ff_norm, w1, b1, w2, b2, **kw)
+
+    monkeypatch.setattr(roformer, "fused_attention_block", attention_probe)
+    monkeypatch.setattr(roformer, "fused_ff_block", ff_probe)
+    layout = roformer.band_layout(cfg)
+    counts = dict(batch=2, bands=layout.n_bands, runs=len(layout.runs),
+                  hidden_layers=cfg.mask_estimator_depth - 1, features=layout.features)
+    layers = cfg.depth * (cfg.time_transformer_depth + cfg.freq_transformer_depth)
+    qkv, hidden = 3 * cfg.heads * cfg.dim_head, cfg.dim * cfg.mlp_expansion_factor
+
+    def expected(tp):  # each call's (block, partial, heads or b2, widths)
+        return ([("attention", tp > 1, cfg.heads // tp, qkv // tp, qkv // 3 // tp)] * layers * tp
+                + [("ff", tp > 1, tp == 1, hidden // tp, hidden // tp)] * layers * tp)
+
+    tp2 = mesh.shard_roformer_params(model, mesh.make_mesh(devices=[torch.device("cpu")] * 2,
+                                                           tp=2))
+    tracing.clear()
+    tracing.enable()
+    try:
+        for module, tp in ((model, 1), (tp2, 2)):
+            calls.clear()
+            tracing.clear()
+            with torch.no_grad():
+                module(torch.from_numpy(_audio(length=8192)))
+            assert sorted(calls) == sorted(expected(tp))
+            records = [r for r in tracing.records() if r.name in BAND_SPANS]
+            assert sorted(r.name for r in records) == sorted(BAND_SPANS)
+            for r in records:
+                assert {k: v for k, v in r.attrs.items() if k != "frames"} == counts, r.name
+                assert r.attrs["frames"] == 8192 // cfg.stft_hop_length + 1
+    finally:
+        tracing.disable()
+        tracing.clear()
