@@ -35,9 +35,14 @@
 //      832-key fp32 K and V pair would not fit in shared memory anyway). Key
 //      tiles wholly past n_valid are skipped; key columns >= n_valid in the
 //      last tile get -1e30. The normalised, gated output is written as merged
-//      heads (B, n_pad, heads*64). bf16 runs both products on wgmma with K
-//      and V by TMA; float32 runs FMA tiles; in both the scores and the
-//      output accumulator stay in registers.
+//      heads (B, n_pad, heads*64). The caller names the kernel (route,
+//      ops/attention.flash_route): bf16 runs both products on wgmma with K
+//      and V by TMA; float32 on the time axis (n_pad > 64: 832 tokens) runs
+//      them on wgmma as 3xTF32 (flash_tf32x3_kernel, float32 accuracy, bound
+//      165 TFLOP/s: 1.98 ms at the flagship's 248 x 8 sequences of 801), and
+//      on the frequency axis (64 tokens) on the FMA pipe (flash_fma_kernel);
+//      in all of them the scores and the output accumulator stay in
+//      registers.
 //   4. The output projection GEMM with the residual add in its epilogue; with
 //      partial set, the projection alone (a tensor-parallel shard of the
 //      layer: its caller adds x and the other heads' partial projections).
@@ -186,7 +191,7 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
                         const T* wo, const T* norm, const T* cos_t, const T* sin_t, T* xn,
                         T* q, T* k, T* v, float* gates, T* merged, T* out, int batch,
                         int n_pad, int d_model, int heads, int n_valid, bool partial,
-                        cudaStream_t stream) {
+                        int route, cudaStream_t stream) {
     const int rows = batch * n_pad, hd = heads * 64;
     cudaError_t err = run_rmsnorm_gates(x, norm, gate_w, gate_b, xn, gates, rows, d_model, heads,
                                         n_pad, stream);
@@ -214,7 +219,7 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
     const MergedGatedOut<T> attn_out{gates, merged, n_pad, heads};
     err = run_flash(static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), attn_out, batch * heads, n_pad, n_valid, 64,
-                    0.125f /* 64^-0.5 */, stream);
+                    0.125f /* 64^-0.5 */, route, stream);
     if (err != cudaSuccess) return err;
 
     const ResidualEpi<T> out_epi{partial ? nullptr : x, nullptr, out, d_model};
@@ -227,13 +232,15 @@ int run_attention_block(const T* x, const T* wqkv, const T* gate_w, const T* gat
 // are the (K, N) weights in bf16 and their prepared 3xTF32 forms (2, N, K) in
 // float32 (ops/tf32.py). xn, q, k, v, gates (fp32) and merged are scratch the
 // caller allocates. partial != 0 writes the out projection without the
-// residual. Returns 0 or the first CUDA error.
+// residual. route: the attention launch's kernel (tiles.cuh, FlashRoute).
+// Returns 0 or the first CUDA error.
 extern "C" int asep_attention_block(int dtype, const void* x, const void* wqkv,
                                     const void* gate_w, const void* gate_b, const void* wo,
                                     const void* norm, const void* cos_t, const void* sin_t,
                                     void* xn, void* q, void* k, void* v, void* gates,
                                     void* merged, void* out, int batch, int n_pad, int d_model,
-                                    int heads, int n_valid, int partial, void* stream) {
+                                    int heads, int n_valid, int partial, int route,
+                                    void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto run = [&](auto tag) {
         using T = decltype(tag);
@@ -244,7 +251,7 @@ extern "C" int asep_attention_block(int dtype, const void* x, const void* wqkv,
             static_cast<const T*>(sin_t), static_cast<T*>(xn), static_cast<T*>(q),
             static_cast<T*>(k), static_cast<T*>(v), static_cast<float*>(gates),
             static_cast<T*>(merged), static_cast<T*>(out), batch, n_pad, d_model, heads,
-            n_valid, partial != 0, s);
+            n_valid, partial != 0, route, s);
     };
     return dtype == 0 ? run(float{}) : run(asep::bf16{});
 }

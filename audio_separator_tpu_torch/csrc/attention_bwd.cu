@@ -555,17 +555,6 @@ constexpr int RAW_LD = 68;       // padded raw rows of the resident tile
 constexpr int W_RES_TILE = BT * 64 * 4;  // 64 rows of 64 floats
 constexpr int W_ST_TILE = WQ * 64 * 4;   // 32 x 64 or 64 x 32
 
-template <int R>
-__device__ __forceinline__ uint32_t swz(int r, int k) {
-    return (k >> 5) * (R * 128) + (r >> 3) * 1024 + (r & 7) * 128 +
-           ((((k >> 2) & 7) ^ (r & 7)) << 4) + ((k & 3) << 2);
-}
-
-// The position of a stage's row q along K in the transposed tiles.
-__device__ __forceinline__ int k_order(int q) {
-    return (q & ~7) | ((q & 1) << 2) | ((q & 7) >> 1);
-}
-
 __device__ __forceinline__ float4 tf32_head(float4 x) {
     return make_float4(__uint_as_float(tf32_bits(x.x)), __uint_as_float(tf32_bits(x.y)),
                        __uint_as_float(tf32_bits(x.z)), __uint_as_float(tf32_bits(x.w)));

@@ -229,6 +229,15 @@ inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base, uint64_t
     return encode_bf16_map(map, base, 3, dims, strides, box);
 }
 
+// (heads, rows, dh) contiguous float32, boxes of box_rows x 32 of one head
+// (one 128-byte swizzled panel): rows past `rows` read as zeros.
+inline cudaError_t encode_heads_map_f32(CUtensorMap* map, const void* base, uint64_t heads,
+                                        uint64_t rows, uint64_t dh, uint32_t box_rows) {
+    const uint64_t dims[3] = {dh, rows, heads}, strides[2] = {dh * 4, rows * dh * 4};
+    const uint32_t box[3] = {32, box_rows, 1};
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 3, dims, strides, box);
+}
+
 // (batch, rows, heads·64) contiguous bf16, the merged heads, boxes of box_rows
 // x 64 of one head (the innermost coordinate is head·64): rows past `rows` read
 // as zeros.
@@ -248,6 +257,24 @@ inline cudaError_t encode_merged_map(CUtensorMap* map, const void* base, uint64_
 //   * MN-major (the row index is K, the 64 elements run along N; read through
 //     the instruction's transpose bit): eight-k groups at 1024 bytes, the next
 //     64 columns of N at `panel_bytes`; a k16 step is +2048 bytes.
+
+// 32-bit operands (TF32): a K-major tile of R rows holds 32 floats of K a
+// 128-byte row, the panels of 32 after each other (R·128 bytes apart); swz
+// is the byte offset of element (row r, k) in it, as TMA writes such a tile
+// through a box of 32 x R.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int k) {
+    return (k >> 5) * (R * 128) + (r >> 3) * 1024 + (r & 7) * 128 +
+           ((((k >> 2) & 7) ^ (r & 7)) << 4) + ((k & 3) << 2);
+}
+
+// Where the sequence index q of an operand that is summed over goes along
+// K when the other operand comes from accumulator registers: lane t holds
+// columns 2t and 2t + 1 of each eight, which the TF32 A fragment takes as
+// k = t and t + 4.
+__device__ __forceinline__ int k_order(int q) {
+    return (q & ~7) | ((q & 1) << 2) | ((q & 7) >> 1);
+}
 
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
     return (uint64_t)((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);

@@ -23,8 +23,15 @@
 //                      multiplied by on the way, is the caller's Out policy:
 //       - bf16: flash_wgmma_kernel, both products on wgmma, K and V tiles by
 //               TMA, scores, weights and output in registers;
-//       - float32: flash_fma_kernel, register-blocked FMA with the output,
-//               the running maximum and the running sum in registers.
+//       - float32, more than 64 rows at 64 wide: flash_tf32x3_kernel, both
+//               products on wgmma as 3xTF32, K and V by TMA, split into
+//               heads and tails by the producer warpgroup;
+//       - float32 otherwise: flash_fma_kernel, register-blocked FMA with the
+//               output, the running maximum and the running sum in registers.
+//     run_flash serves B1's attention launch (the TPU kernel _layer_kernel,
+//     audio_separator_tpu/ops/attention_block.py:35) and B3
+//     (_fused_attention_kernel, audio_separator_tpu/ops/attention.py:39); the
+//     caller names the kernel (ops/attention.flash_route).
 // The Hopper-only PTX (mbarrier, TMA, wgmma, stmatrix, setmaxnreg) is in
 // hopper.cuh.
 //
@@ -589,7 +596,10 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// float32, on the FMA units (TF32 is not float32). 256 threads as 16 x 16:
+// float32 on the FMA units, for sequences of at most 64 rows and for DH 128
+// (the flagship's frequency axis, 64 rows of which 62 or 60 valid; no main
+// path runs DH 128): flash_tf32x3_kernel below takes the longer ones at DH
+// 64. 256 threads as 16 x 16:
 // thread (ty, tx) owns query rows ty + 16·i (i < RI) of a tile of 16·RI
 // queries, and of every 64-key tile the keys tx + 16·j (j < 4). Its score
 // rows are its output rows, so the output accumulator (RI rows x DH/16
@@ -1001,6 +1011,285 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 }
 
+// float32 on the tensor cores, for sequences of more than 64 rows at DH 64
+// (FLASH_TF32X3; B1's time axis, 832 rows, and B3's 1344 and 2688 rows):
+// both products as 3xTF32 on wgmma, each operand split into
+// a TF32 head and tail as gemm_tf32.cuh splits them (round_tf32), each term
+// a_hi·b_hi + a_hi·b_lo + a_lo·b_hi summed in float32: float32 accuracy
+// (ops/tf32.py has the argument). Bound: 4·BH·n_valid²·64 operations at the
+// TF32 rate over three, 494.7 / 3 = 165 TFLOP/s (the flagship time axis,
+// 1984 sequences of 801 valid keys: 1.98 ms), against 67 on the FMA pipe.
+// A block of three warpgroups takes 128 queries of one (batch, head):
+//   * one thread of the producer warpgroup keeps a ring of FT_RAW_STAGES raw
+//     (K, V) tiles of 64 keys filled by TMA (a three-dimensional map, so rows
+//     past n_rows arrive as zeros, never as the next head's);
+//   * its other three warps split each raw tile into a stage of the split
+//     ring: K's heads and tails at K's own swizzled offsets (the K-major B of
+//     S = Q·Kᵀ as it lies), and V's heads and tails transposed, 64 rows of D
+//     by 64 keys: TF32 wgmma reads B only K-major and has no transpose bit.
+//     The keys of the transposed tiles lie in k_order: P comes to P·V from
+//     the accumulator registers, whose lane t holds columns 2t, 2t + 1 of
+//     each eight, and the A fragment takes those as k = t and t + 4, so V's
+//     rows are permuted in the split instead of P across lanes;
+//   * each consumer warpgroup owns 64 queries, kept in registers and split
+//     there into the A operand of S for each key tile (m64n64k8, three
+//     products a k8 step);
+//     the online softmax runs as flash_fma_kernel's (exp2 with scale·log2e,
+//     running maximum and sum in registers, -1e30 for key columns >=
+//     n_valid); P is split in registers into the A operand of P·V, whose
+//     tile sum (64 keys deep: the tensor cores' adder is good to that
+//     depth, gemm_tf32.cuh) is added to the rescaled output on the FMA pipe.
+// The two consumer warpgroups work at the same key tiles, so one's softmax
+// runs while the other's products are on the tensor cores. Warpgroups whose
+// 64 rows lie wholly past n_rows leave at once. Every key order is fixed and
+// a query row's output comes from one block: no atomics, the same bits from
+// run to run.
+constexpr int FT_N = 64;                          // keys a tile
+constexpr int FT_TILE_BYTES = FT_N * 64 * 4;      // 64 rows of 64 floats: two panels
+constexpr int FT_PANEL_BYTES = FT_TILE_BYTES / 2;
+// 224 KB of rings; three raw stages took 4.48 ms at the flagship time axis,
+// two 4.54 (H100 80GB HBM3, 700 W).
+constexpr int FT_RAW_STAGES = 3, FT_STAGES = 2;
+constexpr int FT_THREADS = 384;
+constexpr int FT_SPLITTERS = 96;                  // warps 9..11 split the tiles
+constexpr size_t FLASH_TF32_SMEM_BYTES =
+    (2 * FT_RAW_STAGES + 4 * FT_STAGES) * FT_TILE_BYTES + 1024 + 2 * (FT_RAW_STAGES + FT_STAGES) * 8;
+
+__device__ __forceinline__ uint32_t tf32_u32(float x) { return __float_as_uint(round_tf32(x)); }
+
+template <class Out>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+flash_tf32x3_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, Out out, int n_rows, int n_valid,
+                    float scale) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* raw = align_1024(smem_raw);  // a stage: K, V as TMA brings them
+    unsigned char* split = raw + 2 * FT_RAW_STAGES * FT_TILE_BYTES;  // K hi, K lo, Vᵀ hi, Vᵀ lo
+    uint64_t* raw_full = reinterpret_cast<uint64_t*>(split + 4 * FT_STAGES * FT_TILE_BYTES);
+    uint64_t* raw_empty = raw_full + FT_RAW_STAGES;
+    uint64_t* split_full = raw_empty + FT_RAW_STAGES;
+    uint64_t* split_empty = split_full + FT_STAGES;
+
+    const int q_tiles = (n_rows + 127) / 128;
+    const int qt = blockIdx.x % q_tiles;
+    const int bh = blockIdx.x / q_tiles;
+    const int key_tiles = (n_valid + FT_N - 1) / FT_N;
+    const int wg = threadIdx.x / 128;
+    const int active = min(2, (n_rows - qt * 128 + 63) / 64);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < FT_RAW_STAGES; ++s) {
+            mbar_init(raw_full + s, 1);
+            mbar_init(raw_empty + s, FT_SPLITTERS);
+        }
+        for (int s = 0; s < FT_STAGES; ++s) {
+            mbar_init(split_full + s, FT_SPLITTERS);
+            mbar_init(split_empty + s, active);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        reg_dealloc<40>();
+        if (threadIdx.x == 256) {
+            for (int kt = 0; kt < key_tiles; ++kt) {
+                const int s = kt % FT_RAW_STAGES;
+                mbar_wait(raw_empty + s, ((kt / FT_RAW_STAGES) & 1) ^ 1);
+                mbar_arrive_expect_tx(raw_full + s, 2 * FT_TILE_BYTES);
+                unsigned char* st = raw + s * 2 * FT_TILE_BYTES;
+#pragma unroll
+                for (int p = 0; p < 2; ++p) {
+                    tma_load_3d(st + p * FT_PANEL_BYTES, &map_k, raw_full + s, 32 * p, kt * FT_N,
+                                bh);
+                    tma_load_3d(st + FT_TILE_BYTES + p * FT_PANEL_BYTES, &map_v, raw_full + s,
+                                32 * p, kt * FT_N, bh);
+                }
+            }
+        } else if (threadIdx.x >= FT_THREADS - FT_SPLITTERS) {
+            // A splitter cannot fall two phases behind on either ring: a raw
+            // stage is refilled only once every splitter has arrived on its
+            // raw_empty, and a split stage only after every splitter's split.
+            const int t = threadIdx.x - (FT_THREADS - FT_SPLITTERS);
+            const int warp = t / 32, lane = t % 32;
+            for (int kt = 0; kt < key_tiles; ++kt) {
+                const int r = kt % FT_RAW_STAGES, s = kt % FT_STAGES;
+                mbar_wait(split_empty + s, ((kt / FT_STAGES) & 1) ^ 1);
+                mbar_wait(raw_full + r, (kt / FT_RAW_STAGES) & 1);
+                const unsigned char* kraw = raw + r * 2 * FT_TILE_BYTES;
+                const unsigned char* vraw = kraw + FT_TILE_BYTES;
+                unsigned char* kh = split + s * 4 * FT_TILE_BYTES;
+                unsigned char* kl = kh + FT_TILE_BYTES;
+                unsigned char* vh = kl + FT_TILE_BYTES;
+                unsigned char* vl = vh + FT_TILE_BYTES;
+#pragma unroll 1
+                for (int u = 16 * t; u < FT_TILE_BYTES; u += 16 * FT_SPLITTERS) {
+                    const float4 x = *reinterpret_cast<const float4*>(kraw + u);
+                    const float4 h = make_float4(round_tf32(x.x), round_tf32(x.y), round_tf32(x.z),
+                                                 round_tf32(x.w));
+                    *reinterpret_cast<float4*>(kh + u) = h;
+                    *reinterpret_cast<float4*>(kl + u) =
+                        make_float4(round_tf32(x.x - h.x), round_tf32(x.y - h.y),
+                                    round_tf32(x.z - h.z), round_tf32(x.w - h.w));
+                }
+                // V: lane l takes key 32·half + l, a warp four columns of D at
+                // a time; the raw reads and the transposed writes of a warp
+                // each fall on 32 banks.
+#pragma unroll 1
+                for (int i = warp; i < 32; i += FT_SPLITTERS / 32) {
+                    const int key = 32 * (i >> 4) + lane, c = 4 * (i & 15), kq = k_order(key);
+                    const float4 x = *reinterpret_cast<const float4*>(vraw + swz<FT_N>(key, c));
+                    const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const float h = round_tf32(xv[j]);
+                        *reinterpret_cast<float*>(vh + swz<64>(c + j, kq)) = h;
+                        *reinterpret_cast<float*>(vl + swz<64>(c + j, kq)) = round_tf32(xv[j] - h);
+                    }
+                }
+                fence_proxy_async();  // the split tiles, before wgmma reads them
+                mbar_arrive(split_full + s);
+                mbar_arrive(raw_empty + r);
+            }
+        }
+    } else if (wg < active) {
+        reg_alloc<232>();
+        const int tid = threadIdx.x % 128, lane = tid % 32, quad = lane % 4;
+        const int wrow = (tid / 32) * 16 + lane / 4;  // rows wrow and wrow + 8 of the 64
+        const int row0 = qt * 128 + wg * 64;
+        const bool elected = tid == 0;
+        const float sl2 = scale * LOG2E;
+
+        // Q in the layout of the A fragments of the eight k8 steps over D:
+        // qx[4·kk + e] is row wrow + 8·(e & 1), column 8·kk + quad + 4·(e >> 1).
+        // Rows past n_rows are zeros. Its heads and tails are made anew for
+        // each tile's S, behind a register fence that keeps the compiler from
+        // hoisting them out of the loop: with the fragments kept in registers
+        // from one tile to the next, ptxas gave their registers to other
+        // values, and every S after the first lost its Q tails (about 1e-4 of
+        // the output, the same bits in every run).
+        float qx[32];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int n = row0 + wrow + 8 * (e & 1);
+            const float* src = q + ((size_t)bh * n_rows + n) * 64 + quad + 4 * (e >> 1);
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) qx[4 * kk + e] = n < n_rows ? __ldg(src + 8 * kk) : 0.f;
+        }
+
+        float o[32];  // runs of eight output columns, laid out as wgmma's d
+        float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+        for (int kt = 0; kt < key_tiles; ++kt) {
+            const int s = kt % FT_STAGES;
+            mbar_wait(split_full + s, (kt / FT_STAGES) & 1);
+            const uint32_t kh = smem_u32(split + s * 4 * FT_TILE_BYTES), kl = kh + FT_TILE_BYTES;
+            const uint32_t vh = kl + FT_TILE_BYTES, vl = vh + FT_TILE_BYTES;
+
+            // S = Q·Kᵀ over the tile's 64 keys.
+            fence_registers(qx);
+            uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float h = round_tf32(qx[4 * kk + e]);
+                    qh[kk][e] = __float_as_uint(h);
+                    ql[kk][e] = tf32_u32(qx[4 * kk + e] - h);
+                }
+            float sc[32];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+                const uint32_t off = (kk >> 2) * FT_PANEL_BYTES + (kk & 3) * 32;
+                const uint64_t dkh = desc_k_major(kh + off);
+                wgmma_tf32_rs_n64(sc, qh[kk], dkh, kk != 0);
+                wgmma_tf32_rs_n64(sc, qh[kk], desc_k_major(kl + off), 1);
+                wgmma_tf32_rs_n64(sc, ql[kk], dkh, 1);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_registers(sc);
+
+            // The online softmax: sc[4j + e] is row wrow + 8·(e >> 1), key
+            // 8j + 2·quad + (e & 1) of the tile.
+            if ((kt + 1) * FT_N > n_valid) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (kt * FT_N + 8 * j + 2 * quad + (e & 1) >= n_valid) sc[4 * j + e] = -1e30f;
+            }
+            float alpha[2], ms[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float mx = -INFINITY;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+                const float m_new = fmaxf(m_run[h], mx);
+                alpha[h] = ex2((m_run[h] - m_new) * sl2);
+                ms[h] = m_new * sl2;
+                m_run[h] = m_new;
+            }
+            // P, split into the A fragments of P·V: register e of step j is
+            // row wrow + 8·(e & 1), position quad + 4·(e >> 1) of the step,
+            // which holds key 8j + 2·quad + (e >> 1) (k_order).
+            uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int i = 4 * j + 2 * (e & 1) + (e >> 1);
+                    const float p = ex2(fmaf(sc[i], sl2, -ms[e & 1]));
+                    lsum[e & 1] += p;
+                    const float h = round_tf32(p);
+                    ph[j][e] = __float_as_uint(h);
+                    pl[j][e] = tf32_u32(p - h);
+                }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+                lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+                l_run[h] = l_run[h] * alpha[h] + lsum[h];
+            }
+
+            // O = O·alpha + P·V, the tile's sum on the tensor cores.
+            float part[32];
+            wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const uint32_t off = (j >> 2) * FT_PANEL_BYTES + (j & 3) * 32;
+                const uint64_t dvh = desc_k_major(vh + off);
+                wgmma_tf32_rs_n64(part, ph[j], dvh, j != 0);
+                wgmma_tf32_rs_n64(part, ph[j], desc_k_major(vl + off), 1);
+                wgmma_tf32_rs_n64(part, pl[j], dvh, 1);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_registers(part);
+            if (elected) mbar_arrive(split_empty + s);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], part[i]);
+        }
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int n = row0 + wrow + 8 * h;
+            if (n >= n_rows) continue;
+            const float f = out.gain(bh, n) / l_run[h];
+            float* dst = out.row(bh, n) + 2 * quad;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                *reinterpret_cast<float2*>(dst + 8 * j) =
+                    make_float2(o[4 * j + 2 * h] * f, o[4 * j + 2 * h + 1] * f);
+        }
+    }
+}
+
 // out = x + round(C + bias): the residual epilogue of the output projection
 // (bias == nullptr) and of the feed-forward's second product. With x ==
 // nullptr too it writes the partial product round(C) alone, neither reading
@@ -1153,12 +1442,31 @@ cudaError_t run_flash_wgmma(const bf16* q, const bf16* k, const bf16* v, Out out
                         n_rows, n_valid, scale);
 }
 
+template <class Out>
+cudaError_t run_flash_tf32x3(const float* q, const float* k, const float* v, Out out, int bh,
+                             int n_rows, int n_valid, float scale, cudaStream_t stream) {
+    CUtensorMap map_k, map_v;
+    cudaError_t err = encode_heads_map_f32(&map_k, k, bh, n_rows, 64, FT_N);
+    if (err != cudaSuccess) return err;
+    err = encode_heads_map_f32(&map_v, v, bh, n_rows, 64, FT_N);
+    if (err != cudaSuccess) return err;
+    return launch_block(flash_tf32x3_kernel<Out>, dim3(bh * ((n_rows + 127) / 128)), FT_THREADS,
+                        FLASH_TF32_SMEM_BYTES, stream, q, map_k, map_v, out, n_rows, n_valid,
+                        scale);
+}
+
+// The kernel an attention launch runs, as the caller chose it from the type,
+// n_rows and dh (ops/attention.flash_route, which numbers them alike).
+enum FlashRoute : int { FLASH_WGMMA = 0, FLASH_FMA = 1, FLASH_TF32X3 = 2 };
+
 // One attention launch over (bh, n_rows, dh) operands, dh 64 or 128; key
-// columns >= n_valid are masked.
+// columns >= n_valid are masked. bf16 takes FLASH_WGMMA; float32 takes
+// FLASH_TF32X3 (dh 64) or FLASH_FMA.
 template <typename T, class Out>
 cudaError_t run_flash(const T* q, const T* k, const T* v, Out out, int bh, int n_rows,
-                      int n_valid, int dh, float scale, cudaStream_t stream) {
+                      int n_valid, int dh, float scale, int route, cudaStream_t stream) {
     if constexpr (sizeof(T) == 2) {
+        if (route != FLASH_WGMMA) return cudaErrorInvalidValue;
         const bool narrow = n_rows <= 64;  // one consumer warpgroup covers the sequence
         if (dh == 64)
             return narrow ? run_flash_wgmma<64, 1>(q, k, v, out, bh, n_rows, n_valid, scale, stream)
@@ -1168,6 +1476,11 @@ cudaError_t run_flash(const T* q, const T* k, const T* v, Out out, int bh, int n
                       : run_flash_wgmma<128, FW_CONSUMERS<128>>(q, k, v, out, bh, n_rows, n_valid,
                                                                 scale, stream);
     } else {
+        if (route == FLASH_TF32X3) {
+            if (dh != 64) return cudaErrorInvalidValue;
+            return run_flash_tf32x3(q, k, v, out, bh, n_rows, n_valid, scale, stream);
+        }
+        if (route != FLASH_FMA) return cudaErrorInvalidValue;
         if (dh == 128)  // 64 queries a block, one block an SM
             return launch(flash_fma_kernel<128, 4, Out>, dim3(bh * ((n_rows + 63) / 64)),
                           FLASH_FMA_SMEM_BYTES<128, 4>, stream, q, k, v, out, n_rows, n_valid,
@@ -1175,8 +1488,7 @@ cudaError_t run_flash(const T* q, const T* k, const T* v, Out out, int bh, int n
         // 16·RI queries a block, two blocks an SM. Every block costs the
         // same, so the launch takes as long as its waves of blocks: take the
         // RI with the least waves x (RI + 2), the 2 standing for what a tile
-        // costs beside its FMAs. Short sequences end up at 64 queries a block
-        // and 1344 or 2688 rows at a tile count that fills the last wave.
+        // costs beside its FMAs. Short sequences end up at 64 queries a block.
         const int slots = 2 * sm_count();
         int ri = 8, best = 0;
         for (int cand : {8, 7, 6, 4}) {

@@ -27,14 +27,17 @@ from ..utils import tracing
 # launch() (or count()), under one lock: jobs of a server launch from several
 # threads. The backward kernels' bf16 forms count under names of their own
 # (``_bf16``); ``group_norm_split`` counts the GroupNorm launches whose rows
-# were split over several blocks (``ops/group_norm.py``).
+# were split over several blocks (``ops/group_norm.py``); ``flash_*`` count
+# the attention launches of B1 (whole and partial) and B3 by the kernel they
+# ran (``ops/attention.FLASH_ROUTES``), so they add up to those three.
 LAUNCHES: Dict[str, int] = {"fused_attention_block": 0, "fused_ff_block": 0,
                             "fused_attention_block_partial": 0,
                             "fused_ff_block_partial": 0, "fused_attention": 0, "attention_backward": 0,
                             "rmsnorm_backward": 0, "gelu_backward": 0,
                             "rope_gate_backward": 0, "attention_backward_bf16": 0,
                             "rmsnorm_backward_bf16": 0, "gelu_backward_bf16": 0,
-                            "rope_gate_backward_bf16": 0, "group_norm": 0, "group_norm_split": 0}
+                            "rope_gate_backward_bf16": 0, "group_norm": 0, "group_norm_split": 0,
+                            "flash_wgmma": 0, "flash_fma": 0, "flash_tf32x3": 0}
 _count_lock = threading.Lock()
 
 
@@ -97,10 +100,10 @@ KERNEL_SOURCES = {"attention_block": "attention_block.cu",
                   "group_norm": "group_norm.cu"}
 _SIGNATURES = {
     "attention_block": ("asep_attention_block",
-                        [_I] + [_P] * 15 + [_I] * 6 + [_P]),
+                        [_I] + [_P] * 15 + [_I] * 7 + [_P]),
     "ff_block": ("asep_ff_block", [_I] + [_P] * 9 + [_I] * 4 + [_P]),
     "attention": ("asep_attention",
-                  [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
+                  [_I, _I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
     "attention_bwd": ("asep_attention_bwd",
                       [_I, _I] + [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]),
     "norm_bwd": ("asep_norm_bwd", [_I] + [_P] * 7 + [_I] * 3 + [_P]),

@@ -31,14 +31,29 @@ reassociation only.
 
 Where the time goes on the card: 4·B·H·N²·D operations over 4·B·H·N·D elements
 of input and output, so the kernel is operation-bound at the HTDemucs shapes
-(N 1344 and 2688). bf16 runs both products on ``wgmma`` (64 queries a consumer
-warpgroup, three of them a block at D 64 and two at D 128, K and V tiles of 128
-keys brought by TMA through a three-dimensional tensor map, so rows past N
-read as zeros, the softmax overlapped with the previous tile's P·V; sequences of
-at most 64 rows get one-warpgroup blocks, two to an SM); float32 runs
-register-blocked FMA tiles (TF32 is not float32) with K and V brought by
-``cp.async`` while the other product runs. In both, scores, output, running maximum and running sum stay
-in registers across key tiles. TMA and the vector loads want 16-byte aligned
+(N 1344 and 2688). Which kernel a launch runs is :func:`flash_route`'s choice,
+from the type, N and the kernel head dimension alone, passed to the C entry
+points of both attention launches (this one and the RoFormer block's) and
+counted in ``LAUNCHES`` under its name:
+
+* ``flash_wgmma`` (bf16): both products on ``wgmma`` (64 queries a consumer
+  warpgroup, three of them a block at D 64 and two at D 128, K and V tiles of
+  128 keys brought by TMA through a three-dimensional tensor map, so rows past
+  N read as zeros, the softmax overlapped with the previous tile's P·V;
+  sequences of at most 64 rows get one-warpgroup blocks, two to an SM);
+* ``flash_tf32x3`` (float32, N > 64 at D 64: the HTDemucs shapes and the
+  RoFormer's time axis): both products on ``wgmma`` as 3xTF32, each operand
+  split into a TF32 head and tail and three TF32 products summed a term in
+  float32, which keeps float32's accuracy (``ops/tf32.py``); bound by the
+  TF32 rate over three, 165 TFLOP/s. K and V come by TMA and are split by
+  the producer warpgroup, V transposed (TF32 ``wgmma`` reads its B operand
+  K-major only); Q and the softmax weights are split in registers;
+* ``flash_fma`` (float32 otherwise: N ≤ 64, the RoFormer's frequency axis,
+  and D 128): register-blocked FMA tiles with K and V brought by
+  ``cp.async`` while the other product runs.
+
+In all three, scores, output, running maximum and running sum stay in
+registers across key tiles. TMA and the vector loads want 16-byte aligned
 operands, which the wrapper checks before the launch.
 
 Gradients: ``dot_product_attention`` is a ``torch.autograd.Function`` on both
@@ -59,14 +74,32 @@ from typing import Optional
 
 import torch
 
-from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind, launch,
-                     load, reset_launch_counts, stream)
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
+                     launch, load, reset_launch_counts, stream)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "attention_ref", "fused_attention",
            "dot_product_attention", "padded_head_dim", "attention_bwd_ref",
-           "attention_backward", "check_backward_dtype"]
+           "attention_backward", "check_backward_dtype", "FLASH_ROUTES", "flash_route"]
 
 KERNEL_HEAD_DIMS = (64, 128)
+
+# The attention kernels by the number the C entry points take for them
+# (``csrc/tiles.cuh``, ``FlashRoute``); each is also a key of ``LAUNCHES``.
+FLASH_ROUTES = ("flash_wgmma", "flash_fma", "flash_tf32x3")
+
+
+def flash_route(dtype: torch.dtype, n_rows: int, dh: int) -> str:
+    """The kernel of one attention launch over ``n_rows`` rows of ``dh``-wide
+    heads (the kernel head dimension, 64 or 128): bf16 on ``wgmma``;
+    float32 as 3xTF32 on ``wgmma`` for more than 64 rows at 64 wide, where
+    the card measured it faster (PERF.md), else on the FMA pipe."""
+    if dtype == torch.bfloat16:
+        return "flash_wgmma"
+    if dtype != torch.float32:
+        raise TypeError(f"no attention kernel for {dtype} (float32, bfloat16)")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel head dimension {dh} is not one of {KERNEL_HEAD_DIMS}")
+    return "flash_tf32x3" if n_rows > 64 and dh == 64 else "flash_fma"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,9 +144,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device_kind(q) != "cuda":
         raise ValueError("fused_attention launches a CUDA kernel; CPU tensors "
                          "go through dot_product_attention")
-    with launch("fused_attention"):
-        b, h, n, d = q.shape
-        dh = padded_head_dim(d)
+    b, h, n, d = q.shape
+    dh = padded_head_dim(d)
+    route = flash_route(q.dtype, n, dh)
+    with launch("fused_attention", route=route):
         if dh != d:
             q, k, v = (torch.nn.functional.pad(t, (0, dh - d)) for t in (q, k, v))
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -121,10 +155,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_cuda_layout(q, k, v, out)
         lib = load("attention")
         with torch.cuda.device(q.device):
-            rc = lib.asep_attention(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                                    v.data_ptr(), out.data_ptr(), b * h, n, dh,
+            rc = lib.asep_attention(DTYPE_CODES[q.dtype], FLASH_ROUTES.index(route), q.data_ptr(),
+                                    k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, dh,
                                     float(scale), stream(q))
         check_rc(lib, rc, "fused_attention")
+        count(route)
     return out[..., :d] if dh != d else out
 
 

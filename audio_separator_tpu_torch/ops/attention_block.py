@@ -65,9 +65,11 @@ also computes the gates, ``σ(xn·gate_w + gate_b)``, from the rounded xn. The
 bf16 QKV product's epilogue works on whole 64×64 head boxes: RoPE on the
 accumulator's own register pairs, q, k, v out by TMA stores. The attention
 launch walks key tiles with an online softmax, with scores and output in
-registers in both types (``wgmma`` fed by TMA in bf16, FMA in float32), so no
-``(n, n)`` score matrix is ever stored, and skips key tiles that lie wholly
-past ``n_valid``. TMA wants 16-byte aligned operands whose rows are multiples
+registers in both types, so no ``(n, n)`` score matrix is ever stored, and
+skips key tiles that lie wholly past ``n_valid``; its kernel is
+``ops/attention.flash_route``'s choice from the type and ``n_pad``: ``wgmma``
+fed by TMA in bf16, in float32 ``wgmma`` as 3xTF32 on the time axis
+(``n_pad`` > 64) and FMA tiles on the frequency axis (64 tokens). TMA wants 16-byte aligned operands whose rows are multiples
 of 16 bytes, so the wrappers check the alignment. The intermediates between
 the launches of one block (xn, q, k, v, gates, merged heads; the FF hidden
 activation) still round-trip through device memory.
@@ -80,8 +82,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, device_kind, launch,
-                     load, reset_launch_counts, stream)
+from ._build import (DTYPE_CODES, LAUNCHES, check_cuda_layout, check_rc, count, device_kind,
+                     launch, load, reset_launch_counts, stream)
+from .attention import FLASH_ROUTES, flash_route
 from .block_backward import attention_block_backward, ff_block_backward
 from .tf32 import prepare_tf32_weight
 
@@ -243,10 +246,12 @@ def _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n
                           tf32_weights, partial):
     """The kernel's launch: ``out`` and the intermediates it writes, ``(xn, q,
     k, v, gates, merged)``, which the backward pass reads."""
-    with launch("fused_attention_block_partial" if partial else "fused_attention_block"):
-        b, n_pad, d = x.shape
-        dh = wqkv.shape[-1] // (3 * heads)
-        check_kernel_dims(d, heads, dh)
+    b, n_pad, d = x.shape
+    dh = wqkv.shape[-1] // (3 * heads)
+    check_kernel_dims(d, heads, dh)
+    route = flash_route(x.dtype, n_pad, dh)
+    with launch("fused_attention_block_partial" if partial else "fused_attention_block",
+                route=route):
         qkv_shape = (b, heads, n_pad, dh)
         q, k, v = (torch.empty(qkv_shape, dtype=x.dtype, device=x.device)
                    for _ in range(3))
@@ -268,8 +273,9 @@ def _attention_block_cuda(x, wqkv, gate_w, gate_b, wo, attn_norm, rope, heads, n
                 sin.data_ptr() if sin is not None else None, xn.data_ptr(),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), gates.data_ptr(),
                 merged.data_ptr(), out.data_ptr(),
-                b, n_pad, d, heads, n_valid, int(partial), stream(x))
+                b, n_pad, d, heads, n_valid, int(partial), FLASH_ROUTES.index(route), stream(x))
         check_rc(lib, rc, "fused_attention_block")
+        count(route)
     return out, (xn, q, k, v, gates, merged)
 
 

@@ -24,7 +24,14 @@ result lines are printed):
    attention at the full-width HTDemucs shapes ((4, 8, 1344, 64) on the time
    branch, (4, 8, 2688, 64) on the frequency branch) and one ragged small
    shape, plus a 128-wide head, with ``scaled_dot_product_attention`` timed
-   beside it as a yardstick that the port never calls; one cuBLAS product of
+   beside it as a yardstick that the port never calls; both float32
+   attention kernels (``flash_tf32x3_kernel``, 3xTF32 on ``wgmma``, and
+   ``flash_fma_kernel``) at every float32 attention shape of the main paths
+   (the RoFormer block's time and frequency axes at BS-RoFormer's and
+   Mel-Band's widths, HTDemucs's two branches), each against its plain
+   version and timed beside its 3xTF32 bound and the float32 library call,
+   with the kernel that ``flash_route`` picks for each, and the 3xTF32 one
+   under ``compute-sanitizer`` where the toolkit has it; one cuBLAS product of
    each bf16 GEMM shape of the two blocks is timed the same way; and the
    GroupNorm kernel at every GroupNorm shape of one HTDemucs forward (plus
    a four-group and a ragged shape), against ``group_norm_ref`` on the same
@@ -33,7 +40,8 @@ result lines are printed):
 4. the flagship Roformer (seeded random weights) on one 8 s window with the
    kernels, against the same module on the CPU (plain versions), float32:
    SDR floor 108.95 dB (the 3xTF32 products' condition: within 10 dB of the
-   FMA products' 118.95), and 24 launches of each kernel; the full-width HTDemucs
+   FMA products' 118.95), and 24 launches of each kernel, the attention's 12
+   on the 3xTF32 route and 12 on the FMA route; the full-width HTDemucs
    (seeded random weights) on one batch of 4 segments the same way: SDR floor
    40 dB per source and 6 launches of the attention kernel; the full-width
    MDX23C (TFC-TDF v3, the published ``model_2_stem_full_band_8k.yaml``
@@ -509,6 +517,147 @@ def phase_attention_kernel(att, seed):
     return records
 
 
+# The float32 attention launches' two kernels at the main path's shapes:
+# name -> (d_model, windows·bands or windows·frames, n_rows, n_valid) of the
+# RoFormer block (time axis: 4 windows of 62 bands, 801 of 832 frames;
+# frequency axis: 4 windows of 801 frames, BS-RoFormer's 62 or Mel-Band's 60
+# of 64 bands; 8 heads of 64), or (None, B·H, N, N) of B3 (HTDemucs's
+# branches).
+FLASH_SHAPES = {"B1 time BS": (512, 248, 832, 801), "B1 time Mel": (384, 248, 832, 801),
+                "B1 freq BS": (512, 3204, 64, 62), "B1 freq Mel": (384, 3204, 64, 60),
+                "B3 time": (None, 32, 1344, 1344), "B3 freq": (None, 32, 2688, 2688)}
+
+
+def phase_flash_routes(ab, att, seed):
+    """Phase 3, the float32 attention kernels side by side: flash_tf32x3_kernel
+    and flash_fma_kernel on every shape, whichever flash_route picks (the C
+    entry points are called with each route's number), each against the
+    plain version, with the kernel's device time (torch.profiler), its bound
+    at the 3xTF32 rate, and scaled_dot_product_attention in float32 over the
+    same rows and keys as a yardstick the port never calls. Returns the
+    records."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_separator_tpu_torch.models.roformer import _rope_tables
+    from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops.tf32 import prepare_tf32_weight
+
+    dev = torch.device("cuda")
+    cur = torch.cuda.current_stream().cuda_stream
+    records = []
+    for label, (d, b, n_rows, n_valid) in FLASH_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        h = 8
+        if d is None:  # B3
+            q, k, v = (torch.randn(4, h, n_rows, 64, generator=g, device=dev) * 0.7
+                       for _ in range(3))
+            want = att.attention_ref(q, k, v, 0.125)
+            lib = _build.load("attention")
+
+            def launch_with(route, out):
+                return lib.asep_attention(0, att.FLASH_ROUTES.index(route), q.data_ptr(),
+                                          k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                                          n_rows, 64, 0.125, cur)
+            out_like = q
+            sdpa = [q, k, v]
+        else:  # B1's attention launch inside the block
+            x = torch.randn(b, n_rows, d, generator=g, device=dev)
+            x[:, n_valid:] = 0
+            w = dict(wqkv=torch.randn(d, 3 * h * 64, generator=g, device=dev) * 0.05,
+                     gate_w=torch.randn(d, h, generator=g, device=dev) * 0.05,
+                     gate_b=torch.randn(h, generator=g, device=dev) * 0.05,
+                     wo=torch.randn(h * 64, d, generator=g, device=dev) * 0.05,
+                     attn_norm=1 + 0.1 * torch.randn(d, generator=g, device=dev))
+            cos, sin = _rope_tables(n_valid, 64, torch.float32, dev)
+            rope = (F.pad(cos, (0, 0, 0, n_rows - n_valid)), F.pad(sin, (0, 0, 0, n_rows - n_valid)))
+            forms = (prepare_tf32_weight(w["wqkv"]), prepare_tf32_weight(w["wo"]))
+            want = ab.fused_attention_block_ref(x, rope=rope, heads=h, n_valid=n_valid, **w)
+            scratch = [torch.empty(b, n_rows, d, device=dev)] + [
+                torch.empty(b, h, n_rows, 64, device=dev) for _ in range(3)] + [
+                torch.empty(b, h, n_rows, device=dev), torch.empty(b, n_rows, h * 64, device=dev)]
+            lib = _build.load("attention_block")
+
+            def launch_with(route, out):
+                return lib.asep_attention_block(
+                    0, x.data_ptr(), forms[0].data_ptr(), w["gate_w"].data_ptr(),
+                    w["gate_b"].data_ptr(), forms[1].data_ptr(), w["attn_norm"].data_ptr(),
+                    rope[0].data_ptr(), rope[1].data_ptr(), *(t.data_ptr() for t in scratch),
+                    out.data_ptr(), b, n_rows, d, h, n_valid, 0, att.FLASH_ROUTES.index(route),
+                    cur)
+            out_like = x
+            sdpa = [torch.randn(b, h, n_rows, 64, generator=g, device=dev) for _ in range(3)]
+        flop = 4 * b * (1 if d is None else h) * n_valid * n_valid * 64
+        bound_ms = flop / PEAK_3XTF32 * 1e3
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(*sdpa), iters=5)
+        del sdpa
+        rec = dict(name="flash_routes", shape=label, bh=b * (1 if d is None else h),
+                   n_rows=n_rows, n_valid=n_valid, route=att.flash_route(torch.float32, n_rows, 64),
+                   bound_3xtf32_ms=bound_ms, library_ms=library_ms)
+        msg = f"[kernels] float32 attention {label} (BH {rec['bh']}, {n_valid} of {n_rows} rows):"
+        for route in ("flash_tf32x3", "flash_fma"):
+            out = torch.empty_like(out_like)
+            _build.check_rc(lib, launch_with(route, out), route)
+            torch.cuda.synchronize()
+            err = compare(out[:, :n_valid] if d else out, want[:, :n_valid] if d else want,
+                          "float32", BLOCK_TOLERANCE)
+            again = torch.empty_like(out_like)
+            launch_with(route, again)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(out, again))
+            split = device_split(lambda: launch_with(route, again))
+            ms = sum(t for name, t in split.items() if "flash" in name) or None
+            rec[route] = dict(ms=ms, bitwise_repeatable=same, **err)
+            msg += (f" {route} " + (f"{ms:.3f} ms" if ms else "not recorded")
+                    + f" (max_abs_err rel {err['max_abs_err'] / err['scale']:.2e}, same bits "
+                    f"twice: {same});")
+            if not err["ok"] or not same:
+                raise AssertionError(f"{route} at {label}: {err}, repeatable {same}")
+            del out, again
+        log(msg + f" 3xTF32 bound {bound_ms:.3f} ms; scaled_dot_product_attention float32 "
+            f"yardstick {library_ms:.3f} ms; flash_route takes {rec['route']}")
+        records.append(rec)
+        del want
+        torch.cuda.empty_cache()
+    return records
+
+
+def sanitizer_check():
+    """The 3xTF32 flash kernel once under compute-sanitizer's racecheck and
+    initcheck at a small shape, where the toolkit has the tool: the summary
+    line of each, or why it did not run (nothing fails on it)."""
+    import shutil
+
+    from audio_separator_tpu_torch.ops import _build
+
+    tool = shutil.which("compute-sanitizer") or os.path.join(
+        os.path.dirname(_build.find_nvcc()), "compute-sanitizer")
+    if not os.path.exists(tool):
+        log("[kernels] compute-sanitizer: not in the toolkit; racecheck and initcheck not run")
+        return {"sanitizer": None}
+    code = ("import torch\nfrom audio_separator_tpu_torch.ops import attention as att\n"
+            "q = torch.randn(1, 2, 200, 64, device='cuda')\n"
+            "att.dot_product_attention(q, q, q)\ntorch.cuda.synchronize()\n")
+    result = {}
+    for check in ("racecheck", "initcheck"):
+        try:
+            run = subprocess.run([tool, "--tool", check, sys.executable, "-c", code], cwd=REPO,
+                                 capture_output=True, text=True, timeout=600)
+            lines = (run.stdout + run.stderr).strip().splitlines()
+            # The tool's own failure (an unsupported device, say) comes first
+            # as "========= Error: ...", and its summary then counts it.
+            failed = next((line for line in lines if "= Error:" in line), None)
+            summary = (f"did not check the kernel: {failed.strip('= ')}" if failed else
+                       next((line for line in reversed(lines) if "SUMMARY" in line),
+                            lines[-1] if lines else f"exit {run.returncode}, no output"))
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            summary = f"did not run: {exc}"
+        result[check] = summary
+        log(f"[kernels] compute-sanitizer --tool {check}, flash_tf32x3 at (1, 2, 200, 64): "
+            f"{summary}")
+    return {"sanitizer": result}
+
+
 # GroupNorm kernel against group_norm_ref on the same card tensors: both sum
 # the float32 statistics of rows of up to 8.3 M elements, in different orders
 # (good to some 1e-7 of the scale), and the apply pass adds a few float32
@@ -694,6 +843,11 @@ def phase_model(ab, seed):
                              f"(3xTF32 float32 products)")
     if any(launches[name] != expected for name in ("fused_attention_block", "fused_ff_block")):
         raise AssertionError(f"launch counts {launches}, expected {expected} each")
+    # The time axis (801 -> 832 tokens) takes the 3xTF32 flash kernel, the
+    # frequency axis (62 -> 64 bands) the FMA one: half the layers each.
+    routes = {"flash_tf32x3": expected // 2, "flash_fma": expected // 2, "flash_wgmma": 0}
+    if any(launches[name] != n for name, n in routes.items()):
+        raise AssertionError(f"route counts {launches}, expected {routes}")
     return {"sdr_db": sdr, "launches": launches}
 
 
@@ -707,13 +861,32 @@ HTDEMUCS_LAUNCHES_PER_FORWARD = 6  # self-attention layers 0, 2, 4 on both branc
 HTDEMUCS_GROUP_NORMS_PER_FORWARD = 42
 
 
+# The attention launches of B1 (whole and partial) and B3 are counted again
+# by the kernel each ran (``flash_*``, ops/attention.FLASH_ROUTES), which their
+# type and shape choose; the exact launch checks leave those counts out
+# (without_routes) once they add up.
+def without_routes(launches):
+    """``launches`` without the ``flash_*`` route counts, after checking that
+    they add up to the attention launches."""
+    from audio_separator_tpu_torch.ops.attention import FLASH_ROUTES
+
+    routed = sum(launches.get(name, 0) for name in FLASH_ROUTES)
+    attention = sum(launches.get(name, 0) for name in
+                    ("fused_attention_block", "fused_attention_block_partial", "fused_attention"))
+    if routed != attention:
+        raise AssertionError(f"route counts {routed} != attention launches {attention}: "
+                             f"{launches}")
+    return {name: n for name, n in launches.items() if name not in FLASH_ROUTES}
+
+
 def launches_to_compare(launches):
-    """``launches`` without ``group_norm_split``, after checking that it lies
-    between 0 and the GroupNorm launches."""
+    """``launches`` without ``group_norm_split`` (after checking that it lies
+    between 0 and the GroupNorm launches) and without the route counts."""
     split = launches.get("group_norm_split", 0)
     if not 0 <= split <= launches.get("group_norm", 0):
         raise AssertionError(f"group_norm_split {split} outside 0..group_norm: {launches}")
-    return {name: n for name, n in launches.items() if name != "group_norm_split"}
+    return {name: n for name, n in without_routes(launches).items()
+            if name != "group_norm_split"}
 
 
 def phase_htdemucs_model(att, seed):
@@ -3283,7 +3456,7 @@ def timed_steps(tag, step, mix, target, count, plan):
 
     from audio_separator_tpu_torch.ops import _build
 
-    losses, times, total = [], [], dict.fromkeys(_build.LAUNCHES, 0)
+    losses, times, total = [], [], dict.fromkeys(without_routes(_build.LAUNCHES), 0)
     with tf32_switches_on():
         for i in range(count):
             torch.cuda.synchronize()
@@ -3292,7 +3465,7 @@ def timed_steps(tag, step, mix, target, count, plan):
             losses.append(float(step(mix, target)))  # float() waits for the step
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            launches = dict(_build.LAUNCHES)
+            launches = without_routes(dict(_build.LAUNCHES))
             for name, n in launches.items():
                 total[name] += n
             if launches != plan:
@@ -4140,6 +4313,8 @@ def main(argv=None) -> int:
         return 0
 
     records = phase_kernels(ab, args.seed) + phase_attention_kernel(att, args.seed)
+    flash_routes = phase_flash_routes(ab, att, args.seed)
+    sanitizer = sanitizer_check()
     gn_records, gn_forward = phase_group_norm_kernel(args.seed)
     model = phase_model(ab, args.seed)
     htdemucs = phase_htdemucs_model(att, args.seed)
@@ -4204,6 +4379,10 @@ def main(argv=None) -> int:
             "ensemble_launches": ensemble["launches"][name],
             "remote_launches": remote["launches"][name],
             "training_launches": training["launches"][name],
+            # float32: both attention kernels at this launch's shapes
+            "flash_routes": [r for r in flash_routes if r["shape"].startswith(
+                "B3" if name == "fused_attention" else "B1")] if name != "fused_ff_block" else None,
+            **(sanitizer if name == "fused_attention" else {}),
         })
     # The GroupNorm kernel: the main path is the Demucs separator's; headline
     # numbers per launch, averaged over one HTDemucs forward's launches.

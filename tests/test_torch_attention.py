@@ -8,6 +8,7 @@ kernel to the einsum path; bf16 within two bf16 steps (2·2⁻⁸) of the output
 scale, since both sides round the softmax weights and the result to bf16 and
 may land on neighbouring values."""
 
+import contextlib
 import ctypes
 import os
 import re
@@ -21,6 +22,7 @@ import jax.numpy as jnp
 from audio_separator_tpu.ops.attention import _einsum_attention, _pallas_fused_attention
 from audio_separator_tpu_torch.ops import _build
 from audio_separator_tpu_torch.ops import attention as att
+from audio_separator_tpu_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -124,6 +126,84 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_odd_head_dims():
             att.padded_head_dim(d)
 
 
+# (type, rows, kernel head dimension) -> the attention kernel: both axes of
+# the BS-RoFormer and Mel-Band flagships (801 -> 832 frames; 62 and 60 bands
+# -> 64), HTDemucs's two branches (1344, 2688), the tile edges around 64
+# rows, a 128-wide head and bf16.
+FLASH_ROUTE_CASES = [
+    (torch.float32, 832, 64, "flash_tf32x3"),
+    (torch.float32, 64, 64, "flash_fma"),
+    (torch.float32, 1344, 64, "flash_tf32x3"),
+    (torch.float32, 2688, 64, "flash_tf32x3"),
+    (torch.float32, 65, 64, "flash_tf32x3"),
+    (torch.float32, 1, 64, "flash_fma"),
+    (torch.float32, 1344, 128, "flash_fma"),
+    (torch.float32, 64, 128, "flash_fma"),
+    (torch.bfloat16, 832, 64, "flash_wgmma"),
+    (torch.bfloat16, 64, 64, "flash_wgmma"),
+    (torch.bfloat16, 2688, 128, "flash_wgmma"),
+]
+
+
+@pytest.mark.parametrize("dtype,n_rows,dh,route", FLASH_ROUTE_CASES)
+def test_flash_route_follows_type_rows_and_head_dim(dtype, n_rows, dh, route):
+    assert att.flash_route(dtype, n_rows, dh) == route
+    assert route in att.FLASH_ROUTES and route in _build.LAUNCHES
+
+
+def test_flash_route_refuses_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="float16"):
+        att.flash_route(torch.float16, 832, 64)
+    with pytest.raises(ValueError, match="head dimension"):
+        att.flash_route(torch.float32, 832, 96)
+
+
+class _RecordingLib:
+    """A stand-in for a kernel library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("asep_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _on_a_pretend_card(monkeypatch, module, lib):
+    monkeypatch.setattr(module, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(module, "load", lambda name: lib)
+    monkeypatch.setattr(module, "stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+
+
+@pytest.mark.parametrize("n,d,route", [(300, 64, "flash_tf32x3"), (64, 64, "flash_fma"),
+                                       (200, 128, "flash_fma"), (300, 48, "flash_tf32x3")])
+def test_kernel_wrapper_passes_and_counts_the_route(monkeypatch, n, d, route):
+    """The wrapper hands flash_route's choice (for the padded head) to the C
+    entry point as its number, counts the launch under the route's name and
+    puts the route on the launch's span record."""
+    lib = _RecordingLib()
+    _on_a_pretend_card(monkeypatch, att, lib)
+    saved = dict(_build.LAUNCHES)
+    tracing.clear()
+    tracing.enable()
+    try:
+        q = torch.zeros(1, 2, n, d)
+        att.fused_attention(q, q, q, 0.125)
+        records = [r for r in tracing.records() if r.name == "kernel.fused_attention"]
+        (name, args), = lib.calls
+        assert name == "asep_attention" and args[1] == att.FLASH_ROUTES.index(route)
+        assert [r.attrs for r in records] == [{"route": route}]
+        assert _build.LAUNCHES["fused_attention"] == saved["fused_attention"] + 1
+        for r in att.FLASH_ROUTES:
+            assert _build.LAUNCHES[r] == saved[r] + (r == route)
+    finally:
+        tracing.disable()
+        tracing.clear()
+        _build.LAUNCHES.update(saved)
+
+
 def test_cuda_source_entry_point_matches_ctypes_signature():
     """``csrc/attention.cu`` exists, exposes ``asep_attention`` with a plain C
     interface whose parameters line up with the ctypes argtypes, and builds on
@@ -146,7 +226,8 @@ def test_cuda_source_entry_point_matches_ctypes_signature():
     # Both callers go through the one launcher, and behind it there is one
     # kernel per type: the earlier kernels are gone, not kept as a second path.
     assert "run_flash(" in source and "run_flash(" in block_source
-    for kernel in ("flash_fma_kernel", "flash_wgmma_kernel", "gemm_wgmma_kernel"):
+    for kernel in ("flash_fma_kernel", "flash_wgmma_kernel", "flash_tf32x3_kernel",
+                   "gemm_wgmma_kernel"):
         assert f"\n{kernel}(" in tiles
     for gone in ("flash_mma_kernel", "gemm_mma_kernel", "mma.sync", "ldmatrix"):
         assert gone not in tiles + source + block_source

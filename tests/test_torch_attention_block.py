@@ -5,6 +5,8 @@ composed ops; the wrappers' argument checks; the kernel loader without nvcc.
 Tolerance: atol 3e-5 in float32, as tests/test_attention.py holds the Pallas
 kernels to the composed ops."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,9 @@ from audio_separator_tpu.ops.attention_block import (
 from audio_separator_tpu.ops.attention_block import fused_ff_block as jax_fused_ff_block
 from audio_separator_tpu_torch.models.roformer import _rope_tables
 from audio_separator_tpu_torch.ops import _build
+from audio_separator_tpu_torch.ops import attention as att
 from audio_separator_tpu_torch.ops import attention_block as ab
+from audio_separator_tpu_torch.utils import tracing
 
 # (n, b, rope, group, gran, d, heads, dim_head): the four cases of
 # tests/test_attention.py plus one flagship-width layer (d 512, 8 x 64,
@@ -295,6 +299,49 @@ def test_block_wrappers_refuse_misaligned_operands_before_any_build(monkeypatch,
     with pytest.raises(AssertionError, match="loader was reached"):
         call(**args)
     assert ab.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,n_pad,partial,route", [
+    (torch.float32, 832, False, "flash_tf32x3"), (torch.float32, 64, False, "flash_fma"),
+    (torch.float32, 128, True, "flash_tf32x3"), (torch.bfloat16, 832, False, "flash_wgmma")])
+def test_attention_block_passes_and_counts_the_route(monkeypatch, dtype, n_pad, partial, route):
+    """The block hands its attention launch's route (flash_route of its type
+    and n_pad at 64-wide heads) to the C entry point as its number, counts it
+    under the route's name beside the block's own count, and puts it on the
+    launch's span record."""
+    calls = []
+
+    class Lib:
+        def asep_attention_block(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(ab, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(ab, "load", lambda name: Lib())
+    monkeypatch.setattr(ab, "stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    d, h = 64, 2
+    name = "fused_attention_block_partial" if partial else "fused_attention_block"
+    saved = dict(_build.LAUNCHES)
+    tracing.clear()
+    tracing.enable()
+    try:
+        ab.fused_attention_block(torch.zeros(1, n_pad, d, dtype=dtype),
+                                 torch.zeros(d, 3 * h * 64, dtype=dtype),
+                                 torch.zeros(d, h, dtype=dtype), torch.zeros(h, dtype=dtype),
+                                 torch.zeros(h * 64, d, dtype=dtype), torch.ones(d, dtype=dtype),
+                                 None, h, n_pad - 3, partial=partial)
+        (args,) = calls
+        assert args[-2] == att.FLASH_ROUTES.index(route) and args[-3] == int(partial)
+        assert [r.attrs for r in tracing.records() if r.name == "kernel." + name] == [
+            {"route": route}]
+        assert _build.LAUNCHES[name] == saved[name] + 1
+        for r in att.FLASH_ROUTES:
+            assert _build.LAUNCHES[r] == saved[r] + (r == route)
+    finally:
+        tracing.disable()
+        tracing.clear()
+        _build.LAUNCHES.update(saved)
 
 
 @pytest.mark.parametrize("block", ["attention", "ff"])

@@ -7,10 +7,11 @@ skips without one. Run on the card with
 (``--noconftest``: tests/conftest.py imports JAX, which the port does not need.)
 
 Tolerances (relative to the reference's largest magnitude) are those of
-chip_smoke.py: float32 1e-4 max / 1e-5 mean (the whole-sequence attention on
-the FMA pipe), and 1e-5 max / 1e-6 mean for the RoFormer blocks, whose float32
-products run as 3xTF32 on the tensor cores (a term good to about 2⁻²¹, float32
-sums: the float32 level); bf16 four bf16 steps max (4·2⁻⁸) and a quarter step
+chip_smoke.py: float32 1e-4 max / 1e-5 mean (the whole-sequence attention
+across its shapes), and 1e-5 max / 1e-6 mean for the RoFormer blocks, whose
+float32 products run as 3xTF32 on the tensor cores (a term good to about 2⁻²¹,
+float32 sums: the float32 level), and for both attention launches' float32
+routes by themselves; bf16 four bf16 steps max (4·2⁻⁸) and a quarter step
 mean."""
 
 import numpy as np
@@ -257,6 +258,61 @@ def test_float32_blocks_at_the_flagship_shapes(cuda, axis):
     _close(ab.fused_ff_block(x, **ff), ab.fused_ff_block_ref(x, **ff), torch.float32, BLOCK_TOL)
 
 
+# The 3xTF32 flash route (flash_tf32x3_kernel) in the attention block: B1's
+# time axis at the BS-RoFormer (d 512) and Mel-Band (d 384) widths, 801 of 832
+# rows, and key counts at the tile edges (65, 127), one short of the padded
+# length (800) and all of it (832).
+@pytest.mark.parametrize("d,b,n_valid", [(512, 248, 801), (384, 248, 801), (512, 16, 65),
+                                         (512, 16, 127), (512, 16, 800), (512, 16, 832)])
+def test_tf32x3_flash_route_in_the_attention_block(cuda, d, b, n_valid):
+    """Within 1e-5 of the output scale of the float32 plain version, the same
+    bits twice, and both launches counted on the route."""
+    n_pad = -(-n_valid // 64) * 64
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn(b, n_pad, d, generator=g, device=cuda)
+    x[:, n_valid:] = 0
+    w = _block_weights(g, cuda, torch.float32, d, 8)
+    cos, sin = _rope_tables(n_valid, 64, torch.float32, cuda)
+    tables = (F.pad(cos, (0, 0, 0, n_pad - n_valid)), F.pad(sin, (0, 0, 0, n_pad - n_valid)))
+    forms = (prepare_tf32_weight(w["wqkv"]), prepare_tf32_weight(w["wo"]))
+    before = dict(ab.LAUNCHES)
+    got = ab.fused_attention_block(x, rope=tables, heads=8, n_valid=n_valid, tf32_weights=forms,
+                                   **w)
+    again = ab.fused_attention_block(x, rope=tables, heads=8, n_valid=n_valid,
+                                     tf32_weights=forms, **w)
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES["flash_tf32x3"] == before["flash_tf32x3"] + 2
+    assert ab.LAUNCHES["flash_fma"] == before["flash_fma"]
+    assert torch.equal(got, again)
+    want = ab.fused_attention_block_ref(x, rope=tables, heads=8, n_valid=n_valid, **w)
+    _close(got[:, :n_valid], want[:, :n_valid], torch.float32, BLOCK_TOL)
+
+
+# B3 at HTDemucs's two branches and at short ragged lengths on the 3xTF32
+# route; 64 rows and a 128-wide head stay on the FMA route.
+@pytest.mark.parametrize("shape,route", [((4, 8, 1344, 64), "flash_tf32x3"),
+                                         ((4, 8, 2688, 64), "flash_tf32x3"),
+                                         ((2, 2, 65, 64), "flash_tf32x3"),
+                                         ((1, 3, 127, 64), "flash_tf32x3"),
+                                         ((2, 3, 300, 48), "flash_tf32x3"),
+                                         ((40, 8, 64, 64), "flash_fma"),
+                                         ((2, 2, 700, 128), "flash_fma")])
+def test_float32_whole_sequence_attention_routes(cuda, shape, route):
+    """Within 1e-5 of the output scale (the float32 level, as the blocks are
+    held) on both routes, the same bits twice, each launch counted on its
+    route."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda) * 0.7 for _ in range(3))
+    before = dict(att.LAUNCHES)
+    got = att.dot_product_attention(q, k, v)
+    again = att.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    for r in att.FLASH_ROUTES:
+        assert att.LAUNCHES[r] == before[r] + 2 * (r == route)
+    assert torch.equal(got, again)
+    _close(got, att.attention_ref(q, k, v, shape[-1] ** -0.5), torch.float32, BLOCK_TOL)
+
+
 def test_cuda_wrappers_reject_misaligned_operands(cuda):
     """TMA and the vector loads need 16-byte aligned operands: a view that
     starts 4 bytes into a buffer raises before any launch."""
@@ -321,7 +377,9 @@ def test_model_forward_on_card_matches_cpu(cuda):
                            "rmsnorm_backward": 0, "gelu_backward": 0,
                            "rope_gate_backward": 0, "attention_backward_bf16": 0,
                            "rmsnorm_backward_bf16": 0, "gelu_backward_bf16": 0,
-                           "rope_gate_backward_bf16": 0, "group_norm": 0, "group_norm_split": 0}
+                           "rope_gate_backward_bf16": 0, "group_norm": 0, "group_norm_split": 0,
+                           # time axis 129 -> 192 frames, frequency axis 3 -> 64 bands
+                           "flash_wgmma": 0, "flash_fma": 1, "flash_tf32x3": 1}
     sdr = 10 * np.log10(float((want ** 2).sum()) / float(((want - got) ** 2).sum()))
     assert sdr >= 40.0
 
@@ -804,7 +862,7 @@ def test_block_functions_bf16_backward_launch_the_bf16_forms(cuda, b, n_valid):
     blocks = {
         "attention": (ab.fused_attention_block, dict(heads=h, n_valid=n_valid),
                       _block_weights(g, cuda, BF, d, h),
-                      {"fused_attention_block": 1, "attention_backward_bf16": 1,
+                      {"fused_attention_block": 1, "flash_wgmma": 1, "attention_backward_bf16": 1,
                        "rope_gate_backward_bf16": 1, "rmsnorm_backward_bf16": 1}),
         "feedforward": (ab.fused_ff_block, {}, dict(
             ff_norm=(1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(BF),

@@ -339,6 +339,7 @@ def gates_table():
     import torch
 
     from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops import attention as att
     from audio_separator_tpu_torch.ops import attention_block as ab
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -370,7 +371,8 @@ def gates_table():
                 1, x.data_ptr(), wqkv.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
                 wqkv.data_ptr(), norm.data_ptr(), None, None, xn.data_ptr(), xn.data_ptr(),
                 xn.data_ptr(), xn.data_ptr(), gates.data_ptr(), xn.data_ptr(), xn.data_ptr(), b,
-                n_pad, d, heads, 801, 0, torch.cuda.current_stream().cuda_stream)
+                n_pad, d, heads, 801, 0, att.FLASH_ROUTES.index(att.flash_route(torch.bfloat16, n_pad, 64)),
+                torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"variant {name!r}: CUDA error {rc}")
 
@@ -453,6 +455,7 @@ def qkv_power_table():
     import torch
 
     from audio_separator_tpu_torch.ops import _build
+    from audio_separator_tpu_torch.ops import attention as att
     from audio_separator_tpu_torch.ops.tf32 import prepare_tf32_weight
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -487,7 +490,8 @@ def qkv_power_table():
                 gate_b.data_ptr(), wo.data_ptr(), norm.data_ptr(), cos.data_ptr(),
                 sin.data_ptr(), xn.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 gates.data_ptr(), merged.data_ptr(), out.data_ptr(), b, n_pad, d, heads, 801,
-                0, torch.cuda.current_stream().cuda_stream)
+                0, att.FLASH_ROUTES.index(att.flash_route(dtype, n_pad, 64)),
+                torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"qkv only: CUDA error {rc}")
 
